@@ -25,8 +25,8 @@
 //   - the (n, 2) dots and (n,) scores never reach device memory: the score
 //     epilogue and the argmax run in registers;
 //   - a grid-stride loop over rows with one packed 64-bit atomicMax per
-//     block (order-preserving score bits high, 0xFFFFFFFF - index low, so
-//     the lowest index wins ties), then a one-thread kernel decodes it.
+//     block (select_key.cuh: the lowest index wins ties), then a one-thread
+//     kernel decodes it.
 //     The TPU kernel's sequential running accumulator has no counterpart:
 //     blocks on Hopper run in parallel and in no order.
 // The score epilogue uses the _rn intrinsics so that FMA contraction
@@ -37,6 +37,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "select_key.cuh"
 
 namespace {
 
@@ -79,15 +81,6 @@ __device__ __forceinline__ void chunk_dot_f32(int4 v, int4 p, int4 q, float& a0,
   a0 = fmaf(x.z, y.z, a0); a0 = fmaf(x.w, y.w, a0);
   a1 = fmaf(x.x, z.x, a1); a1 = fmaf(x.y, z.y, a1);
   a1 = fmaf(x.z, z.z, a1); a1 = fmaf(x.w, z.w, a1);
-}
-
-// Order-preserving map of a float onto uint32, packed with the inverted
-// row index: a larger key is a larger score, then a lower index.
-__device__ __forceinline__ unsigned long long pack_key(float s, long long row) {
-  const unsigned int b = __float_as_uint(s);
-  const unsigned int u = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-  return ((unsigned long long)u << 32) |
-         (unsigned long long)(0xFFFFFFFFu - (unsigned int)row);
 }
 
 template <int DT>
@@ -150,15 +143,6 @@ giga_select_kernel(const int4* __restrict__ V, long long n, int chunks,
   }
 }
 
-__global__ void giga_select_finish(const unsigned long long* __restrict__ key,
-                                   int* __restrict__ idx, float* __restrict__ score) {
-  const unsigned long long k = *key;
-  const unsigned int u = (unsigned int)(k >> 32);
-  const unsigned int b = (u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u;
-  *idx = (int)(0xFFFFFFFFu - (unsigned int)(k & 0xFFFFFFFFull));
-  *score = __uint_as_float(b);
-}
-
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  V: (n, row_bytes / elem) rows,
@@ -193,7 +177,7 @@ extern "C" int giga_select_launch(const void* V, int dtype, long long n,
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  giga_select_finish<<<1, 1, 0, s>>>(k, reinterpret_cast<int*>(idx),
-                                     reinterpret_cast<float*>(score));
+  select_finish<<<1, 1, 0, s>>>(k, reinterpret_cast<int*>(idx),
+                                reinterpret_cast<float*>(score));
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,54 @@
+"""The samplers' random draws, named by the role each plays.
+
+JAX threads a key through every kernel and splits it; the port's kernels
+ask a draw source instead, one method per role, each for all C chains at
+once.  :class:`Draws` is backed by a ``torch.Generator`` and is what the
+samplers use.  Any object with the same methods serves: the tests give the
+kernels a source that replays, role by role, the draws ``jax.random`` makes
+from a key, so that one transition can be held against the JAX kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class Draws:
+    """Draws from ``gen``, made on its device and moved to ``device``."""
+
+    def __init__(self, gen: torch.Generator):
+        self.gen = gen
+
+    def _rand(self, n: int, device) -> torch.Tensor:
+        return torch.rand((n,), generator=self.gen, device=self.gen.device).to(device)
+
+    def momentum(self, shape, dtype, device) -> torch.Tensor:
+        """Standard normals (C, d) behind the momentum."""
+        return torch.randn(shape, generator=self.gen, dtype=dtype,
+                           device=self.gen.device).to(device)
+
+    def direction(self, n: int, device) -> torch.Tensor:
+        """(C,) bool: extend the NUTS trajectory forward in time."""
+        return self._rand(n, device) < 0.5
+
+    def leaf_uniform(self, n: int, device) -> torch.Tensor:
+        """(C,) uniforms of the multinomial proposal within a subtree."""
+        return self._rand(n, device)
+
+    def tree_uniform(self, n: int, device) -> torch.Tensor:
+        """(C,) uniforms of the biased proposal across doublings."""
+        return self._rand(n, device)
+
+    def accept_uniform(self, n: int, device) -> torch.Tensor:
+        """(C,) uniforms of HMC's Metropolis correction."""
+        return self._rand(n, device)
+
+    def num_steps(self, n: int, high: int, device) -> torch.Tensor:
+        """(C,) int64 trajectory lengths, uniform in [1, high]."""
+        return torch.randint(1, high + 1, (n,), generator=self.gen,
+                             device=self.gen.device).to(device)
+
+
+def as_draws(source) -> Draws:
+    """A ``torch.Generator`` becomes a :class:`Draws`; a draw source is kept."""
+    return Draws(source) if isinstance(source, torch.Generator) else source

@@ -1,0 +1,127 @@
+"""NUTS driver: warmup and sampling for C chains at once.
+
+Port of ``bayesian_coresets_tpu/mcmc/sample.py`` (which replaces the
+reference's pystan driver, examples/common/mcmc.py:58-68).  JAX vmaps one
+chain's warmup and sampling scans; here every step is one batched NUTS
+transition of all chains.  Adaptation runs per chain by default (each
+chain its own dual averaging, Welford state and metric) or pooled across
+chains (one step size and one metric for all).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from .adapt import (
+    build_segments,
+    da_init,
+    da_update,
+    find_reasonable_step_size,
+    welford_init,
+    welford_update,
+    welford_update_batch,
+    welford_variance,
+)
+from .draws import as_draws
+from .integrators import IntegratorState, mass_chol, value_and_grad
+from .nuts import nuts_kernel
+
+
+class MCMCResult(NamedTuple):
+    samples: torch.Tensor        # (num_chains, num_samples, d)
+    accept_prob: torch.Tensor    # (num_chains,) mean sampling-phase acceptance
+    num_divergent: torch.Tensor  # (num_chains,)
+    step_size: torch.Tensor      # (num_chains,) adapted step size
+    inv_mass: torch.Tensor       # (num_chains, d) diag metric, (num_chains, d, d) dense
+    tree_depth: torch.Tensor | None = None   # (num_chains,) mean sampling-phase depth
+
+    @property
+    def inv_mass_diag(self):
+        """Deprecated alias kept from the JAX package: the field holds full
+        (d, d) matrices in dense mode."""
+        return self.inv_mass
+
+
+def _shared(x: torch.Tensor, C: int) -> torch.Tensor:
+    """One pooled value as every chain's (C,)-leading view."""
+    return x.expand((C,) + tuple(x.shape))
+
+
+def _reasonable_step(vg, state, inv_mass, chol, draws, pooled, init_step=1.0):
+    """Per-chain reasonable step sizes; pooled: their median, which one
+    outlying start cannot drag (``torch.quantile`` averages the two middle
+    values of an even count, as ``jnp.median`` does; ``torch.median`` would
+    take the lower one)."""
+    steps = find_reasonable_step_size(vg, state.z, state.logp, state.grad, inv_mass,
+                                      draws, init_step=init_step, chol=chol)
+    return torch.quantile(steps, 0.5) if pooled else steps
+
+
+def run_nuts(logdensity_fn: Callable, init_params: torch.Tensor, gen,
+             num_warmup: int = 1000, num_samples: int = 1000,
+             max_depth: int = 10, target_accept: float = 0.8,
+             pooled_adaptation: bool = False,
+             dense_mass: bool = False) -> MCMCResult:
+    """Sample with NUTS.  ``logdensity_fn``: batched, (C, d) -> (C,);
+    ``init_params``: (num_chains, d); ``gen``: a ``torch.Generator`` (or a
+    draw source).  Returns all chains.
+
+    ``target_accept`` default 0.8; the reference drivers use Stan's
+    adapt_delta=0.9.  ``pooled_adaptation=True`` shares the step size and
+    the metric across all chains (means over chains drive dual averaging;
+    Welford merges every chain's positions).  ``dense_mass=True`` adapts a
+    full (d, d) covariance metric (Stan's ``dense_e``); ``inv_mass`` in the
+    result then holds (num_chains, d, d) matrices.
+    """
+    draws = as_draws(gen)
+    segments = build_segments(num_warmup)
+    vg = value_and_grad(logdensity_fn)
+    C, d = init_params.shape
+    dtype, dev = init_params.dtype, init_params.device
+    pooled = pooled_adaptation
+
+    logp0, grad0 = vg(init_params)
+    state = IntegratorState(init_params, torch.zeros_like(init_params), logp0, grad0)
+    metric = (torch.eye(d, dtype=dtype, device=dev) if dense_mass
+              else torch.ones(d, dtype=dtype, device=dev))
+    inv_mass = _shared(metric, C)
+    chol = mass_chol(inv_mass)
+    da = da_init(_reasonable_step(vg, state, inv_mass, chol, draws, pooled))
+    wbatch = () if pooled else (C,)
+    wf = welford_init(d, dtype, dense=dense_mass, batch=wbatch, device=dev)
+
+    # one metric and factor per segment; at window boundaries swap in the
+    # new metric, re-search a reasonable step under it, restart dual
+    # averaging and Welford (Stan semantics, adapt.build_segments)
+    for length, slow, boundary in segments:
+        for _ in range(length):
+            state, info = nuts_kernel(vg, draws, state, torch.exp(da.log_step), inv_mass,
+                                      max_depth, inv_mass_chol=chol)
+            acc = info.accept_prob.mean() if pooled else info.accept_prob
+            da = da_update(da, acc, target=target_accept)
+            if slow:
+                wf = (welford_update_batch(wf, state.z) if pooled
+                      else welford_update(wf, state.z))
+        if boundary:
+            metric = welford_variance(wf)
+            inv_mass = _shared(metric, C) if pooled else metric
+            chol = mass_chol(inv_mass)
+            da = da_init(_reasonable_step(vg, state, inv_mass, chol, draws, pooled,
+                                          init_step=torch.exp(da.log_step)))
+            wf = welford_init(d, dtype, dense=dense_mass, batch=wbatch, device=dev)
+
+    step_size = torch.exp(da.log_step_avg)
+    zs, accepts, divs, depths = [], [], [], []
+    for _ in range(num_samples):
+        state, info = nuts_kernel(vg, draws, state, step_size, inv_mass, max_depth,
+                                  inv_mass_chol=chol)
+        zs.append(state.z)
+        accepts.append(info.accept_prob)
+        divs.append(info.diverging)
+        depths.append(info.depth)
+    mean = lambda xs: torch.stack(xs, dim=1).float().mean(dim=1)  # noqa: E731
+    return MCMCResult(torch.stack(zs, dim=1), mean(accepts),
+                      torch.stack(divs, dim=1).sum(dim=1),
+                      step_size.expand(C).clone(), inv_mass.contiguous(), mean(depths))

@@ -1,9 +1,10 @@
 """Bayesian logistic regression with the z = y*x folding trick.
 
 Port of ``bayesian_coresets_tpu/models/logistic.py`` (reference
-``examples/common/model_lr.py:3-116``): stable log-likelihood,
-standard-normal prior, closed-form gradients and the weighted log-joint
-Hessian as one contraction.
+``examples/common/model_lr.py:3-116``): stable log-likelihood and its
+stable per-datum difference from a reference point, standard-normal prior,
+closed-form gradients and the weighted log-joint Hessian as one
+contraction.
 
 Data convention: each row z_i = y_i * x_i with y in {-1, +1}, so
   log p(y_i | x_i, th) = -softplus(-z_i . th).
@@ -39,6 +40,36 @@ def _logits(z: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
 def log_likelihood(z: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
     """(n, S) log-likelihood matrix (model_lr.py:25-32 semantics)."""
     return -_softplus(-_logits(z, th))
+
+
+def _softplus_diff(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """softplus(p) - softplus(q) without large-magnitude cancellation
+    (logistic.py:36-60 of the JAX package).
+
+    log(1+e^p) - log(1+e^q) = log1p(sigmoid(q) expm1(p - q)) carries error
+    relative to its own small magnitude.  The expm1 argument is kept
+    non-negative (roles of p and q flipped for d < 0: for d <= -17, f32
+    expm1(d) is -1 and log1p(-1) = -inf) and clipped to 30, past which the
+    direct difference takes over: both branches, and so their gradients
+    through ``where``, stay finite everywhere.
+    """
+    d = p - q
+    da = torch.clamp(d.abs(), 0.0, 30.0)
+    pos = torch.log1p(torch.sigmoid(q) * torch.expm1(da))
+    neg = -torch.log1p(torch.sigmoid(p) * torch.expm1(da))
+    stable = torch.where(d >= 0, pos, neg)
+    direct = _softplus(p) - _softplus(q)
+    return torch.where(d.abs() < 30.0, stable, direct)
+
+
+def log_likelihood_diff(z: torch.Tensor, th: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """(n, S) of ll(z, th) - ll(z, ref), computed stably (logistic.py:63-75):
+    the weighted MCMC's mode-relative density sums these per-datum
+    differences, each accurate relative to its own magnitude."""
+    a = _logits(z, th)                                     # (n, S)
+    b = _logits(z, _atleast_2d(ref))[:, :1]                # (n, 1)
+    # ll = -softplus(-v): diff = softplus(-b) - softplus(-a)
+    return _softplus_diff(-b, -a)
 
 
 def log_prior(th: torch.Tensor) -> torch.Tensor:

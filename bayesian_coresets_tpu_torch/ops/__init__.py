@@ -1,6 +1,7 @@
-"""Numerical kernels: the GIGA solver and its fused select."""
+"""Numerical kernels: the GIGA solver, its fused select, and the packed-int4
+select probe."""
 
-from . import giga_select
+from . import giga_select, packed_select
 from .snnls import (
     GIGA,
     SNNLSConsts,
@@ -20,4 +21,5 @@ __all__ = [
     "init_state",
     "make_consts",
     "giga_select",
+    "packed_select",
 ]

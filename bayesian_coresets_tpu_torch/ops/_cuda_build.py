@@ -1,7 +1,8 @@
-"""Build and load the package's CUDA kernels (``csrc/*.cu``).
+"""Build and load the package's CUDA kernels (``csrc/*.cu``, ``csrc/*.cuh``).
 
-The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, loaded with ``ctypes``.  The build runs at
+Each source is compiled by its own ``nvcc`` for Hopper (``sm_90a``), all at
+once, and the objects are linked into one shared library with a plain C
+interface, loaded with ``ctypes``.  The build runs at
 first use and again whenever a source, the flags or the compiler changes:
 the library's file name carries a hash of all three, so a stale library is
 never loaded.  It lands in ``build/kernels/`` beside the package (listed in
@@ -22,8 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -52,7 +53,7 @@ def library_path() -> Path:
     """Path of the library for the current sources, flags and compiler."""
     nvcc = _nvcc()
     h = hashlib.sha256()
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -60,20 +61,30 @@ def library_path() -> Path:
     return BUILD_DIR / f"libbct_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands at once; raise with nvcc's output if any fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(c)}\n{o}")
+    return "".join(outs)
+
+
 def _compile(out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builders never load
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    # one nvcc per source, all started together, then one link; everything
+    # goes to private names and the library is renamed into place, so
+    # concurrent builders never load a half-written library
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs = [Path(tmpdir) / f"{src.stem}.o" for src in _sources()]
+        log = _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                    for src, o in zip(_sources(), objs)])
+        lib = Path(tmpdir) / "lib.so"
+        log += _run([[_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]])
+        out.with_suffix(".log").write_text(log)
+        os.replace(lib, out)
 
 
 def load_library() -> ctypes.CDLL:
@@ -85,11 +96,12 @@ def load_library() -> ctypes.CDLL:
             if not path.exists():
                 _compile(path)
             lib = ctypes.CDLL(str(path))
-            fn = lib.giga_select_launch
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                           ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_void_p]
+            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            for fn, args in [
+                (lib.giga_select_launch, [ptr, i32, i64, i64] + [ptr] * 7),
+                (lib.packed_select_launch, [ptr, i64, i64] + [ptr] * 7),
+            ]:
+                fn.restype = ctypes.c_int
+                fn.argtypes = args
             _lib = lib
         return _lib

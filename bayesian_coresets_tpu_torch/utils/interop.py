@@ -1,4 +1,6 @@
-"""Carry values from the JAX package into this one.
+"""Carry values from the JAX package into this one: solver state and
+constants, the Laplace fit, MCMC states and results, the probe's packed
+buffer.
 
 Each function takes the JAX package's NamedTuple with every field already
 converted to a numpy array (e.g. ``type(x)(*map(np.asarray, x))``) and
@@ -14,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..mcmc.integrators import IntegratorState
+from ..mcmc.sample import MCMCResult
 from ..models.laplace import LaplaceResult
 from ..ops.giga_select import col_multiple
 from ..ops.snnls import SNNLSConsts, SNNLSState, _pad_cols
@@ -62,3 +66,27 @@ def snnls_state(s, device="cpu") -> SNNLSState:
 def laplace_result(r, device="cpu") -> LaplaceResult:
     """LaplaceResult (mu, USig, LSigInv) from numpy fields."""
     return LaplaceResult(_t(r.mu, device), _t(r.USig, device), _t(r.LSigInv, device))
+
+
+def packed_buffer(P, device="cpu") -> torch.Tensor:
+    """The probe's packed int4 copy (probe_int4_pallas.py:121): (n, S/2)
+    int8, two signed nibbles a byte, as a contiguous int8 tensor."""
+    P = np.asarray(P)
+    if P.dtype != np.int8 or P.ndim != 2:
+        raise ValueError(f"a packed buffer is a 2-D int8 array; got {P.dtype} {P.shape}")
+    return _t(P, device)
+
+
+def integrator_state(s, device="cpu") -> IntegratorState:
+    """IntegratorState (z, r, logp, grad) from numpy fields: one chain's
+    (d,) arrays or vmapped chains' (C, d), as the port's (C, d) batch."""
+    z = np.asarray(s.z)
+    lead = (lambda x: np.asarray(x)[None]) if z.ndim == 1 else np.asarray
+    return IntegratorState(*(_t(lead(x), device) for x in (s.z, s.r, s.logp, s.grad)))
+
+
+def mcmc_result(r, device="cpu") -> MCMCResult:
+    """MCMCResult (samples, accept_prob, num_divergent, step_size, inv_mass)
+    from numpy fields; the JAX package records no tree depth."""
+    return MCMCResult(*(_t(getattr(r, f), device) for f in
+                        ("samples", "accept_prob", "num_divergent", "step_size", "inv_mass")))

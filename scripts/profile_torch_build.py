@@ -3,8 +3,9 @@
 
     python3 scripts/profile_torch_build.py [--n 100000] [--iters 64]
 
-Builds the main-path problem (logistic N x D=10, Laplace samples S=500,
-int8 select, max_active=1024), warms the build up, then profiles a window
+Builds the main-path problem (bench.py's flagship build: logistic N x D=10,
+S=500 samples theta ~ 0.1 N(0, I), int8 select, max_active=1024), warms
+the build up, then profiles a window
 of ``--iters`` iterations with torch.profiler and prints: wall time per
 iteration, device-busy time per iteration (sum of kernel times), the idle
 share, kernel launches per iteration, and the kernels by total time.
@@ -26,7 +27,6 @@ def main() -> int:
 
     import bayesian_coresets_tpu_torch as bc
     from bayesian_coresets_tpu_torch.models import logistic
-    from bayesian_coresets_tpu_torch.models.laplace import laplace_approx, sample_laplace
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=100_000)
@@ -37,10 +37,8 @@ def main() -> int:
     dev = torch.device("cuda")
     d, S = 10, 500
     Z = logistic.gen_synthetic(torch.Generator(device=dev).manual_seed(0), args.n, d)
-    lap = laplace_approx(Z, torch.ones(args.n, device=dev), torch.zeros(d, device=dev),
-                         grad_fn=logistic.grad_th_log_joint,
-                         hess_fn=logistic.hess_th_log_joint)
-    proj = bc.BlackBoxProjector(lambda g, n, w, p: sample_laplace(g, lap, n), S,
+    proj = bc.BlackBoxProjector(lambda g, n, w, p: 0.1 * torch.randn((n, d), generator=g,
+                                                                   device=g.device), S,
                                 logistic.log_likelihood,
                                 generator=torch.Generator(device=dev).manual_seed(1))
     c = bc.HilbertCoreset(Z, proj, select_dtype=torch.int8, max_active=1024)

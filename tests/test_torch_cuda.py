@@ -1,6 +1,7 @@
-"""CUDA-only checks of the PyTorch port: the hand-written select kernel
-against its plain PyTorch version, and a GIGA build on the card against the
-same build on the CPU.
+"""CUDA-only checks of the PyTorch port: the hand-written select kernels
+(GIGA's and the packed-int4 probe's) against their plain PyTorch versions,
+a GIGA build on the card against the same build on the CPU, and a short
+NUTS run on the card.
 
 Every test here needs a card and skips without one.  This file imports no
 JAX, so it also runs where JAX is absent; there, skip the JAX conftest:
@@ -12,7 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from bayesian_coresets_tpu_torch import mcmc
+from bayesian_coresets_tpu_torch.mcmc import integrators, nuts
 from bayesian_coresets_tpu_torch.ops import giga_select as gs
+from bayesian_coresets_tpu_torch.ops import packed_select as ps
 from bayesian_coresets_tpu_torch.ops import snnls
 from bayesian_coresets_tpu_torch.utils import interop
 
@@ -84,3 +88,74 @@ def test_build_on_card_matches_cpu(cuda_device):
     assert int(s_gpu.size) == k
     np.testing.assert_array_equal(s_gpu.idcs[:k].cpu().numpy(), s_cpu.idcs[:k].numpy())
     np.testing.assert_allclose(s_gpu.w.cpu().numpy(), s_cpu.w.numpy(), rtol=1e-4, atol=1e-6)
+
+
+PACKED_CASES = ["random", "invalid_block", "ties", "all_invalid", "odd_rows", "unpadded_cols"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PACKED_CASES)
+def test_packed_kernel_matches_plain(case, cuda_device):
+    n, S = (4999 if case == "odd_rows" else 5120), (100 if case == "unpadded_cols" else 512)
+    rng = np.random.default_rng(2)
+    q = rng.integers(-7, 8, size=(n, S)).astype(np.int8)
+    dirs = rng.uniform(-0.04, 0.04, size=(S, 2)).astype(np.float32)
+    nrminv = rng.uniform(0.5, 2.0, size=n).astype(np.float32)
+    bias = np.zeros(n, np.float32)
+    P = ps.pack_int4(torch.as_tensor(q))
+    args = [P, torch.as_tensor(dirs), torch.as_tensor(nrminv), torch.as_tensor(bias)]
+    f = int(ps.packed_select_ref(*args)[0])
+    if case == "invalid_block":
+        args[3][f // 1024 * 1024: f // 1024 * 1024 + 1024] = -np.inf
+    elif case == "ties":
+        for j in (f // 2, n - 1):
+            args[0][j], args[2][j] = args[0][f], args[2][f]
+    elif case == "all_invalid":
+        args[3][:] = -np.inf
+    args = [t.to(cuda_device) for t in args]
+    before = ps.launches
+    ki, ks = ps.packed_select(*args)
+    torch.cuda.synchronize()
+    assert ps.launches == before + 1
+    pi, pscore = ps.packed_select_ref(*args)
+    assert int(ki) == int(pi)
+    if case == "all_invalid":
+        assert int(ki) == 0 and float(ks) == -np.inf
+    else:
+        np.testing.assert_allclose(float(ks), float(pscore), rtol=1e-6)
+    if case == "ties":
+        assert int(ki) == f // 2
+
+
+def _gauss_logp(device):
+    prec = torch.linalg.inv(torch.tensor([[2.0, 1.2], [1.2, 1.5]], device=device))
+    return lambda th: -0.5 * torch.sum((th @ prec) * th, dim=-1)
+
+
+@pytest.mark.cuda
+def test_nuts_transition_on_card_matches_cpu(cuda_device):
+    """The same draws (a CPU generator, moved to each device) give the same
+    batched transition on the card as on the CPU."""
+    z = torch.as_tensor(np.random.default_rng(0).normal(size=(64, 2)).astype(np.float32))
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        vg = integrators.value_and_grad(_gauss_logp(dev))
+        zd = z.to(dev)
+        st = integrators.IntegratorState(zd, torch.zeros_like(zd), *vg(zd))
+        st, info = nuts.nuts_kernel(vg, mcmc.Draws(torch.Generator().manual_seed(1)), st,
+                                    0.4, torch.ones(64, 2, device=dev), max_depth=8)
+        out.append((st.z.cpu(), info.num_steps.cpu()))
+    np.testing.assert_array_equal(out[0][1].numpy(), out[1][1].numpy())
+    np.testing.assert_allclose(out[1][0].numpy(), out[0][0].numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_nuts_gaussian_moments_on_card(cuda_device):
+    res = mcmc.run_nuts(_gauss_logp(cuda_device), torch.zeros((256, 2), device=cuda_device),
+                        torch.Generator(device=cuda_device).manual_seed(0),
+                        num_warmup=150, num_samples=150)
+    s = res.samples.reshape(-1, 2).cpu().numpy()
+    np.testing.assert_allclose(s.mean(0), np.zeros(2), atol=0.05)
+    np.testing.assert_allclose(np.cov(s, rowvar=False), [[2.0, 1.2], [1.2, 1.5]], rtol=0.05)
+    assert float(mcmc.split_rhat(res.samples).max()) < 1.05
+    assert int(res.num_divergent.sum()) == 0
