@@ -2,14 +2,19 @@
 
 A second package beside the JAX one, grown slice by slice and held against
 it by tests on identical inputs.  The slices so far are the flagship path
-in both its stages:
+in both its stages, and the variational coreset constructions:
 
 - the Hilbert-GIGA coreset on logistic regression: data, a Laplace fit, the
   black-box projection, and GIGA, whose per-iteration select is a
   hand-written CUDA kernel on CUDA tensors (``ops/giga_select.py``,
   ``csrc/giga_select.cu``);
 - weighted NUTS on the coreset (``mcmc/``): Laplace preconditioning, chains
-  batched on one device, per-chain or pooled adaptation, diagnostics.
+  batched on one device, per-chain or pooled adaptation, diagnostics;
+- SparseVI and BatchPSVI (``coresets/sparsevi.py``, ``coresets/bpsvi.py``)
+  with projected Adam (``ops/opt.py``), the conjugate Gaussian model and
+  its exact tangent family, the uniform-sampling baseline, and the active
+  set re-solve of ``HilbertCoreset.optimize()`` (``ops/nnls.py``, and the
+  exact host solver in ``native/``).
 
 ``ops/packed_select.py`` (``csrc/packed_select.cu``) carries the JAX
 package's packed-int4 select probe.  Tensors stay on the device they were
@@ -18,16 +23,30 @@ given; nothing here picks a device.
 It imports torch and never JAX or the JAX package.
 """
 
-from . import mcmc, models, ops, utils
+from . import coresets, mcmc, models, ops, utils
 from . import utils as util           # reference spelling: bc.util.set_verbosity
 from .ops import snnls                # reference pattern: bc.snnls.GIGA
-from .coresets import Coreset, HilbertCoreset
-from .coresets.projector import BlackBoxProjector, Projector
+from .coresets import (
+    BatchPSVICoreset,
+    BlackBoxProjector,
+    Coreset,
+    FamilyProjector,
+    HilbertCoreset,
+    Projector,
+    SparseVICoreset,
+    TangentFamily,
+    UniformSamplingCoreset,
+    center_glls,
+    gaussian_tangent_family,
+    identity_tangent_family,
+    project,
+)
 from .utils import set_tolerance, set_verbosity
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "coresets",
     "mcmc",
     "models",
     "ops",
@@ -36,8 +55,17 @@ __all__ = [
     "snnls",
     "Coreset",
     "HilbertCoreset",
+    "SparseVICoreset",
+    "BatchPSVICoreset",
+    "UniformSamplingCoreset",
     "Projector",
+    "FamilyProjector",
     "BlackBoxProjector",
+    "TangentFamily",
+    "center_glls",
+    "project",
+    "gaussian_tangent_family",
+    "identity_tangent_family",
     "set_tolerance",
     "set_verbosity",
 ]

@@ -72,5 +72,9 @@ class HilbertCoreset(Coreset):
         self.snnls.build(itrs)
         self._sync()
 
+    def _optimize(self):
+        self.snnls.optimize()
+        self._sync()
+
     def error(self) -> float:
         return self.snnls.error()

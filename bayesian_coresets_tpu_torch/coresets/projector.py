@@ -1,33 +1,47 @@
 """Log-likelihood projectors: finite discretizations of the tangent space.
 
-Port of ``bayesian_coresets_tpu/coresets/projector.py:61-168`` (reference
+Port of ``bayesian_coresets_tpu/coresets/projector.py`` (reference
 ``bayesiancoresets/projector.py:4-32``).  A projector maps each datapoint
-to a feature vector whose inner products approximate the Hilbert-space
-inner products between log-likelihood functions.
+to a feature vector whose inner products approximate (or, for exact
+families, equal) the Hilbert-space inner products between log-likelihood
+functions.
 
 - :class:`TangentFamily` — the pure-function protocol:
-  ``make_ctx(gen, wts, pts)`` builds a projection context (posterior
-  samples for black-box projectors) and ``project(ctx, query)`` maps query
-  points to centered feature vectors.
+  ``make_ctx(gen, wts, pts)`` builds a projection context from the current
+  coreset (posterior samples for black-box projectors, refit posterior
+  factors for exact ones), ``project(ctx, query)`` maps query points to
+  centered feature vectors, and the optional ``project_grad`` gives their
+  gradients with respect to the query points.  ``make_ctx_warm`` and
+  ``init_carry`` let context rebuilds carry state between calls within one
+  build (e.g. the previous Laplace mode).
 - :class:`FamilyProjector`/:class:`BlackBoxProjector` — the reference's
   stateful user API.  Samplers take a ``torch.Generator`` where the JAX
   package takes a key: ``sampler(gen, n_samples, wts, pts)``.
 
-Gradient projections and warm-carried contexts are not ported yet.
+Gradient projections are centered over the sample axis, as the JAX package
+does (it departs from the reference there: PARITY.md C3).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 
 class TangentFamily(NamedTuple):
-    """Pure-function projector protocol."""
+    """Pure-function projector protocol.
 
-    make_ctx: Callable                 # (gen, wts, pts) -> ctx
-    project: Callable                  # (ctx, query_pts) -> (q, S) centered
+    ``init_carry(wts, pts)`` must return a FULLY CONVERGED carry for the
+    current coreset (it runs once per ``build()`` entry); ``make_ctx_warm``
+    then refreshes it cheaply per step.
+    """
+
+    make_ctx: Callable                        # (gen, wts, pts) -> ctx
+    project: Callable                         # (ctx, query_pts) -> (q, S) centered
+    project_grad: Optional[Callable] = None   # (ctx, query_pts) -> (q, S, d)
+    make_ctx_warm: Optional[Callable] = None  # (gen, wts, pts, carry) -> (ctx, carry)
+    init_carry: Optional[Callable] = None     # (wts, pts) -> carry
 
 
 def center_lls(lls: torch.Tensor) -> torch.Tensor:
@@ -35,10 +49,20 @@ def center_lls(lls: torch.Tensor) -> torch.Tensor:
     return lls - torch.mean(lls, dim=1, keepdim=True)
 
 
-def blackbox_family(sampler, projection_dimension: int,
-                    loglikelihood) -> TangentFamily:
+def center_glls(glls: torch.Tensor) -> torch.Tensor:
+    """Per-datum, per-coordinate centering over samples."""
+    return glls - torch.mean(glls, dim=1, keepdim=True)
+
+
+def blackbox_family(sampler, projection_dimension: int, loglikelihood,
+                    grad_loglikelihood=None, warm_sampler=None,
+                    init_carry=None) -> TangentFamily:
     """TangentFamily from a posterior sampler + log-likelihood (the
-    functional core of the reference's BlackBoxProjector)."""
+    functional core of the reference's BlackBoxProjector).
+
+    ``warm_sampler(gen, n, wts, pts, carry) -> (samples, carry)`` plus
+    ``init_carry(wts, pts) -> carry`` enable carried-state context rebuilds.
+    """
 
     def make_ctx(gen, wts, pts):
         return sampler(gen, projection_dimension, wts, pts)
@@ -46,13 +70,36 @@ def blackbox_family(sampler, projection_dimension: int,
     def project(ctx, pts):
         return center_lls(loglikelihood(pts, ctx))
 
-    return TangentFamily(make_ctx, project)
+    project_grad = None
+    if grad_loglikelihood is not None:
+        def project_grad(ctx, pts):  # noqa: F811
+            return center_glls(grad_loglikelihood(pts, ctx))
+
+    make_ctx_warm = None
+    if warm_sampler is not None:
+        if init_carry is None:
+            raise ValueError("warm_sampler requires init_carry")
+
+        def make_ctx_warm(gen, wts, pts, carry):  # noqa: F811
+            return warm_sampler(gen, projection_dimension, wts, pts, carry)
+
+    return TangentFamily(make_ctx, project, project_grad, make_ctx_warm, init_carry)
+
+
+def project(family: TangentFamily, ctx, pts: torch.Tensor, grad: bool = False):
+    """Centered projections, and with ``grad`` also their gradients."""
+    lls = family.project(ctx, pts)
+    if not grad:
+        return lls
+    if family.project_grad is None:
+        raise ValueError("grad projection requested but not provided")
+    return lls, family.project_grad(ctx, pts)
 
 
 class Projector:
     """Abstract stateful projector (reference projector.py:4-9)."""
 
-    def project(self, pts):
+    def project(self, pts, grad: bool = False):
         raise NotImplementedError
 
     def update(self, wts, pts):
@@ -75,20 +122,23 @@ class FamilyProjector(Projector):
 
     def update(self, wts, pts):
         """Rebuild the projection context from the current coreset."""
-        self._ctx = self.family.make_ctx(self._gen, wts, pts)
+        self._ctx = self.family.make_ctx(self._gen, torch.as_tensor(wts),
+                                         torch.as_tensor(pts))
 
-    def project(self, pts):
-        return self.family.project(self._ctx, pts)
+    def project(self, pts, grad: bool = False):
+        return project(self.family, self._ctx, torch.as_tensor(pts), grad=grad)
 
 
 class BlackBoxProjector(FamilyProjector):
     """Sampler + log-likelihood discretizer (reference projector.py:11-32)."""
 
     def __init__(self, sampler, projection_dimension: int, loglikelihood,
-                 generator: torch.Generator | None = None):
+                 grad_loglikelihood=None, generator: torch.Generator | None = None,
+                 warm_sampler=None, init_carry=None):
         self.projection_dimension = int(projection_dimension)
-        family = blackbox_family(sampler, self.projection_dimension,
-                                 loglikelihood)
+        family = blackbox_family(sampler, self.projection_dimension, loglikelihood,
+                                 grad_loglikelihood, warm_sampler=warm_sampler,
+                                 init_carry=init_carry)
         super().__init__(family, generator=generator)
 
     @property

@@ -88,6 +88,13 @@ def grad_th_log_likelihood(z: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
     return s[:, :, None] * _atleast_2d(z)[:, None, :]
 
 
+def grad_z_log_likelihood(z: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
+    """(n, S, d): gradient with respect to the (folded) datapoint z
+    (model_lr.py:51-58)."""
+    s = torch.sigmoid(-_logits(z, th))
+    return s[:, :, None] * _atleast_2d(th)[None, :, :]
+
+
 def grad_th_log_prior(th: torch.Tensor) -> torch.Tensor:
     return -_atleast_2d(th)
 
@@ -98,15 +105,34 @@ def grad_th_log_joint(z: torch.Tensor, th: torch.Tensor, wts: torch.Tensor) -> t
         "n,nsd->sd", wts, grad_th_log_likelihood(z, th))
 
 
+def _sig_pp(z: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
+    """sigmoid'(logit) = sig*(1-sig), batched (n, S)."""
+    s = torch.sigmoid(_logits(z, th))
+    return s * (1.0 - s)
+
+
+def hess_th_log_likelihood(z: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
+    """(n, S, d, d) per-datum Hessians (model_lr.py:66-73)."""
+    z = _atleast_2d(z)
+    m = _sig_pp(z, th)
+    return -m[:, :, None, None] * z[:, None, :, None] * z[:, None, None, :]
+
+
 def hess_th_log_joint(z: torch.Tensor, th: torch.Tensor, wts: torch.Tensor) -> torch.Tensor:
     """(S, d, d) Hessian of the weighted log-joint (model_lr.py:79-80),
     computed as -I - (w*m Z)^T Z without the (n, S, d, d) tensor."""
     z = _atleast_2d(z)
-    s = torch.sigmoid(_logits(z, _atleast_2d(th)))
-    m = s * (1.0 - s) * wts[:, None]                       # (n, S)
+    m = _sig_pp(z, th) * wts[:, None]                      # (n, S)
     hess_ll = -torch.einsum("ns,ni,nj->sij", m, z, z)
     eye = torch.eye(z.shape[1], dtype=z.dtype, device=z.device)
     return hess_ll - eye[None, :, :]
+
+
+def diag_hess_th_log_joint(z: torch.Tensor, th: torch.Tensor, wts: torch.Tensor) -> torch.Tensor:
+    """(S, d) diagonal of the weighted log-joint's Hessian (model_lr.py:82-92)."""
+    z = _atleast_2d(z)
+    m = _sig_pp(z, th) * wts[:, None]
+    return -torch.einsum("ns,ni->si", m, z**2) - 1.0
 
 
 def gen_synthetic(gen: torch.Generator, n: int, d: int = 2,

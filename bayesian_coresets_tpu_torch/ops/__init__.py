@@ -1,7 +1,8 @@
-"""Numerical kernels: the GIGA solver, its fused select, and the packed-int4
-select probe."""
+"""Numerical kernels: the GIGA solver, its fused select, the packed-int4
+select probe, the active-set NNLS re-solve, and projected Adam."""
 
-from . import giga_select, packed_select
+from . import giga_select, nnls, packed_select
+from .opt import nn_opt
 from .snnls import (
     GIGA,
     SNNLSConsts,
@@ -10,6 +11,7 @@ from .snnls import (
     build,
     init_state,
     make_consts,
+    optimize_active,
 )
 
 __all__ = [
@@ -19,7 +21,10 @@ __all__ = [
     "SNNLSState",
     "build",
     "init_state",
+    "optimize_active",
     "make_consts",
+    "nn_opt",
+    "nnls",
     "giga_select",
     "packed_select",
 ]

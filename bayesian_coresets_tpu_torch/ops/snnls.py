@@ -38,15 +38,18 @@ multiplies by its reciprocal, which the CPU does not.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils import config
+from .. import native
+from ..utils import checkpoint, config
 from ..utils.errors import NumericalPrecisionError
 from .giga_select import col_multiple, giga_select, sqrt_rn
+from .nnls import nnls_rows
 
 REFRESH_EVERY = 64      # exact xw = A@w recompute cadence (f32 drift control)
 _WSCALE_FLOOR = 1e-10   # fold the carried scale into w before it underflows
@@ -354,6 +357,29 @@ def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float) -> SNNL
                       itr=torch.tensor(itr, dtype=torch.int32, device=dev))
 
 
+def optimize_active(consts: SNNLSConsts, state: SNNLSState, idcs: torch.Tensor,
+                    size: int, tol: float, num_iters: int = 512):
+    """Re-solve the weights on the active set (snnls/snnls.py:81-97).
+
+    ``idcs`` are the active column indices, padded, covering ALL w>0
+    entries; ``size`` the number of live ones.  The (K, K) solve is FISTA
+    (:mod:`.nnls`).  Returns the new state and whether the cost did not
+    rise: if it rose, the weights are kept and ``done`` latches.
+    """
+    mask = torch.arange(idcs.shape[0], device=idcs.device) < size
+    safe = torch.where(mask, idcs, 0).long()
+    Aact = torch.where(mask[:, None], consts.V.index_select(0, safe), 0.0)
+    w_act = nnls_rows(Aact, consts.b, mask, num_iters=num_iters)
+    w = torch.zeros_like(state.w).index_add_(0, safe, torch.where(mask, w_act, 0.0))
+    xw = w_act @ Aact
+    prev_w_act = torch.where(mask, state.w.index_select(0, safe), 0.0)
+    prev_cost = _cached_error(consts, prev_w_act @ Aact)
+    ok = _cached_error(consts, xw) <= prev_cost * (1.0 + tol)
+    return state._replace(w=torch.where(ok, w, state.w),
+                          xw=torch.where(ok, xw, state.xw),
+                          done=state.done | ~ok), ok
+
+
 def _active_set(state: SNNLSState):
     """Tracked-support (indices, weights) — a small fixed-size transfer."""
     K = state.idcs.shape[0]
@@ -370,7 +396,12 @@ class SparseNNLS:
 
     The problem lives on A's device (``device`` moves it there first).
     ``seed`` is kept for the reference's signature; GIGA draws nothing.
+    ``optimize()`` re-solves the active weights (FISTA on the device, or
+    exact Lawson-Hanson on the host); ``save``/``restore`` and
+    ``build(checkpoint_path=...)`` checkpoint the solver state.
     """
+
+    method = "giga"
 
     def __init__(self, A, b, valid=None, seed: int = 0, max_active: int | None = None,
                  select_dtype=None, device=None):
@@ -392,6 +423,13 @@ class SparseNNLS:
 
     def reset(self):
         self.state = init_state(self.consts, self._max_active)
+
+    def save(self, path: str):
+        """Checkpoint the solver state (resume with :meth:`restore`)."""
+        checkpoint.save(path, self.state, meta={"method": self.method})
+
+    def restore(self, path: str):
+        self.state, _ = checkpoint.load(path, like=self.state)
 
     def size(self) -> int:
         return int(torch.sum(self.state.w > 0))
@@ -417,11 +455,66 @@ class SparseNNLS:
     def reached_numeric_limit(self) -> bool:
         return bool(self.state.done)
 
-    def build(self, itrs: int):
-        """Run ``itrs`` greedy iterations (incremental)."""
+    def build(self, itrs: int, checkpoint_path: str | None = None,
+              checkpoint_every: int | None = None):
+        """Run ``itrs`` greedy iterations (incremental).
+
+        With ``checkpoint_path``, the state is saved every
+        ``checkpoint_every`` iterations (default: once at the end), and a
+        checkpoint found there with MORE progress than the current state is
+        restored first; it only fast-forwards toward the target, which is
+        relative to the current state.
+        """
         if self.reached_numeric_limit or self.consts.V.numel() == 0 or itrs <= 0:
             return
-        self.state = build(self.consts, self.state, itrs, config.TOL)
+        if checkpoint_path is None:
+            self.state = build(self.consts, self.state, itrs, config.TOL)
+            return
+        target = int(self.state.itr) + itrs
+        if os.path.exists(checkpoint_path):
+            saved, _ = checkpoint.load(checkpoint_path, like=self.state)
+            if int(saved.itr) > int(self.state.itr):
+                self.state = saved
+        chunk = checkpoint_every or itrs
+        while int(self.state.itr) < target and not self.reached_numeric_limit:
+            step = min(chunk, target - int(self.state.itr))
+            self.state = build(self.consts, self.state, step, config.TOL)
+            self.save(checkpoint_path)
+
+    def optimize(self, solver: str = "fista"):
+        """Re-solve the weights on the active set (snnls/snnls.py:81-97).
+
+        ``solver="fista"``: accelerated projected gradient on the data's
+        device (:func:`optimize_active`).  ``solver="exact"``: Lawson-Hanson
+        in f64 on the host (:mod:`..native`), on the active rows only.  Either
+        way, a re-solve that raises the cost is refused and latches the
+        numeric limit.
+        """
+        if solver not in ("fista", "exact"):
+            raise ValueError(f"solver must be 'fista' or 'exact'; got {solver!r}")
+        act = np.sort(self.active()[0])
+        if act.size == 0:
+            return
+        dev = self.consts.V.device
+        if solver == "exact":
+            act_t = torch.as_tensor(act, device=dev)
+            Vact = self.consts.V.index_select(0, act_t).double().cpu().numpy()
+            prev_err = self.error()
+            x, _ = native.nnls(Vact.T, self.consts.b.double().cpu().numpy())
+            w = torch.zeros_like(self.state.w)
+            w[act_t] = torch.as_tensor(x, dtype=w.dtype, device=dev)
+            if float(error(self.consts, w)) > prev_err * (1.0 + config.TOL):
+                self.state = self.state._replace(done=torch.ones_like(self.state.done))
+            else:
+                # the JAX package keeps the old xw here (ROADMAP Queue 3 (f))
+                self.state = self.state._replace(w=w, xw=_v_matvec(self.consts, w))
+            return
+        pad = 1 << max(3, int(np.ceil(np.log2(act.size))))
+        idcs = np.zeros(pad, dtype=np.int32)
+        idcs[: act.size] = act
+        self.state, _ = optimize_active(self.consts, self.state,
+                                        torch.as_tensor(idcs, device=dev), act.size,
+                                        config.TOL)
 
 
 class GIGA(SparseNNLS):

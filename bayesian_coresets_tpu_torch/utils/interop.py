@@ -1,6 +1,6 @@
 """Carry values from the JAX package into this one: solver state and
 constants, the Laplace fit, MCMC states and results, the probe's packed
-buffer.
+buffer, the Gaussian posterior basis, and SparseVI's slot state.
 
 Each function takes the JAX package's NamedTuple with every field already
 converted to a numpy array (e.g. ``type(x)(*map(np.asarray, x))``) and
@@ -18,6 +18,7 @@ import torch
 
 from ..mcmc.integrators import IntegratorState
 from ..mcmc.sample import MCMCResult
+from ..models.gaussian import PosteriorBasis
 from ..models.laplace import LaplaceResult
 from ..ops.giga_select import col_multiple
 from ..ops.snnls import SNNLSConsts, SNNLSState, _pad_cols
@@ -90,3 +91,20 @@ def mcmc_result(r, device="cpu") -> MCMCResult:
     from numpy fields; the JAX package records no tree depth."""
     return MCMCResult(*(_t(getattr(r, f), device) for f in
                         ("samples", "accept_prob", "num_divergent", "step_size", "inv_mass")))
+
+
+def posterior_basis(b, device="cpu") -> PosteriorBasis:
+    """PosteriorBasis (Uinv, UinvT, lam, r0, Siginv) from numpy fields.
+
+    Where the eigenbasis is not unique (repeated eigenvalues), carrying the
+    JAX package's basis across makes exact tangent features comparable
+    elementwise, not only up to a rotation."""
+    return PosteriorBasis(*(_t(getattr(b, f), device) for f in PosteriorBasis._fields))
+
+
+def svi_state(wts, idcs, size, device="cpu"):
+    """SparseVI slot state ``(wts, idcs, size)`` from the JAX package's
+    arrays: f32 weights and int64 indices as tensors on ``device`` (empty
+    slots hold -1), and ``size`` as a host integer."""
+    return (_t(wts, device, torch.float32), _t(np.asarray(idcs).astype(np.int64), device),
+            int(np.asarray(size)))

@@ -32,10 +32,33 @@ script exits non-zero without printing the final result line):
    for finite samples, split R-hat <= 1.05, divergences <= 1% of the
    sampling transitions, every posterior mean within 0.25 posterior sd of
    the coreset's Laplace mode and within 0.05 sd of an importance-sampled
-   mean (f64, Laplace proposal).
+   mean (f64, Laplace proposal);
+8. optimize: ``HilbertCoreset.optimize()`` (FISTA on the card) on phase 6's
+   coreset, after NUTS has sampled it: the error must not rise and nothing
+   may latch; then the exact host solver on the same active set must reach
+   the FISTA error within 1e-3;
+9. SparseVI at bench.py's canonical config (bench.py:211-231: N=1000,
+   d=200, S=100, 50 Adam steps per select, M=30, 32 slots, the posterior
+   basis sampler, step 1/(1+i)), black-box and with the exact Gaussian
+   family, and the scaled arm of scripts/bench_svi_tpu.py:134-135 (N=100k,
+   1024-row subsamples): build seconds after a warm-up build, points/s, µs
+   and kernel launches per Adam step, host reads per build; each checked
+   for finite nonnegative weights, unique indices, size <= M, one host read
+   per select and none per Adam step, and rKL (f64 host closed form) within
+   1.5x the largest of three seeds of the JAX package at the same config on
+   a CPU;
+10. SparseVI card against CPU: the exact family at the canonical config on
+   both, from the same data and basis: identical index sequences, weights
+   within rtol 1e-3;
+11. BatchPSVI at scripts/bench_svi_tpu.py:138-157's config (N=100k, d=20,
+   S=200, sz=100, 20000-row subsamples, 500 joint Adam steps, black-box):
+   build seconds, µs and launches per joint step; finite, no host read,
+   and both rKL and error() below those of its initialization.
 
-Every path is driven with the kernels' launch counts set to 0 just before
-it and read just after.  The line before the last is the kernels' JSON; the
+Phases 8-11 launch no hand-written kernel: the JAX package computes
+SparseVI, BatchPSVI and the re-solve with plain XLA ops.  Every path is
+driven with the kernels' launch counts set to 0 just before it and read
+just after.  The line before the last is the kernels' JSON; the
 last line is ``{"ok": true, "device": {...}}``.  The port imports no JAX.
 """
 
@@ -58,6 +81,19 @@ RHAT_MAX, DIV_SHARE_MAX = 1.05, 0.01
 # skew puts ~0.2 sd away) and against an importance-sampled mean (exact up
 # to Monte Carlo error, ~0.01 sd at these sizes)
 MEAN_SDS_MAX, IS_SDS_MAX = 0.25, 0.05
+# SparseVI (bench.py:211-231, scripts/bench_svi_tpu.py:134-135) and BPSVI
+# (scripts/bench_svi_tpu.py:138-157)
+SVI_N, SVI_D, SVI_S, SVI_M, SVI_OPT, SVI_CAP = 1000, 200, 100, 30, 50, 32
+SVI_N_SCALED, SVI_SUB_SCALED = 100_000, 1024
+BP_N, BP_D, BP_S, BP_SZ, BP_SUB, BP_STEPS = 100_000, 20, 200, 100, 20_000, 500
+# rKL at M=30 of the JAX package's svi_build at the same configs, on a CPU
+# (keys 2, 3, 4; f64 host closed form as _rkl64): the largest of the three.
+# The port's data is drawn from another stream, so it is held within 1.5x.
+JAX_RKL_MAX = {"canonical_blackbox": 1162.0726287995294,
+               "canonical_exact": 542.2950201551715,
+               "scaled_N100k_sub1024": 136240.48075067793}
+RKL_SLACK = 1.5
+PROFILE_STEPS = 10          # Adam steps in each profiled window
 
 
 def say(phase: str, **kv) -> None:
@@ -377,7 +413,7 @@ def phase_main(torch, smi):
         build_s=f"{t_build:.4f}", ms_per_itr=f"{1e3 * t_build / itr:.4f}",
         points_per_s=f"{M_MAIN / (t_proj + t_build):.2f}",
         peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}", card=repr(smi))
-    return launches, wts, pts
+    return launches, wts, pts, coreset
 
 
 def _importance_moments(torch, zc, wc, n=200_000, seed=6, inflate=1.3):
@@ -458,6 +494,267 @@ def phase_nuts(torch, smi, wts, pts):
         raise AssertionError(f"nuts: min ESS {min_ess}")
 
 
+def phase_optimize(torch, coreset):
+    """HilbertCoreset.optimize() (FISTA on the card), then the exact host
+    solver on the same active set."""
+    from bayesian_coresets_tpu_torch import native
+
+    bnorm = float(coreset.snnls.consts.bnorm)
+    e0 = coreset.error() / bnorm
+    size0 = coreset.size()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coreset.optimize()
+    torch.cuda.synchronize()
+    t_fista = time.perf_counter() - t0
+    e1 = coreset.error() / bnorm
+    if coreset.reached_numeric_limit or not e1 <= e0 * (1.0 + 1e-6):
+        raise AssertionError(f"optimize: error/|b| {e0} -> {e1}, "
+                             f"latched={coreset.reached_numeric_limit}")
+    t0 = time.perf_counter()
+    native.load_library()                       # g++ of nnls.cpp, at first use
+    t_gxx = time.perf_counter() - t0
+    sn = coreset.snnls
+    t0 = time.perf_counter()
+    sn.optimize(solver="exact")
+    torch.cuda.synchronize()
+    t_exact = time.perf_counter() - t0
+    e2 = sn.error() / bnorm
+    if sn.reached_numeric_limit or not e2 <= e1 * (1.0 + 1e-3):
+        raise AssertionError(f"optimize: exact error/|b| {e2} against FISTA's {e1}, "
+                             f"latched={sn.reached_numeric_limit}")
+    say("optimize", atoms_before=size0, err_before=f"{e0:.6e}", fista_err=f"{e1:.6e}",
+        fista_atoms=coreset.size(), fista_s=f"{t_fista:.4f}", exact_err=f"{e2:.6e}",
+        exact_atoms=sn.size(), exact_s=f"{t_exact:.4f}", gxx_build_s=f"{t_gxx:.3f}")
+
+
+def _gaussian_data(torch, N, d, dev):
+    """bench.py's gaussian data on ``dev``: x_i = 1 + N(0, I)."""
+    from bayesian_coresets_tpu_torch.models import gaussian
+    return gaussian.gen_synthetic(torch.Generator(device=dev).manual_seed(1), N, d)
+
+
+def _gaussian_family(torch, d, dev, S=None, grad=False, basis=None):
+    """bench.py's gaussian model on ``dev`` (identity prior and likelihood
+    precision): the black-box family over the posterior basis sampler with
+    ``S`` samples, or the exact family (``S=None``)."""
+    import bayesian_coresets_tpu_torch as bc
+    from bayesian_coresets_tpu_torch.models import gaussian
+
+    mu0, eye = torch.zeros(d, device=dev), torch.eye(d, device=dev)
+    if basis is None:
+        basis = gaussian.posterior_basis(mu0, eye, eye)
+    if S is None:
+        return bc.gaussian_tangent_family(mu0, eye, eye, eye, basis=basis)
+
+    def sampler(g, n, w, p):
+        if p.numel() == 0:                      # projector-construction probe
+            w, p = torch.zeros(1, device=dev), torch.zeros((1, d), device=dev)
+        return gaussian.sample_weighted_post_basis(g, basis, p, w, n)
+
+    gll = (lambda p, th: gaussian.grad_x_log_likelihood(p, th, eye)) if grad else None
+    return bc.coresets.blackbox_family(
+        sampler, S, lambda p, th: gaussian.log_likelihood(p, th, eye, 0.0), gll)
+
+
+def _rkl64(x, w, p):
+    """rKL of the weighted coreset posterior against the full-data one, in
+    f64 on the host, closed form for the identity prior and likelihood."""
+    import numpy as np
+    from bayesian_coresets_tpu_torch.models import gaussian
+
+    x, w = np.asarray(x, np.float64), np.asarray(w, np.float64)
+    p = np.atleast_2d(np.asarray(p, np.float64))
+    n, d = x.shape
+    sw = w.sum()
+    return gaussian.kl_divergence_np((w[:, None] * p).sum(0) / (1 + sw), np.eye(d) / (1 + sw),
+                                     x.sum(0) / (1 + n), (1 + n) * np.eye(d))
+
+
+def _count_syncs(torch, fn):
+    """Run ``fn`` with CUDA's sync debug mode on; returns (result, the number
+    of synchronizing calls it made, i.e. its device-to-host reads, and
+    where they were made: ``file:line*count`` joined by commas)."""
+    import collections
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                                if "called a synchronizing CUDA operation" in str(w.message))
+    return out, sum(sites.values()), ",".join(f"{k}*{v}" for k, v in sites.items()) or "none"
+
+
+def _profile_window(torch, fn, steps):
+    """Kernel launches and device-busy µs per step, and the idle share, of
+    ``fn`` (``steps`` Adam steps) under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
+    launches = sum(e.count for e in rows)
+    if not rows:
+        return "not_measured", "not_measured", "not_measured"
+    return (f"{launches / steps:.1f}", f"{busy / steps:.1f}",
+            f"{1.0 - busy * 1e-6 / wall:.4f}")
+
+
+def _svi_arm(torch, smi, tag, N, n_sub, blackbox):
+    import numpy as np
+    from bayesian_coresets_tpu_torch.coresets import sparsevi
+
+    dev = torch.device("cuda")
+    x = _gaussian_data(torch, N, SVI_D, dev)
+    fam = _gaussian_family(torch, SVI_D, dev, SVI_S if blackbox else None)
+    sched = lambda i: 1.0 / (1.0 + i)   # noqa: E731
+
+    def one(seed, M=SVI_M):
+        w0 = torch.zeros(SVI_CAP, device=dev)
+        i0 = torch.full((SVI_CAP,), -1, dtype=torch.int64, device=dev)
+        return sparsevi.svi_build(x, w0, i0, 0, torch.Generator(device=dev).manual_seed(seed),
+                                  M, family=fam, n_sub_sel=n_sub, n_sub_opt=n_sub,
+                                  opt_itrs=SVI_OPT, step_sched=sched)
+
+    _, syncs, sites = _count_syncs(torch, lambda: one(2))   # warm-up build
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w, idcs, size = one(3)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    carry = sparsevi._init_carry(x, fam, w, idcs, size)
+    launches, busy_us, idle = _profile_window(torch, lambda: sparsevi._optimize(
+        x, fam, torch.Generator(device=dev).manual_seed(4), w, idcs, size, n_sub,
+        PROFILE_STEPS, sched, carry), PROFILE_STEPS)
+    wn, ix = w[:size].cpu().numpy(), idcs[:size].cpu().numpy()
+    xh = x.cpu().numpy()
+    rkl = _rkl64(xh, wn, xh[ix])
+    steps = SVI_M * (1 + SVI_OPT)
+    say("svi", arm=tag, N=N, d=SVI_D, S=SVI_S if blackbox else SVI_D + 1, M=SVI_M,
+        opt_itrs=SVI_OPT, n_sub=n_sub, size=size, build_s=f"{t:.4f}",
+        points_per_s=f"{SVI_M / t:.2f}", us_per_adam_step=f"{1e6 * t / steps:.2f}",
+        launches_per_adam_step=launches, device_busy_us_per_adam_step=busy_us,
+        idle_share=idle, host_reads_per_build=syncs, host_read_sites=sites, rkl=f"{rkl:.4f}",
+        jax_cpu_rkl_max=JAX_RKL_MAX[tag], card=repr(smi))
+    if not (np.isfinite(wn).all() and (wn >= 0).all()):
+        raise AssertionError(f"svi {tag}: weights not finite and nonnegative: {wn}")
+    if size > SVI_M or len(set(ix.tolist())) != size or size == 0:
+        raise AssertionError(f"svi {tag}: {size} slots with indices {ix}")
+    if syncs != SVI_M:                      # one flag per select, none per Adam step
+        raise AssertionError(f"svi {tag}: {syncs} host reads in a build of {SVI_M} "
+                             f"selects ({sites})")
+    if not rkl <= RKL_SLACK * JAX_RKL_MAX[tag]:
+        raise AssertionError(f"svi {tag}: rKL {rkl} above {RKL_SLACK} x the JAX "
+                             f"package's {JAX_RKL_MAX[tag]}")
+    return t
+
+
+def phase_svi(torch, smi):
+    _svi_arm(torch, smi, "canonical_blackbox", SVI_N, None, True)
+    _svi_arm(torch, smi, "canonical_exact", SVI_N, None, False)
+    _svi_arm(torch, smi, "scaled_N100k_sub1024", SVI_N_SCALED, SVI_SUB_SCALED, True)
+
+
+def phase_svi_parity(torch):
+    """The exact-family build on the card and on the CPU from the same data
+    and the same posterior basis (the identity has no unique eigenbasis)."""
+    import numpy as np
+    from bayesian_coresets_tpu_torch.coresets import sparsevi
+    from bayesian_coresets_tpu_torch.models import gaussian
+
+    cpu = torch.device("cpu")
+    eye = torch.eye(SVI_D)
+    basis = gaussian.posterior_basis(torch.zeros(SVI_D), eye, eye)
+    x_cpu = _gaussian_data(torch, SVI_N, SVI_D, cpu)
+    out, secs = {}, {}
+    for label, dev in (("cuda", torch.device("cuda")), ("cpu", cpu)):
+        fam = _gaussian_family(torch, SVI_D, dev,
+                               basis=type(basis)(*(b.to(dev) for b in basis)))
+        x = x_cpu.to(dev)
+        t0 = time.perf_counter()
+        w, idcs, size = sparsevi.svi_build(
+            x, torch.zeros(SVI_CAP, device=dev),
+            torch.full((SVI_CAP,), -1, dtype=torch.int64, device=dev), 0,
+            torch.Generator(device=dev), SVI_M, family=fam, n_sub_sel=None,
+            n_sub_opt=None, opt_itrs=SVI_OPT, step_sched=lambda i: 1.0 / (1.0 + i))
+        w, ix = w[:size].cpu().numpy(), idcs[:size].cpu().numpy()
+        secs[label] = time.perf_counter() - t0
+        out[label] = (w, ix)
+    (wg, ig), (wc, ic) = out["cuda"], out["cpu"]
+    if not np.array_equal(ig, ic):
+        k = next((i for i in range(min(ig.size, ic.size)) if ig[i] != ic[i]), min(ig.size, ic.size))
+        raise AssertionError(f"svi parity: the index sequences part at select {k}: "
+                             f"card {ig[k:k + 5]}, CPU {ic[k:k + 5]}")
+    # rtol 1e-3; the atol (1e-6 of the largest weight) covers weights Adam
+    # clamped to 0 on one device and left at rounding level on the other
+    np.testing.assert_allclose(wg, wc, rtol=1e-3, atol=1e-6 * float(np.abs(wc).max()))
+    rel = float(np.max(np.abs(wg - wc) / np.maximum(np.abs(wc), 1e-12)))
+    say("svi_parity", N=SVI_N, d=SVI_D, M=SVI_M, size=ig.size, idcs="identical",
+        max_rel_weight_diff=f"{rel:.3e}", cuda_s=f"{secs['cuda']:.3f}",
+        cpu_s=f"{secs['cpu']:.3f}")
+
+
+def phase_bpsvi(torch, smi):
+    import numpy as np
+    from bayesian_coresets_tpu_torch.coresets import bpsvi
+
+    dev = torch.device("cuda")
+    x = _gaussian_data(torch, BP_N, BP_D, dev)
+    fam = _gaussian_family(torch, BP_D, dev, BP_S, grad=True)
+    init = bpsvi.uniform_init_idcs(BP_N, BP_SZ, torch.Generator(device=dev).manual_seed(9))
+    sched = lambda i: 1.0 / (1.0 + i)   # noqa: E731
+
+    def one(seed, steps):
+        return bpsvi.bpsvi_build(x, init, torch.Generator(device=dev).manual_seed(seed),
+                                 family=fam, n_sub_opt=BP_SUB, opt_itrs=steps, step_sched=sched)
+
+    _, syncs, sites = _count_syncs(torch, lambda: one(2, 20))   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w, p = one(3, BP_STEPS)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    launches, busy_us, idle = _profile_window(torch, lambda: one(4, PROFILE_STEPS),
+                                              PROFILE_STEPS)
+    w0, p0 = one(3, 0)                                      # the initialization
+    gen = torch.Generator(device=dev).manual_seed(5)
+    state = gen.get_state()
+    errs = []
+    for ww, pp in ((w0, p0), (w, p)):
+        gen.set_state(state)                                # the same draws for both
+        errs.append(float(bpsvi.bpsvi_error(x, ww, pp, gen, family=fam, n_sub=BP_SUB)))
+    xh = x.cpu().numpy()
+    rkl0 = _rkl64(xh, w0.cpu().numpy(), p0.cpu().numpy())
+    rkl = _rkl64(xh, w.cpu().numpy(), p.cpu().numpy())
+    say("bpsvi", N=BP_N, d=BP_D, S=BP_S, sz=BP_SZ, n_sub=BP_SUB, steps=BP_STEPS,
+        build_s=f"{t:.4f}", us_per_joint_step=f"{1e6 * t / BP_STEPS:.2f}",
+        launches_per_joint_step=launches, device_busy_us_per_joint_step=busy_us,
+        idle_share=idle, host_reads_warmup=syncs, host_read_sites=sites,
+        rkl_init=f"{rkl0:.4f}", rkl=f"{rkl:.4f}",
+        err_init=f"{errs[0]:.4f}", err=f"{errs[1]:.4f}", card=repr(smi))
+    if not (torch.isfinite(w).all() and torch.isfinite(p).all() and bool((w >= 0).all())):
+        raise AssertionError("bpsvi: non-finite or negative result")
+    if syncs:
+        raise AssertionError(f"bpsvi: {syncs} host reads in a build ({sites})")
+    if not rkl < rkl0:
+        raise AssertionError(f"bpsvi: rKL {rkl} not below its initialization's {rkl0}")
+    if not errs[1] < errs[0]:
+        raise AssertionError(f"bpsvi: error {errs[1]} not below its initialization's {errs[0]}")
+    if not np.isfinite(rkl):
+        raise AssertionError("bpsvi: rKL not finite")
+
+
 def main() -> int:
     import torch   # noqa: F401  (fails here without PyTorch)
 
@@ -473,12 +770,18 @@ def main() -> int:
     from bayesian_coresets_tpu_torch.ops import giga_select as gs
     from bayesian_coresets_tpu_torch.ops import packed_select as ps
     gs.launches = ps.launches = 0
-    launches, wts, pts = phase_main(torch, smi)
+    launches, wts, pts, coreset = phase_main(torch, smi)
     if ps.launches:
         raise AssertionError("main path: the packed select kernel was launched")
     gs.launches = ps.launches = 0
     phase_nuts(torch, smi, wts, pts)
     say("nuts_launches", giga_select=gs.launches, packed_select=ps.launches)
+    gs.launches = ps.launches = 0
+    phase_optimize(torch, coreset)
+    phase_svi(torch, smi)
+    phase_svi_parity(torch)
+    phase_bpsvi(torch, smi)
+    say("svi_bpsvi_optimize_launches", giga_select=gs.launches, packed_select=ps.launches)
     if any(m == "jax" or m.startswith(("jax.", "bayesian_coresets_tpu."))
            or m == "bayesian_coresets_tpu" for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")

@@ -1,7 +1,9 @@
 """CUDA-only checks of the PyTorch port: the hand-written select kernels
 (GIGA's and the packed-int4 probe's) against their plain PyTorch versions,
-a GIGA build on the card against the same build on the CPU, and a short
-NUTS run on the card.
+a GIGA build on the card against the same build on the CPU, a short
+NUTS run on the card, projected Adam, SparseVI and ``optimize()`` on the
+card against the CPU, and SparseVI and BatchPSVI builds that read nothing
+back from the card but SparseVI's one flag per select.
 
 Every test here needs a card and skips without one.  This file imports no
 JAX, so it also runs where JAX is absent; there, skip the JAX conftest:
@@ -9,15 +11,21 @@ JAX, so it also runs where JAX is absent; there, skip the JAX conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
+import bayesian_coresets_tpu_torch as bc
 from bayesian_coresets_tpu_torch import mcmc
+from bayesian_coresets_tpu_torch.coresets import bpsvi, sparsevi
 from bayesian_coresets_tpu_torch.mcmc import integrators, nuts
+from bayesian_coresets_tpu_torch.models import gaussian
 from bayesian_coresets_tpu_torch.ops import giga_select as gs
 from bayesian_coresets_tpu_torch.ops import packed_select as ps
 from bayesian_coresets_tpu_torch.ops import snnls
+from bayesian_coresets_tpu_torch.ops.opt import nn_opt
 from bayesian_coresets_tpu_torch.utils import interop
 
 torch.set_num_threads(1)
@@ -159,3 +167,121 @@ def test_nuts_gaussian_moments_on_card(cuda_device):
     np.testing.assert_allclose(np.cov(s, rowvar=False), [[2.0, 1.2], [1.2, 1.5]], rtol=0.05)
     assert float(mcmc.split_rhat(res.samples).max()) < 1.05
     assert int(res.num_divergent.sum()) == 0
+
+
+@pytest.mark.cuda
+def test_nn_opt_on_card_matches_cpu(cuda_device):
+    t = torch.as_tensor(np.random.default_rng(3).normal(size=64).astype(np.float32))
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        td = t.to(dev)
+        mask = torch.arange(64, device=dev) < 40
+        x = nn_opt(torch.zeros(64, device=dev), lambda x, g: x - td, torch.Generator(device=dev),
+                   nn_mask=mask, opt_itrs=200)
+        assert x.device.type == dev.type
+        out.append(x.cpu().numpy())
+    np.testing.assert_allclose(out[1], out[0], rtol=1e-5, atol=1e-7)
+
+
+def _svi_problem(dev, n=300, d=12):
+    x = torch.as_tensor((1.0 + np.random.default_rng(0).normal(size=(n, d))).astype(np.float32))
+    eye = torch.eye(d)
+    basis = gaussian.posterior_basis(torch.zeros(d), eye, eye)    # one basis for both
+    fam = bc.gaussian_tangent_family(torch.zeros(d, device=dev), eye.to(dev), eye.to(dev),
+                                     eye.to(dev), basis=type(basis)(*(b.to(dev) for b in basis)))
+    return x.to(dev), fam
+
+
+@pytest.mark.cuda
+def test_svi_exact_on_card_matches_cpu(cuda_device):
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        x, fam = _svi_problem(dev)
+        c = bc.SparseVICoreset(x, fam, opt_itrs=20, capacity=32)
+        c.build(32)
+        assert c._wts.device.type == dev.type
+        out.append(c.get())
+    assert out[0][2].size >= 20
+    np.testing.assert_array_equal(out[1][2], out[0][2])
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-4, atol=1e-6)
+
+
+def _bb_family(dev, d, S=40):
+    eye = torch.eye(d, device=dev)
+    basis = gaussian.posterior_basis(torch.zeros(d, device=dev), eye, eye)
+
+    def sampler(g, n, w, p):
+        if p.numel() == 0:
+            w, p = torch.zeros(1, device=dev), torch.zeros((1, d), device=dev)
+        return gaussian.sample_weighted_post_basis(g, basis, p, w, n)
+
+    return bc.coresets.blackbox_family(
+        sampler, S, lambda p, th: gaussian.log_likelihood(p, th, eye, 0.0),
+        lambda p, th: gaussian.grad_x_log_likelihood(p, th, eye))
+
+
+def _syncs(fn):
+    """(fn(), the source lines of the synchronizing CUDA calls fn made)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{w.filename}:{w.lineno}" for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+@pytest.mark.cuda
+def test_bpsvi_joint_step_on_card(cuda_device):
+    x = torch.as_tensor((1.0 + np.random.default_rng(1).normal(size=(2000, 5))).astype(np.float32))
+    x = x.to(cuda_device)
+    fam = _bb_family(cuda_device, 5)
+    init = bpsvi.uniform_init_idcs(2000, 10, torch.Generator(device=cuda_device))
+    (w, p), syncs = _syncs(lambda: bpsvi.bpsvi_build(
+        x, init, torch.Generator(device=cuda_device), family=fam, n_sub_opt=256,
+        opt_itrs=1, step_sched=lambda i: 1.0 / (1.0 + i)))
+    assert w.is_cuda and p.is_cuda and p.shape == (10, 5)
+    assert bool(torch.isfinite(w).all()) and bool(torch.isfinite(p).all())
+    assert syncs == []
+
+
+@pytest.mark.cuda
+def test_svi_and_bpsvi_builds_stay_on_the_card(cuda_device):
+    """No Adam step reads back: an SVI build reads one flag per select and
+    nothing else, a BPSVI build nothing at all."""
+    x = torch.as_tensor((1.0 + np.random.default_rng(2).normal(size=(500, 5))).astype(np.float32))
+    x = x.to(cuda_device)
+    fam = _bb_family(cuda_device, 5)
+    w0 = torch.zeros(16, device=cuda_device)
+    i0 = torch.full((16,), -1, dtype=torch.int64, device=cuda_device)
+    (w, i, size), syncs = _syncs(lambda: sparsevi.svi_build(
+        x, w0, i0, 0, torch.Generator(device=cuda_device), 6, family=fam, n_sub_sel=128,
+        n_sub_opt=128, opt_itrs=15, step_sched=lambda i: 1.0 / (1.0 + i)))
+    assert w.is_cuda and i.is_cuda and 0 < size <= 6
+    assert len(syncs) == 6 and all("coresets/sparsevi.py" in s for s in syncs), syncs
+    init = bpsvi.uniform_init_idcs(500, 8, torch.Generator(device=cuda_device))
+    (w, p), syncs = _syncs(lambda: bpsvi.bpsvi_build(
+        x, init, torch.Generator(device=cuda_device), family=fam, n_sub_opt=128,
+        opt_itrs=25, step_sched=lambda i: 1.0 / (1.0 + i)))
+    assert w.is_cuda and p.is_cuda and syncs == []
+
+
+@pytest.mark.cuda
+def test_optimize_on_card_matches_cpu(cuda_device):
+    rng = np.random.default_rng(4)
+    A = rng.normal(size=(60, 150)).astype(np.float32)
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        g = snnls.GIGA(torch.as_tensor(A, device=dev), torch.as_tensor(A.sum(axis=1), device=dev))
+        g.build(40)
+        e0 = g.error()
+        g.optimize()
+        assert not g.reached_numeric_limit and g.error() <= e0
+        assert g.state.w.device.type == dev.type
+        out.append((g.weights(), g.error()))
+        g.optimize(solver="exact")
+        assert g.error() <= out[-1][1] * (1 + 1e-3)
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(out[1][1], out[0][1], rtol=1e-5)
