@@ -17,8 +17,11 @@ in both its stages, and the variational coreset constructions:
   exact host solver in ``native/``).
 
 ``ops/packed_select.py`` (``csrc/packed_select.cu``) carries the JAX
-package's packed-int4 select probe.  Tensors stay on the device they were
-given; nothing here picks a device.
+package's packed-int4 select probe.  The entry points run on the CUDA card:
+data given as numpy arrays or lists goes to :func:`default_device`, the
+card unless ``set_default_device("cpu")`` was called (where there is no
+card and the CPU was not chosen, they raise); a tensor stays on the device
+it was given on.
 
 It imports torch and never JAX or the JAX package.
 """
@@ -41,7 +44,7 @@ from .coresets import (
     identity_tangent_family,
     project,
 )
-from .utils import set_tolerance, set_verbosity
+from .utils import default_device, set_default_device, set_tolerance, set_verbosity
 
 __version__ = "0.1.0"
 
@@ -68,4 +71,6 @@ __all__ = [
     "identity_tangent_family",
     "set_tolerance",
     "set_verbosity",
+    "default_device",
+    "set_default_device",
 ]

@@ -94,14 +94,15 @@ class BatchPSVICoreset(Coreset):
     """Stateful facade with the reference's API (bpsvi.py:7-13).
 
     As in the reference, ``build(sz)``'s argument is the pseudocoreset
-    SIZE, not an iteration count, and each call re-initializes.  The
-    generator lives on the data's device, seeded with ``seed``.
+    SIZE, not an iteration count, and each call re-initializes.  The data
+    lives on its device (a tensor's own, else ``device``, else the default
+    device) and so does the generator, seeded with ``seed``.
     """
 
     def __init__(self, data, ll_projector, opt_itrs: int, n_subsample_opt=None,
-                 step_sched=lambda i: 1.0 / (1.0 + i), seed: int = 0):
+                 step_sched=lambda i: 1.0 / (1.0 + i), seed: int = 0, device=None):
         super().__init__()
-        self.data = torch.as_tensor(data, dtype=config.default_dtype())
+        self.data = config.as_tensor(data, config.default_dtype(), device)
         self.family = resolve_family(ll_projector)
         if self.family.project_grad is None:
             raise ValueError("BatchPSVICoreset requires a grad_loglikelihood "

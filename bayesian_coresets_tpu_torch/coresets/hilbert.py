@@ -6,8 +6,9 @@ log-likelihoods into per-datum feature vectors, form the system
 A = vecs.T, b = sum of valid vecs, and hand it to GIGA.  Weights map back
 through the (optional) subsample indices.
 
-The projection, the system and the solver stay on the data's device.  The
-subsample keeps a fixed shape: the reference's
+The projection, the system and the solver stay on the data's device: a
+tensor's own, else ``device``, else the default device (the CUDA card).
+The subsample keeps a fixed shape: the reference's
 ``np.unique(np.random.randint(...))`` (hilbert.py:16) shrinks the array,
 so here duplicate and zero-vector rows are masked ``valid=False`` instead.
 Streamed int8-resident and mesh-sharded construction are not ported yet.
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.snnls import GIGA
+from ..utils import config
 from .coreset import Coreset
 from .projector import Projector
 
@@ -26,9 +28,9 @@ from .projector import Projector
 class HilbertCoreset(Coreset):
     def __init__(self, data: torch.Tensor, ll_projector: Projector,
                  n_subsample: int | None = None, snnls=GIGA, seed: int = 0,
-                 max_active: int | None = None, select_dtype=None):
+                 max_active: int | None = None, select_dtype=None, device=None):
         super().__init__()
-        data = torch.as_tensor(data)
+        data = config.as_tensor(data, device=device)
         if n_subsample is None:
             sub_idcs = np.arange(data.shape[0])
             vecs = ll_projector.project(data)

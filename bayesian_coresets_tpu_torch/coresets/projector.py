@@ -16,7 +16,10 @@ functions.
   build (e.g. the previous Laplace mode).
 - :class:`FamilyProjector`/:class:`BlackBoxProjector` — the reference's
   stateful user API.  Samplers take a ``torch.Generator`` where the JAX
-  package takes a key: ``sampler(gen, n_samples, wts, pts)``.
+  package takes a key: ``sampler(gen, n_samples, wts, pts)``.  A projector
+  lives on one device: its generator's, else ``device``, else the default
+  device (the CUDA card); it places numpy inputs there and refuses tensors
+  on another device.
 
 Gradient projections are centered over the sample axis, as the JAX package
 does (it departs from the reference there: PARITY.md C3).
@@ -27,6 +30,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from ..utils import config
 
 
 class TangentFamily(NamedTuple):
@@ -111,22 +116,33 @@ class FamilyProjector(Projector):
 
     ``generator`` plays the part of the JAX package's ``_key``: every
     ``update`` draws from it, so repeated updates draw fresh samples.
+    Without one, the projector makes its own on ``device`` (default: the
+    default device), seeded with 0.
     """
 
     def __init__(self, family: TangentFamily,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, device=None):
         self.family = family
-        self._gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        if generator is None:
+            dev = config.resolve_device(device) if device is not None else config.default_device()
+            generator = torch.Generator(device=dev).manual_seed(0)
+        self.device = config.resolve_device(generator.device)
+        if device is not None and config.resolve_device(device) != self.device:
+            raise ValueError(f"generator on {self.device} but device={device}")
+        self._gen = generator
         self._ctx = None
-        self.update(torch.zeros((0,)), torch.zeros((0, 0)))
+        self.update(torch.zeros((0,), device=self.device), torch.zeros((0, 0), device=self.device))
+
+    def _place(self, x, what):
+        return config.on_device(x, None, self.device, what)
 
     def update(self, wts, pts):
         """Rebuild the projection context from the current coreset."""
-        self._ctx = self.family.make_ctx(self._gen, torch.as_tensor(wts),
-                                         torch.as_tensor(pts))
+        self._ctx = self.family.make_ctx(self._gen, self._place(wts, "wts"),
+                                         self._place(pts, "pts"))
 
     def project(self, pts, grad: bool = False):
-        return project(self.family, self._ctx, torch.as_tensor(pts), grad=grad)
+        return project(self.family, self._ctx, self._place(pts, "pts"), grad=grad)
 
 
 class BlackBoxProjector(FamilyProjector):
@@ -134,12 +150,12 @@ class BlackBoxProjector(FamilyProjector):
 
     def __init__(self, sampler, projection_dimension: int, loglikelihood,
                  grad_loglikelihood=None, generator: torch.Generator | None = None,
-                 warm_sampler=None, init_carry=None):
+                 warm_sampler=None, init_carry=None, device=None):
         self.projection_dimension = int(projection_dimension)
         family = blackbox_family(sampler, self.projection_dimension, loglikelihood,
                                  grad_loglikelihood, warm_sampler=warm_sampler,
                                  init_carry=init_carry)
-        super().__init__(family, generator=generator)
+        super().__init__(family, generator=generator, device=device)
 
     @property
     def samples(self):

@@ -3,9 +3,11 @@
 Port of ``bayesian_coresets_tpu/coresets/sampling.py`` (reference
 ``bayesiancoresets/coreset/sampling.py:5-27``): draw ``itrs`` uniform
 indices with replacement, count multiplicities, and weight each distinct
-point N * count / total_count.  It is trivially cheap, so it runs on the
-host with a per-instance NumPy generator; a tensor on any device is copied
-to the host once.
+point N * count / total_count.  The data lives on its device (a tensor's
+own, else ``device``, else the default device) and the points are gathered
+there.  The indices are drawn as the JAX package draws them, on the host
+from a per-instance NumPy generator seeded with ``seed``, so both packages
+pick the same points: the draw is a few integers, not device work.
 """
 
 from __future__ import annotations
@@ -13,13 +15,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import config
 from .coreset import Coreset
 
 
 class UniformSamplingCoreset(Coreset):
-    def __init__(self, data, seed: int = 0):
+    def __init__(self, data, seed: int = 0, device=None):
         super().__init__()
-        self.data = data.cpu().numpy() if isinstance(data, torch.Tensor) else np.asarray(data)
+        self.data = config.as_tensor(data, device=device)
         self.rng = np.random.default_rng(seed)
         self.cts: dict[int, int] = {}
         self._seed = seed
@@ -37,7 +40,7 @@ class UniformSamplingCoreset(Coreset):
         cts = np.fromiter(self.cts.values(), dtype=np.float64, count=len(self.cts))
         self.wts = self.data.shape[0] * cts / cts.sum()
         self.idcs = idcs
-        self.pts = self.data[idcs]
+        self.pts = self.data[torch.as_tensor(idcs, device=self.data.device)].cpu().numpy()
 
     def _optimize(self):
         pass

@@ -185,18 +185,19 @@ def svi_error(data, wts, idcs, size: int, gen, *, family, n_sub):
 class SparseVICoreset(Coreset):
     """Stateful facade with the reference's API (sparsevi.py:7-14).
 
-    The data stays on its device, and so do the slot arrays and the
-    generator (seeded with ``seed``); ``reset()`` reseeds it, so the same
-    builds after a reset give the same coreset.  ``capacity`` preallocates
+    The data stays on its device (a tensor's own, else ``device``, else the
+    default device), and so do the slot arrays and the generator (seeded
+    with ``seed``); ``reset()`` reseeds it, so the same builds after a
+    reset give the same coreset.  ``capacity`` preallocates
     the slots (they double on demand otherwise).
     """
 
     def __init__(self, data, ll_projector, n_subsample_select=None,
                  n_subsample_opt=None, opt_itrs: int = 100,
                  step_sched=lambda i: 1.0 / (1.0 + i), seed: int = 0,
-                 capacity: int | None = None):
+                 capacity: int | None = None, device=None):
         super().__init__()
-        self.data = torch.as_tensor(data, dtype=config.default_dtype())
+        self.data = config.as_tensor(data, config.default_dtype(), device)
         n = self.data.shape[0]
         self.family = resolve_family(ll_projector)
         self.n_subsample_select = None if n_subsample_select is None else min(n, int(n_subsample_select))

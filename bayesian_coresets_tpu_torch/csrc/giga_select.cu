@@ -1,13 +1,15 @@
-// GIGA select for Hopper (sm_90a): fused scores + global first-max argmax.
+// GIGA select for Hopper (sm_90a): fused scores + global first-max argmax,
+// one launch per select.
 //
 // Replaces bayesian_coresets_tpu/ops/pallas_kernels.py::giga_select_pallas
 // (the Pallas TPU kernel _giga_select_kernel).  It computes the same thing,
 // with the JAX package's default-select rounding (ops/snnls.py:479-487):
 //
+//   q = the directions [cdir_n, xw_n] in Vsel's type, zero-padded to Sp:
+//        int8: clamp(round_half_even(127 d), -127, 127);  bf16: rn;  f32: d
 //   per row r of the (n, Sp) selection copy Vsel:
-//     (d0, d1) = Vsel[r] . [cdir_n, xw_n]
-//        int8:     int32 dot of the int8 row against the int8-quantized
-//                  directions, times f32(1/127^2) (rows are pre-normalized)
+//     (d0, d1) = Vsel[r] . q
+//        int8:     int32 dots times f32(1/127^2) (rows are pre-normalized)
 //        bf16/f32: f32 accumulation, then divided by norms[r]
 //     geo_ok = d1 > -1 + 1e-14  &&  1 - d1^2 > 0
 //     score  = geo_ok ? d0 / sqrt(max(1 - d1^2, 1e-30)) : 0;  -inf if !valid[r]
@@ -15,22 +17,38 @@
 //   (all rows invalid -> index 0, score -inf, as jnp.argmax gives).
 //
 // What bounds it on the H100: bytes.  Each GIGA iteration streams the whole
-// selection copy once (N=100k, S=500: 51 MB of int8; N=1M: 512 MB) for
-// 4 integer multiply-adds per byte, far below the card's compute rate.
-// What the design does about it:
-//   - one warp per row, every lane loading 16 contiguous bytes per step, so
-//     a warp reads 512 contiguous bytes (a whole S=500 int8 row) at once;
-//   - int8 dots on the CUDA cores with __dp4a (4 MACs per instruction); the
-//     2-column product never touches a matrix unit;
-//   - the (n, 2) dots and (n,) scores never reach device memory: the score
-//     epilogue and the argmax run in registers;
-//   - a grid-stride loop over rows with one packed 64-bit atomicMax per
-//     block (select_key.cuh: the lowest index wins ties), then a one-thread
-//     kernel decodes it.
-//     The TPU kernel's sequential running accumulator has no counterpart:
-//     blocks on Hopper run in parallel and in no order.
-// The score epilogue uses the _rn intrinsics so that FMA contraction
-// cannot change its rounding against the plain PyTorch version.
+// selection copy once (N=100k, S=500: 51 MB of int8; N=1M: 512 MB) for 4
+// integer multiply-adds per byte, far below the card's compute rate.  The
+// first design (one warp per row, a grid-stride loop, a second kernel to
+// decode) reached 45-56% of the HBM rate: each warp had one 512-byte row in
+// flight and a serial shuffle-and-epilogue chain per row, the grid assumed
+// an occupancy its registers did not allow, and every select cost a
+// separate decode kernel and about six more launches in the wrapper.  This
+// design (stream_rows.cuh) does:
+//   - a persistent grid at the kernel's real occupancy (3 blocks of 288
+//     threads per SM), each block owning a contiguous range of 8 KB tiles
+//     of whole rows;
+//   - a 4-stage TMA ring per block: one producer lane keeps up to 32 KB per
+//     block (96 KB per SM) in flight with 1-D bulk copies, independent of
+//     registers, while 8 consumer warps compute on the tiles that have
+//     landed;
+//   - the directions quantized in the kernel, once per block, into shared
+//     memory while the first tiles arrive; each lane keeps its first chunk of both in registers for the
+//     whole kernel (every chunk of an S <= 512 int8 row), and reads further
+//     chunks of wider rows from shared memory;
+//   - a lane group of G = pow2 >= chunks lanes per row, 4 rows per group per
+//     step, and one transposed butterfly for all of them (group_reduce), so
+//     the score epilogue runs once per 4 rows on every lane in parallel; the
+//     per-row norms and valid bytes are loaded one step ahead, so no global
+//     load waits in the epilogue;
+//   - int8 dots on the CUDA cores with __dp4a; the (n, 2) dots and (n,)
+//     scores never reach device memory;
+//   - one launch: a packed 64-bit atomicMax per block, then the block with
+//     the last ticket decodes the key and resets the workspace.
+// The TPU kernel's sequential running accumulator has no counterpart:
+// blocks on Hopper run in parallel and in no order.  The score epilogue
+// uses the _rn intrinsics so that FMA contraction cannot change its rounding
+// against the plain PyTorch version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,17 +56,29 @@
 
 #include <type_traits>
 
-#include "select_key.cuh"
+#include "stream_rows.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;                       // rows in flight per block
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlocksPerSM = 8;                 // 2048 threads: full occupancy
 // f32 rounding of 1/127^2, as the JAX package's weakly typed constant
 constexpr float kInv127Sq = (float)(1.0 / (127.0 * 127.0));
 
 enum SelectDtype { kInt8 = 0, kBf16 = 1, kF32 = 2 };
+
+struct SelectArgs {
+  const unsigned char* V;
+  long long n;
+  int row_bytes;
+  int tile_rows;
+  int stages;
+  const float* dirs;        // (S, 2) f32, row-major
+  int S;
+  const float* norms;
+  const unsigned char* valid;
+  Workspace* ws;
+  int* idx;
+  float* score;
+};
 
 // Dots of one 16-byte chunk of a row against the same chunk of both
 // directions, accumulated into (a0, a1).
@@ -59,7 +89,8 @@ __device__ __forceinline__ void chunk_dot(int4 v, int4 p, int4 q, int& a0, int& 
   a1 = __dp4a(v.z, q.z, a1); a1 = __dp4a(v.w, q.w, a1);
 }
 
-__device__ __forceinline__ void chunk_dot_bf16(int4 v, int4 p, int4 q, float& a0, float& a1) {
+__device__ __forceinline__ void chunk_dot(int4 v, int4 p, int4 q, float& a0, float& a1,
+                                          std::integral_constant<int, kBf16>) {
   const __nv_bfloat162* vv = reinterpret_cast<const __nv_bfloat162*>(&v);
   const __nv_bfloat162* pp = reinterpret_cast<const __nv_bfloat162*>(&p);
   const __nv_bfloat162* qq = reinterpret_cast<const __nv_bfloat162*>(&q);
@@ -73,7 +104,8 @@ __device__ __forceinline__ void chunk_dot_bf16(int4 v, int4 p, int4 q, float& a0
   }
 }
 
-__device__ __forceinline__ void chunk_dot_f32(int4 v, int4 p, int4 q, float& a0, float& a1) {
+__device__ __forceinline__ void chunk_dot(int4 v, int4 p, int4 q, float& a0, float& a1,
+                                          std::integral_constant<int, kF32>) {
   const float4 x = *reinterpret_cast<const float4*>(&v);
   const float4 y = *reinterpret_cast<const float4*>(&p);
   const float4 z = *reinterpret_cast<const float4*>(&q);
@@ -84,100 +116,203 @@ __device__ __forceinline__ void chunk_dot_f32(int4 v, int4 p, int4 q, float& a0,
 }
 
 template <int DT>
-__global__ void __launch_bounds__(kThreads)
-giga_select_kernel(const int4* __restrict__ V, long long n, int chunks,
-                   const int4* __restrict__ dirs, const float* __restrict__ norms,
-                   const unsigned char* __restrict__ valid,
-                   unsigned long long* __restrict__ key) {
-  using Acc = typename std::conditional<DT == kInt8, int, float>::type;
-  __shared__ unsigned long long warp_best[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  unsigned long long best = 0ull;               // below every real key
-  const long long stride = (long long)gridDim.x * kWarps;
-  for (long long row = (long long)blockIdx.x * kWarps + warp; row < n; row += stride) {
-    const int4* vr = V + row * chunks;
-    Acc a0 = 0, a1 = 0;
-    for (int c = lane; c < chunks; c += 32) {
-      const int4 v = vr[c];
-      const int4 p = __ldg(dirs + c);
-      const int4 q = __ldg(dirs + chunks + c);
-      if constexpr (DT == kInt8) chunk_dot(v, p, q, a0, a1);
-      else if constexpr (DT == kBf16) chunk_dot_bf16(v, p, q, a0, a1);
-      else chunk_dot_f32(v, p, q, a0, a1);
+__device__ __forceinline__ void dot(int4 v, int4 p, int4 q, int& a0, int& a1) {
+  chunk_dot(v, p, q, a0, a1);
+}
+
+template <int DT>
+__device__ __forceinline__ void dot(int4 v, int4 p, int4 q, float& a0, float& a1) {
+  chunk_dot(v, p, q, a0, a1, std::integral_constant<int, DT>());
+}
+
+// The directions in Vsel's type, (2, Sp) zero-padded, into shared memory,
+// by the consumer warps: every thread loads its values before it stores any.
+template <int DT>
+__device__ __forceinline__ void quantize_dirs(const float* __restrict__ dirs, int S, int Sp,
+                                              unsigned char* dq) {
+  constexpr int kStride = kConsumerWarps * 32;
+  for (int base = threadIdx.x; base < 2 * Sp; base += 4 * kStride) {
+    float f[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = base + k * kStride;
+      const int d = i >= Sp;
+      const int s = i - d * Sp;
+      f[k] = (i < 2 * Sp && s < S) ? dirs[2 * s + d] : 0.0f;
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      a0 += __shfl_xor_sync(0xFFFFFFFFu, a0, off);
-      a1 += __shfl_xor_sync(0xFFFFFFFFu, a1, off);
-    }
-    if (lane == 0) {
-      float d0, d1;
+    for (int k = 0; k < 4; ++k) {
+      const int i = base + k * kStride;
+      if (i >= 2 * Sp) break;
       if constexpr (DT == kInt8) {
-        // int32 -> f32 rounds to nearest, as astype(float32) does (exact
-        // while |dot| < 2^24, i.e. for every Sp < 1040)
-        d0 = __fmul_rn((float)a0, kInv127Sq);
-        d1 = __fmul_rn((float)a1, kInv127Sq);
+        int q = __float2int_rn(__fmul_rn(f[k], 127.0f));   // round half to even
+        q = q < -127 ? -127 : (q > 127 ? 127 : q);
+        reinterpret_cast<signed char*>(dq)[i] = (signed char)q;
+      } else if constexpr (DT == kBf16) {
+        reinterpret_cast<__nv_bfloat16*>(dq)[i] = __float2bfloat16_rn(f[k]);
       } else {
-        const float nr = norms[row];
-        d0 = __fdiv_rn(a0, nr);
-        d1 = __fdiv_rn(a1, nr);
+        reinterpret_cast<float*>(dq)[i] = f[k];
       }
-      const float om = __fsub_rn(1.0f, __fmul_rn(d1, d1));
-      // f32(-1 + 1e-14) == -1.0f
-      const bool geo_ok = (d1 > -1.0f) && (om > 0.0f);
-      float s = geo_ok ? __fdiv_rn(d0, __fsqrt_rn(fmaxf(om, 1e-30f))) : 0.0f;
-      if (!valid[row]) s = __int_as_float(0xff800000);   // -inf
-      if (s == 0.0f) s = 0.0f;                  // -0 ties +0, as in argmax
-      const unsigned long long k = pack_key(s, row);
-      best = k > best ? k : best;
     }
   }
-  if (lane == 0) warp_best[warp] = best;
+}
+
+template <int DT, int LOG_G>
+__global__ void __launch_bounds__(kThreads) giga_select_kernel(const SelectArgs a) {
+  using Acc = typename std::conditional<DT == kInt8, int, float>::type;
+  constexpr int U = kRowsPerStep;
+  constexpr int G = 1 << LOG_G;
+  constexpr int RPW = 32 >> LOG_G;                    // row groups per warp
+  constexpr int SR = RPW * U;                         // rows per warp step
+  using R = Reduced<LOG_G, U>;
+  constexpr int elem = DT == kInt8 ? 1 : (DT == kBf16 ? 2 : 4);
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int rb = a.row_bytes;
+  const int C = rb / 16;                              // chunks per row
+  unsigned char* dq = smem + kBarBytes;               // (2, Sp) directions
+  const Ring ring = ring_setup(smem, dq + 2 * rb, a.stages, a.tile_rows * rb);
   __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long m = warp_best[0];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int sub = lane & (G - 1);                     // lane within its group
+  const int grp = lane >> LOG_G;                      // group within the warp
+  const int4* d4 = reinterpret_cast<const int4*>(dq);
+  int4 p0 = make_int4(0, 0, 0, 0), q0 = p0;
+  if (warp < kConsumerWarps) {                        // meanwhile the producer streams
+    quantize_dirs<DT>(a.dirs, a.S, rb / elem, dq);
+    consumer_sync();
+    if (sub < C) {
+      p0 = d4[sub];
+      q0 = d4[C + sub];
+    }
+  }
+  const int u0 = value_offset<LOG_G, U>(lane) >> 1;   // this lane's first row of a step
+  const int spt = (a.tile_rows + SR - 1) / SR;        // steps per tile
+  // Warp w takes the block's steps q = w, w + 8, ... (step q is step q % spt
+  // of tile q / spt).  The valid bytes and norms of this lane's epilogue
+  // rows are loaded one step ahead, so no global load waits in the epilogue.
+  const Span span = block_span(a.n, a.tile_rows);
+  bool ok_next[R::E];
+  float nr_next[R::E];
+  const auto prefetch = [&](long long q) {
+    const long long t = q / spt;
+    const long long row0 = (span.first + t) * a.tile_rows;
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) m = warp_best[w] > m ? warp_best[w] : m;
-    if (m) atomicMax(key, m);
+    for (int e = 0; e < R::E; ++e) {
+      const int rl = (int)(q - t * spt) * SR + (u0 + e) * RPW + grp;
+      ok_next[e] = false;
+      nr_next[e] = 1.0f;
+      if (t < span.count && rl < a.tile_rows && row0 + rl < a.n) {
+        ok_next[e] = a.valid[row0 + rl] != 0;
+        if constexpr (DT != kInt8) nr_next[e] = a.norms[row0 + rl];
+      }
+    }
+  };
+  if (warp < kConsumerWarps) prefetch(warp);
+  unsigned long long best = 0ull;                     // below every real key
+
+  stream_rows(a.V, a.n, rb, a.tile_rows, ring,
+              [&](const unsigned char* buf, long long i, long long row0, int rows) {
+    for (int s = (warp - (int)((i * spt) & 7)) & 7; s < spt; s += kConsumerWarps) {
+      const int r0 = s * SR;
+      if (r0 >= rows) break;
+      bool ok[R::E];
+      float nr[R::E];
+#pragma unroll
+      for (int e = 0; e < R::E; ++e) {
+        ok[e] = ok_next[e];
+        nr[e] = nr_next[e];
+      }
+      prefetch(i * spt + s + kConsumerWarps);
+      Acc v[2 * U];
+#pragma unroll
+      for (int k = 0; k < 2 * U; ++k) v[k] = 0;
+      for (int c = sub; c < C; c += G) {
+        const int4 p = c == sub ? p0 : d4[c];
+        const int4 q = c == sub ? q0 : d4[C + c];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int rl = r0 + u * RPW + grp;
+          if (rl < rows) {
+            const int4 x = reinterpret_cast<const int4*>(buf + (size_t)rl * rb)[c];
+            dot<DT>(x, p, q, v[2 * u], v[2 * u + 1]);
+          }
+        }
+      }
+      group_reduce<LOG_G, U>(v, lane);
+#pragma unroll
+      for (int e = 0; e < R::E; ++e) {
+        Acc a0, a1;
+        row_pair<LOG_G, U>(v, lane, e, a0, a1);
+        const int rl = r0 + (u0 + e) * RPW + grp;
+        if (rl < rows) {
+          float d0, d1;
+          if constexpr (DT == kInt8) {
+            // int32 -> f32 rounds to nearest, as astype(float32) does (exact
+            // while |dot| < 2^24, i.e. for every Sp < 1040)
+            d0 = __fmul_rn((float)a0, kInv127Sq);
+            d1 = __fmul_rn((float)a1, kInv127Sq);
+          } else {
+            d0 = __fdiv_rn(a0, nr[e]);
+            d1 = __fdiv_rn(a1, nr[e]);
+          }
+          const float om = __fsub_rn(1.0f, __fmul_rn(d1, d1));
+          // f32(-1 + 1e-14) == -1.0f
+          const bool geo_ok = (d1 > -1.0f) && (om > 0.0f);
+          float sc = geo_ok ? __fdiv_rn(d0, __fsqrt_rn(fmaxf(om, 1e-30f))) : 0.0f;
+          if (!ok[e]) sc = __int_as_float(0xff800000);   // -inf
+          if (sc == 0.0f) sc = 0.0f;                      // -0 ties +0, as in argmax
+          const unsigned long long key = pack_key(sc, row0 + rl);
+          best = key > best ? key : best;
+        }
+      }
+    }
+  });
+  finish(best, a.ws, a.idx, a.score);
+}
+
+template <int DT>
+const void* pick(int log_g) {
+  switch (log_g) {
+    case 0: return reinterpret_cast<const void*>(&giga_select_kernel<DT, 0>);
+    case 1: return reinterpret_cast<const void*>(&giga_select_kernel<DT, 1>);
+    case 2: return reinterpret_cast<const void*>(&giga_select_kernel<DT, 2>);
+    case 3: return reinterpret_cast<const void*>(&giga_select_kernel<DT, 3>);
+    case 4: return reinterpret_cast<const void*>(&giga_select_kernel<DT, 4>);
+    default: return reinterpret_cast<const void*>(&giga_select_kernel<DT, 5>);
   }
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  V: (n, row_bytes / elem) rows,
-// 16-byte aligned, row_bytes % 16 == 0; dirs: (2, same) in V's dtype;
-// norms: (n,) f32 (unused for int8); valid: (n,) bool; key: one uint64
-// zeroed by the caller; idx/score: one int32 / one f32.  Launches on
-// `stream`, never synchronizes, returns cudaGetLastError().
-extern "C" int giga_select_launch(const void* V, int dtype, long long n,
-                                  long long row_bytes, const void* dirs,
-                                  const void* norms, const void* valid, void* key,
-                                  void* idx, void* score, void* stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+// 16-byte aligned, row_bytes % 16 == 0; dirs: (S, 2) f32, S <= row_bytes /
+// elem; norms: (n,) f32 (unused for int8); valid: (n,) bool; workspace: 16
+// zero bytes owned by the caller for this stream (left zero again by every
+// launch); idx/score: one int32 / one f32.  One kernel launch on `stream`;
+// never synchronizes; returns cudaGetLastError().
+extern "C" int giga_select_launch(const void* V, int dtype, long long n, long long row_bytes,
+                                  const void* dirs, int S, const void* norms, const void* valid,
+                                  void* workspace, void* idx, void* score, void* stream) {
+  if (dtype < kInt8 || dtype > kF32 || row_bytes > (1 << 20)) return (int)cudaErrorInvalidValue;
+  const int rb = (int)row_bytes;
+  const int log_g = group_log2(rb / 16);
+  const void* kernel = dtype == kInt8 ? pick<kInt8>(log_g)
+                       : dtype == kBf16 ? pick<kBf16>(log_g)
+                                        : pick<kF32>(log_g);
+  Plan plan;
+  cudaError_t err = plan_launch(kernel, n, rb, 2 * rb, (32 >> log_g) * kRowsPerStep, &plan);
   if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  SelectArgs a{reinterpret_cast<const unsigned char*>(V), n, rb, plan.tile_rows, plan.stages,
+               reinterpret_cast<const float*>(dirs), S, reinterpret_cast<const float*>(norms),
+               reinterpret_cast<const unsigned char*>(valid),
+               reinterpret_cast<Workspace*>(workspace), reinterpret_cast<int*>(idx),
+               reinterpret_cast<float*>(score)};
+  void* args[] = {&a};
+  err = cudaLaunchKernel(kernel, dim3(plan.grid), dim3(kThreads), args, plan.smem,
+                         reinterpret_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
-  const long long want = (n + kWarps - 1) / kWarps;
-  const long long cap = (long long)sms * kBlocksPerSM;
-  const int blocks = (int)(want < cap ? want : cap);
-  const int chunks = (int)(row_bytes / 16);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int4* v4 = reinterpret_cast<const int4*>(V);
-  const int4* d4 = reinterpret_cast<const int4*>(dirs);
-  const float* nr = reinterpret_cast<const float*>(norms);
-  const unsigned char* ok = reinterpret_cast<const unsigned char*>(valid);
-  unsigned long long* k = reinterpret_cast<unsigned long long*>(key);
-  switch (dtype) {
-    case kInt8: giga_select_kernel<kInt8><<<blocks, kThreads, 0, s>>>(v4, n, chunks, d4, nr, ok, k); break;
-    case kBf16: giga_select_kernel<kBf16><<<blocks, kThreads, 0, s>>>(v4, n, chunks, d4, nr, ok, k); break;
-    case kF32: giga_select_kernel<kF32><<<blocks, kThreads, 0, s>>>(v4, n, chunks, d4, nr, ok, k); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  select_finish<<<1, 1, 0, s>>>(k, reinterpret_cast<int*>(idx),
-                                reinterpret_cast<float*>(score));
   return (int)cudaGetLastError();
 }

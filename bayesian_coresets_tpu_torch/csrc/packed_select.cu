@@ -1,4 +1,5 @@
-// Packed-int4 select for Hopper (sm_90a): a bandwidth probe of GIGA's select.
+// Packed-int4 select for Hopper (sm_90a): a bandwidth probe of GIGA's select,
+// one launch per select.
 //
 // Replaces scripts/probe_int4_pallas.py::packed_select (the Pallas TPU
 // kernel _packed_select_kernel).  It computes exactly what that kernel
@@ -13,45 +14,66 @@
 //   result: the lowest row of the maximal score, and that score.
 //
 // What bounds it on the H100: bytes.  One call streams the packed copy once
-// (N=2^20, S=512: 256 MiB, half of the int8 copy kernel 1 reads) for 8
-// integer multiply-adds per byte.  What the design does about it:
-//   - kernel 1's skeleton: lanes load 16 contiguous bytes each, rows in a
-//     grid-stride loop, the score epilogue and argmax in registers, one
-//     packed 64-bit atomicMax per block (select_key.cuh);
-//   - a row of S/2 bytes is C = S/32 16-byte chunks; it gets the smallest
-//     power of two G >= C lanes (at most 32), so a warp takes 32/G rows at
-//     once and no lane idles at S=512 (C = G = 16, two rows per warp);
-//   - the nibbles are never widened: (w << 4) & 0xF0F0F0F0 and
-//     w & 0xF0F0F0F0 leave each signed nibble in the high half of its byte,
-//     i.e. 16x its value as an int8 lane, which __dp4a takes as it is.  The
-//     int32 sums are then exactly 16x the dots (|dot| <= S*7*127, far from
-//     overflow), and an arithmetic shift by 4 gives the dots exactly.
+// (N=2^20, S=512: 256 MiB, half of the int8 copy kernel 1 reads, plus 8 MiB
+// of nrminv and bias) for 8 integer multiply-adds per byte.  The first
+// design (kernel 1's grid-stride skeleton) reached 39% of the HBM rate; it
+// also re-read four 16-byte direction chunks from L1 for every 16 bytes of
+// data.  This design shares kernel 1's (stream_rows.cuh): a persistent grid,
+// a 4-stage TMA ring of 8 KB tiles of whole rows per block, lane groups of
+// G = pow2 >= chunks lanes per row (G = 16 at S=512: two rows per warp
+// pass), 4 rows per group per step summed by one transposed butterfly, and
+// one launch with a ticket finish; nrminv and bias are loaded one step
+// ahead.  The four direction rows [lo0, lo1, hi0,
+// hi1] are quantized in the kernel, once per block, into shared memory,
+// and each lane keeps its chunk of all four in registers for the whole
+// kernel when a row fits one pass of its group (every S <= 1024).
+// The nibbles are never widened: (w << 4) & 0xF0F0F0F0 and w & 0xF0F0F0F0
+// leave each signed nibble in the high half of its byte, i.e. 16x its value
+// as an int8 lane, which __dp4a takes as it is.  The int32 sums are then
+// exactly 16x the dots (|dot| <= S*7*127, far from overflow), and an
+// arithmetic shift by 4 gives the dots exactly.  At the full HBM rate the
+// integer pipe is about half busy, so the arithmetic is not the limit.
 // The score epilogue uses the _rn intrinsics so that FMA contraction cannot
 // change its rounding against the plain PyTorch version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "select_key.cuh"
+#include "stream_rows.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;                       // warps per block
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlocksPerSM = 8;
 // f32 rounding of the probe's weakly typed constant 1/(7*127)
 constexpr float kInv7x127 = (float)(1.0 / (7.0 * 127.0));
 constexpr unsigned int kHiNibbles = 0xF0F0F0F0u;
 
+struct PackedArgs {
+  const unsigned char* P;
+  long long n;
+  int row_bytes;
+  int tile_rows;
+  int stages;
+  const float* dirs;        // (S, 2) f32, row-major, S = 2 * (unpadded row bytes)
+  int S;
+  const float* nrminv;
+  const float* bias;
+  Workspace* ws;
+  int* idx;
+  float* score;
+};
+
+struct Dirs4 {
+  int4 l0, l1, h0, h1;
+};
+
 // 16 packed bytes (32 original columns) against the matching 16 bytes of
-// the four direction vectors [lo0, lo1, hi0, hi1], accumulated as 16x dots.
-__device__ __forceinline__ void packed_chunk_dot(int4 v, int4 l0, int4 l1, int4 h0,
-                                                 int4 h1, int& a0, int& a1) {
+// the four direction rows, accumulated as 16x dots.
+__device__ __forceinline__ void packed_chunk_dot(int4 v, const Dirs4& d, int& a0, int& a1) {
   const int w[4] = {v.x, v.y, v.z, v.w};
-  const int pl0[4] = {l0.x, l0.y, l0.z, l0.w};
-  const int pl1[4] = {l1.x, l1.y, l1.z, l1.w};
-  const int ph0[4] = {h0.x, h0.y, h0.z, h0.w};
-  const int ph1[4] = {h1.x, h1.y, h1.z, h1.w};
+  const int pl0[4] = {d.l0.x, d.l0.y, d.l0.z, d.l0.w};
+  const int pl1[4] = {d.l1.x, d.l1.y, d.l1.z, d.l1.w};
+  const int ph0[4] = {d.h0.x, d.h0.y, d.h0.z, d.h0.w};
+  const int ph1[4] = {d.h1.x, d.h1.y, d.h1.z, d.h1.w};
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int lo = (int)(((unsigned int)w[k] << 4) & kHiNibbles);
@@ -63,62 +85,144 @@ __device__ __forceinline__ void packed_chunk_dot(int4 v, int4 l0, int4 l1, int4 
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-packed_select_kernel(const int4* __restrict__ P, long long n, int chunks, int group_log2,
-                     const int4* __restrict__ dirs, const float* __restrict__ nrminv,
-                     const float* __restrict__ bias, unsigned long long* __restrict__ key) {
-  __shared__ unsigned long long warp_best[kWarps];
+// The four direction rows [lo0, lo1, hi0, hi1] of the quantized directions
+// (even and odd rows of q), each zero-padded to row_bytes, into shared
+// memory, by the consumer warps: every thread loads before it stores.
+__device__ __forceinline__ void quantize_dirs4(const float* __restrict__ dirs, int S, int rb,
+                                               signed char* dq) {
+  constexpr int kStride = kConsumerWarps * 32;
+  for (int base = threadIdx.x; base < 4 * rb; base += 4 * kStride) {
+    float f[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = base + k * kStride;
+      const int r = i / rb;
+      const int s = 2 * (i - r * rb) + (r >> 1);    // lo rows: even columns; hi: odd
+      f[k] = (i < 4 * rb && s < S) ? dirs[2 * s + (r & 1)] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = base + k * kStride;
+      if (i >= 4 * rb) break;
+      int q = __float2int_rn(__fmul_rn(f[k], 127.0f));   // round half to even
+      q = q < -127 ? -127 : (q > 127 ? 127 : q);
+      dq[i] = (signed char)q;
+    }
+  }
+}
+
+__device__ __forceinline__ Dirs4 dirs_chunk(const int4* d4, int C, int c) {
+  return Dirs4{d4[c], d4[C + c], d4[2 * C + c], d4[3 * C + c]};
+}
+
+template <int LOG_G>
+__global__ void __launch_bounds__(kThreads) packed_select_kernel(const PackedArgs a) {
+  constexpr int U = kRowsPerStep;
+  constexpr int G = 1 << LOG_G;
+  constexpr int RPW = 32 >> LOG_G;
+  constexpr int SR = RPW * U;
+  using R = Reduced<LOG_G, U>;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int rb = a.row_bytes;
+  const int C = rb / 16;
+  signed char* dq = reinterpret_cast<signed char*>(smem + kBarBytes);   // (4, rb)
+  const Ring ring = ring_setup(smem, smem + kBarBytes + 4 * rb, a.stages, a.tile_rows * rb);
+  __syncthreads();
+
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int group = 1 << group_log2;            // lanes per row
-  const int sub = lane & (group - 1);           // lane within its row's group
-  const int rows_per_warp = 32 >> group_log2;
-  const long long stride = (long long)gridDim.x * kWarps * rows_per_warp;
-  unsigned long long best = 0ull;               // below every real key
-  // the loop bounds are uniform across the warp, so every lane reaches the
-  // shuffles; a lane past the last row adds zeros and keeps no key
-  for (long long base = ((long long)blockIdx.x * kWarps + warp) * rows_per_warp;
-       base < n; base += stride) {
-    const long long row = base + (lane >> group_log2);
-    int a0 = 0, a1 = 0;
-    if (row < n) {
-      const int4* pr = P + row * chunks;
-      for (int c = sub; c < chunks; c += group) {
-        packed_chunk_dot(pr[c], __ldg(dirs + c), __ldg(dirs + chunks + c),
-                         __ldg(dirs + 2 * chunks + c), __ldg(dirs + 3 * chunks + c),
-                         a0, a1);
+  const int sub = lane & (G - 1);
+  const int grp = lane >> LOG_G;
+  const int4* d4 = reinterpret_cast<const int4*>(dq);
+  const int4 z = make_int4(0, 0, 0, 0);
+  Dirs4 first{z, z, z, z};
+  if (warp < kConsumerWarps) {                        // meanwhile the producer streams
+    quantize_dirs4(a.dirs, a.S, rb, dq);
+    consumer_sync();
+    if (sub < C) first = dirs_chunk(d4, C, sub);
+  }
+  const int u0 = value_offset<LOG_G, U>(lane) >> 1;
+  const int spt = (a.tile_rows + SR - 1) / SR;
+  // Warp w takes the block's steps q = w, w + 8, ...; the per-row scalars
+  // of this lane's epilogue rows are loaded one step ahead (as in kernel 1).
+  const Span span = block_span(a.n, a.tile_rows);
+  float nr_next[R::E], bi_next[R::E];
+  const auto prefetch = [&](long long q) {
+    const long long t = q / spt;
+    const long long row0 = (span.first + t) * a.tile_rows;
+#pragma unroll
+    for (int e = 0; e < R::E; ++e) {
+      const int rl = (int)(q - t * spt) * SR + (u0 + e) * RPW + grp;
+      nr_next[e] = 0.0f;
+      bi_next[e] = 0.0f;
+      if (t < span.count && rl < a.tile_rows && row0 + rl < a.n) {
+        nr_next[e] = a.nrminv[row0 + rl];
+        bi_next[e] = a.bias[row0 + rl];
       }
     }
-    for (int off = group >> 1; off > 0; off >>= 1) {
-      a0 += __shfl_xor_sync(0xFFFFFFFFu, a0, off);
-      a1 += __shfl_xor_sync(0xFFFFFFFFu, a1, off);
-    }
-    if (sub == 0 && row < n) {
-      // a >> 4 is exact (a is a multiple of 16); int32 -> f32 is exact while
-      // |dot| < 2^24
-      const float nr = nrminv[row];
-      const float d0 = __fmul_rn(__fmul_rn((float)(a0 >> 4), kInv7x127), nr);
-      const float d1 = __fmul_rn(__fmul_rn((float)(a1 >> 4), kInv7x127), nr);
-      const float om = __fsub_rn(1.0f, __fmul_rn(d1, d1));
-      const float cl = om < 1e-30f ? 1e-30f : om;   // NaN passes, as in jnp.clip
-      float s = __fadd_rn(__fdiv_rn(d0, __fsqrt_rn(cl)), bias[row]);
-      if (s == 0.0f) s = 0.0f;                  // -0 ties +0, as in argmax
-      const unsigned long long k = pack_key(s, row);
-      best = k > best ? k : best;
-    }
-  }
+  };
+  if (warp < kConsumerWarps) prefetch(warp);
+  unsigned long long best = 0ull;                     // below every real key
+
+  stream_rows(a.P, a.n, rb, a.tile_rows, ring,
+              [&](const unsigned char* buf, long long i, long long row0, int rows) {
+    for (int s = (warp - (int)((i * spt) & 7)) & 7; s < spt; s += kConsumerWarps) {
+      const int r0 = s * SR;
+      if (r0 >= rows) break;
+      float nr[R::E], bi[R::E];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_xor_sync(0xFFFFFFFFu, best, off);
-    best = o > best ? o : best;
-  }
-  if (lane == 0) warp_best[warp] = best;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long m = warp_best[0];
+      for (int e = 0; e < R::E; ++e) {
+        nr[e] = nr_next[e];
+        bi[e] = bi_next[e];
+      }
+      prefetch(i * spt + s + kConsumerWarps);
+      int v[2 * U];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) m = warp_best[w] > m ? warp_best[w] : m;
-    if (m) atomicMax(key, m);
+      for (int k = 0; k < 2 * U; ++k) v[k] = 0;
+      for (int c = sub; c < C; c += G) {
+        const Dirs4 d = c == sub ? first : dirs_chunk(d4, C, c);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int rl = r0 + u * RPW + grp;
+          if (rl < rows) {
+            const int4 x = reinterpret_cast<const int4*>(buf + (size_t)rl * rb)[c];
+            packed_chunk_dot(x, d, v[2 * u], v[2 * u + 1]);
+          }
+        }
+      }
+      group_reduce<LOG_G, U>(v, lane);
+#pragma unroll
+      for (int e = 0; e < R::E; ++e) {
+        int a0, a1;
+        row_pair<LOG_G, U>(v, lane, e, a0, a1);
+        const int rl = r0 + (u0 + e) * RPW + grp;
+        if (rl < rows) {
+          // a >> 4 is exact (a is a multiple of 16); int32 -> f32 is exact
+          // while |dot| < 2^24
+          const float d0 = __fmul_rn(__fmul_rn((float)(a0 >> 4), kInv7x127), nr[e]);
+          const float d1 = __fmul_rn(__fmul_rn((float)(a1 >> 4), kInv7x127), nr[e]);
+          const float om = __fsub_rn(1.0f, __fmul_rn(d1, d1));
+          const float cl = om < 1e-30f ? 1e-30f : om;   // NaN passes, as in jnp.clip
+          float sc = __fadd_rn(__fdiv_rn(d0, __fsqrt_rn(cl)), bi[e]);
+          if (sc == 0.0f) sc = 0.0f;                    // -0 ties +0, as in argmax
+          const unsigned long long key = pack_key(sc, row0 + rl);
+          best = key > best ? key : best;
+        }
+      }
+    }
+  });
+  finish(best, a.ws, a.idx, a.score);
+}
+
+const void* pick(int log_g) {
+  switch (log_g) {
+    case 0: return reinterpret_cast<const void*>(&packed_select_kernel<0>);
+    case 1: return reinterpret_cast<const void*>(&packed_select_kernel<1>);
+    case 2: return reinterpret_cast<const void*>(&packed_select_kernel<2>);
+    case 3: return reinterpret_cast<const void*>(&packed_select_kernel<3>);
+    case 4: return reinterpret_cast<const void*>(&packed_select_kernel<4>);
+    default: return reinterpret_cast<const void*>(&packed_select_kernel<5>);
   }
 }
 
@@ -126,37 +230,28 @@ packed_select_kernel(const int4* __restrict__ P, long long n, int chunks, int gr
 
 // Plain C entry point (bound with ctypes).  P: (n, row_bytes) packed int8
 // rows, 16-byte aligned, row_bytes % 16 == 0 (zero bytes past S/2 add
-// nothing); dirs: (4, row_bytes) int8 rows [lo0, lo1, hi0, hi1], the even
-// and odd rows of the quantized directions, zero-padded alike; nrminv,
-// bias: (n,) f32; key: one uint64 zeroed by the caller; idx/score: one int32
-// / one f32.  Launches on `stream`, never synchronizes, returns
-// cudaGetLastError().
+// nothing); dirs: (S, 2) f32 with S / 2 <= row_bytes; nrminv, bias: (n,) f32;
+// workspace: 16 zero bytes owned by the caller for this stream (left zero
+// again by every launch); idx/score: one int32 / one f32.  One kernel launch
+// on `stream`; never synchronizes; returns cudaGetLastError().
 extern "C" int packed_select_launch(const void* P, long long n, long long row_bytes,
-                                    const void* dirs, const void* nrminv,
-                                    const void* bias, void* key, void* idx, void* score,
+                                    const void* dirs, int S, const void* nrminv,
+                                    const void* bias, void* workspace, void* idx, void* score,
                                     void* stream) {
-  if (n <= 0 || row_bytes <= 0 || row_bytes % 16) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  if (row_bytes > (1 << 20) || S > 2 * row_bytes) return (int)cudaErrorInvalidValue;
+  const int rb = (int)row_bytes;
+  const int log_g = group_log2(rb / 16);
+  const void* kernel = pick(log_g);
+  Plan plan;
+  cudaError_t err = plan_launch(kernel, n, rb, 4 * rb, (32 >> log_g) * kRowsPerStep, &plan);
   if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  PackedArgs a{reinterpret_cast<const unsigned char*>(P), n, rb, plan.tile_rows, plan.stages,
+               reinterpret_cast<const float*>(dirs), S, reinterpret_cast<const float*>(nrminv),
+               reinterpret_cast<const float*>(bias), reinterpret_cast<Workspace*>(workspace),
+               reinterpret_cast<int*>(idx), reinterpret_cast<float*>(score)};
+  void* args[] = {&a};
+  err = cudaLaunchKernel(kernel, dim3(plan.grid), dim3(kThreads), args, plan.smem,
+                         reinterpret_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
-  const int chunks = (int)(row_bytes / 16);
-  int group_log2 = 0;
-  while ((1 << group_log2) < chunks && group_log2 < 5) ++group_log2;
-  const long long rows_per_block = (long long)kWarps * (32 >> group_log2);
-  const long long want = (n + rows_per_block - 1) / rows_per_block;
-  const long long cap = (long long)sms * kBlocksPerSM;
-  const int blocks = (int)(want < cap ? want : cap);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  unsigned long long* k = reinterpret_cast<unsigned long long*>(key);
-  packed_select_kernel<<<blocks, kThreads, 0, s>>>(
-      reinterpret_cast<const int4*>(P), n, chunks, group_log2,
-      reinterpret_cast<const int4*>(dirs), reinterpret_cast<const float*>(nrminv),
-      reinterpret_cast<const float*>(bias), k);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  select_finish<<<1, 1, 0, s>>>(k, reinterpret_cast<int*>(idx),
-                                reinterpret_cast<float*>(score));
   return (int)cudaGetLastError();
 }

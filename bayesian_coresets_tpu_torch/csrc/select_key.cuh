@@ -2,11 +2,11 @@
 //
 // Blocks on Hopper run in parallel and in no order, so a block reduces its
 // rows to one packed 64-bit key and folds it into a device-wide maximum with
-// one atomicMax; a one-thread kernel then decodes the key.  The key holds
-// the order-preserving bits of the score high and 0xFFFFFFFF - row low, so a
-// larger key is a larger score, then a lower row: ties go to the lowest row,
-// as jnp.argmax and torch.argmax give.  The caller zeroes the key, which is
-// below every real key; all rows at -inf decode to (row 0, -inf).
+// one atomicMax (stream_rows.cuh's finish); the last block to finish decodes
+// the key.  The key holds the order-preserving bits of the score high and
+// 0xFFFFFFFF - row low, so a larger key is a larger score, then a lower row:
+// ties go to the lowest row, as jnp.argmax and torch.argmax give.  A zero
+// key is below every real key; all rows at -inf decode to (row 0, -inf).
 //
 // Everything here has internal linkage: each kernel source includes its own
 // copy, so the library links without duplicate symbols.
@@ -24,9 +24,8 @@ __device__ __forceinline__ unsigned long long pack_key(float s, long long row) {
          (unsigned long long)(0xFFFFFFFFu - (unsigned int)row);
 }
 
-__global__ void select_finish(const unsigned long long* __restrict__ key,
-                              int* __restrict__ idx, float* __restrict__ score) {
-  const unsigned long long k = *key;
+__device__ __forceinline__ void decode_key(unsigned long long k, int* __restrict__ idx,
+                                           float* __restrict__ score) {
   const unsigned int u = (unsigned int)(k >> 32);
   const unsigned int b = (u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u;
   *idx = (int)(0xFFFFFFFFu - (unsigned int)(k & 0xFFFFFFFFull));

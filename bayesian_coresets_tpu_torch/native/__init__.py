@@ -1,8 +1,9 @@
 """Exact host-side NNLS: the JAX package's Lawson-Hanson solver in C++.
 
-The source is ``bayesian_coresets_tpu/native/nnls.cpp``, read by path (this
-package never imports the JAX one).  It is compiled with ``g++`` at first
-use into ``build/native/`` beside the package (listed in ``.gitignore``),
+The source is this package's own ``native/nnls.cpp``, a byte-for-byte copy
+of the JAX package's (this package reads no file of the JAX one).  It is
+compiled with ``g++`` at first use into ``build/native/`` beside the
+package (listed in ``.gitignore``),
 under a name that carries a hash of the source, the flags and the
 compiler, and loaded with ctypes.  There is no fallback: without ``g++``,
 or if the build fails, :func:`nnls` raises.
@@ -21,9 +22,8 @@ from pathlib import Path
 
 import numpy as np
 
-_ROOT = Path(__file__).resolve().parents[2]
-SOURCE = _ROOT / "bayesian_coresets_tpu" / "native" / "nnls.cpp"
-BUILD_DIR = _ROOT / "build" / "native"
+SOURCE = Path(__file__).resolve().parent / "nnls.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 FLAGS = ["-O3", "-shared", "-fPIC"]
 
 _lock = threading.Lock()

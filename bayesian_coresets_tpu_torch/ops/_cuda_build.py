@@ -98,8 +98,8 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             for fn, args in [
-                (lib.giga_select_launch, [ptr, i32, i64, i64] + [ptr] * 7),
-                (lib.packed_select_launch, [ptr, i64, i64] + [ptr] * 7),
+                (lib.giga_select_launch, [ptr, i32, i64, i64, ptr, i32] + [ptr] * 6),
+                (lib.packed_select_launch, [ptr, i64, i64, ptr, i32] + [ptr] * 6),
             ]:
                 fn.restype = ctypes.c_int
                 fn.argtypes = args

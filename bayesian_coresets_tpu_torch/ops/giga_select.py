@@ -9,9 +9,11 @@ the two unit directions [cdir_n, xw_n] and takes the first maximum:
     score = geo_ok ? d0 / sqrt(max(1 - d1^2, 1e-30)) : 0   (-inf if invalid)
 
 :func:`giga_select` launches the hand-written CUDA kernel
-(``csrc/giga_select.cu``) for CUDA tensors and uses the plain PyTorch
-version :func:`giga_select_ref` for CPU tensors; there is no other route
-and no fallback.  ``launches`` counts kernel launches.
+(``csrc/giga_select.cu``) for CUDA tensors, one launch per select and no
+other kernel (the kernel quantizes the directions itself and resets its
+own workspace), and uses the plain PyTorch version :func:`giga_select_ref`
+for CPU tensors; there is no other route and no fallback.  ``launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -25,6 +27,26 @@ from . import _cuda_build
 launches = 0   # kernel launches by giga_select (plain-version calls not counted)
 
 _DTYPE_CODE = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+# widest row the kernel streams: its shared memory holds the (2, Sp)
+# directions and at least two one-row stages
+MAX_ROW_BYTES = 48 * 1024
+
+_workspaces: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def workspace(dev: torch.device) -> tuple[torch.Tensor, int]:
+    """The select kernels' finish state (16 bytes: the argmax key and a
+    ticket) for ``dev``'s current stream, and that stream's handle.
+
+    One per (device, stream), zeroed once when first used; every launch
+    leaves it zero again, so calls on one stream reuse it without a reset
+    and calls on two streams never share one."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = (dev.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None:      # setdefault: two threads never get two workspaces
+        ws = _workspaces.setdefault(key, torch.zeros(2, dtype=torch.int64, device=dev))
+    return ws, stream
 
 
 def col_multiple(dtype: torch.dtype) -> int:
@@ -36,7 +58,8 @@ def col_multiple(dtype: torch.dtype) -> int:
 def quantize_dirs(dirs: torch.Tensor, Sp: int, dtype: torch.dtype) -> torch.Tensor:
     """(S, 2) f32 directions -> (2, Sp) in the selection copy's dtype,
     zero-padded.  int8: round(127 d), half to even, clipped to ±127
-    (ops/snnls.py:480 of the JAX package)."""
+    (ops/snnls.py:480 of the JAX package).  The plain version's helper: the
+    kernel quantizes the directions itself, bit for bit the same."""
     d = torch.nn.functional.pad(dirs.T, (0, Sp - dirs.shape[0]))
     if dtype == torch.int8:
         return torch.clamp(torch.round(d * 127.0), -127, 127).to(torch.int8).contiguous()
@@ -107,8 +130,9 @@ def giga_select(Vsel: torch.Tensor, dirs: torch.Tensor, norms: torch.Tensor,
     Vsel: (n, Sp) int8 (pre-normalized, ±127), bfloat16 or float32, rows a
     whole number of 16-byte chunks; dirs: (S, 2) f32 [cdir_n, xw_n] with
     S <= Sp; norms: (n,) f32 row norms (unused for int8); valid: (n,) bool.
-    On a CUDA tensor this launches the kernel on the current stream without
-    synchronizing; on a CPU tensor it runs :func:`giga_select_ref`.
+    On a CUDA tensor this makes one kernel launch on the current stream,
+    without synchronizing (rows of at most ``MAX_ROW_BYTES``); on a CPU
+    tensor it runs :func:`giga_select_ref`.
     """
     global launches
     _check(Vsel, dirs, norms, valid)
@@ -117,19 +141,22 @@ def giga_select(Vsel: torch.Tensor, dirs: torch.Tensor, norms: torch.Tensor,
     if Vsel.device.type != "cuda":
         raise ValueError(f"giga_select runs on CPU or CUDA tensors, not {Vsel.device}")
     n, Sp = Vsel.shape
-    q = quantize_dirs(dirs, Sp, Vsel.dtype)
+    row_bytes = Sp * Vsel.element_size()
+    if row_bytes > MAX_ROW_BYTES:
+        raise ValueError(f"giga_select on CUDA streams rows of at most {MAX_ROW_BYTES} bytes; "
+                         f"got {Sp} {Vsel.dtype} columns ({row_bytes} bytes)")
+    dirs = dirs.contiguous()
     dev = Vsel.device
-    key = torch.zeros(1, dtype=torch.int64, device=dev)
     idx = torch.empty(1, dtype=torch.int32, device=dev)
     score = torch.empty(1, dtype=torch.float32, device=dev)
     lib = _cuda_build.load_library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        ws, stream = workspace(dev)
         err = lib.giga_select_launch(
-            ctypes.c_void_p(Vsel.data_ptr()), _DTYPE_CODE[Vsel.dtype], n,
-            Sp * Vsel.element_size(), ctypes.c_void_p(q.data_ptr()),
+            ctypes.c_void_p(Vsel.data_ptr()), _DTYPE_CODE[Vsel.dtype], n, row_bytes,
+            ctypes.c_void_p(dirs.data_ptr()), dirs.shape[0],
             ctypes.c_void_p(norms.data_ptr()), ctypes.c_void_p(valid.data_ptr()),
-            ctypes.c_void_p(key.data_ptr()), ctypes.c_void_p(idx.data_ptr()),
+            ctypes.c_void_p(ws.data_ptr()), ctypes.c_void_p(idx.data_ptr()),
             ctypes.c_void_p(score.data_ptr()), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"giga_select kernel launch failed: CUDA error {err}")

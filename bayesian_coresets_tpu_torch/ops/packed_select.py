@@ -17,9 +17,10 @@ with q = clip(round(127 dirs2), -127, 127) and byte j of a packed row holding
 column 2j in its low nibble and column 2j+1 in its high one.
 
 :func:`packed_select` launches the hand-written CUDA kernel
-(``csrc/packed_select.cu``) for CUDA tensors and uses the plain PyTorch
-version :func:`packed_select_ref` for CPU tensors; there is no other route
-and no fallback.  ``launches`` counts kernel launches.
+(``csrc/packed_select.cu``) for CUDA tensors, one launch per select, and
+uses the plain PyTorch version :func:`packed_select_ref` for CPU tensors;
+there is no other route and no fallback.  ``launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -30,11 +31,14 @@ import math
 import torch
 
 from . import _cuda_build
-from .giga_select import sqrt_rn
+from .giga_select import sqrt_rn, workspace
 
 launches = 0   # kernel launches by packed_select (plain-version calls not counted)
 
 _CHUNK = 16                                   # bytes per kernel load
+# widest packed row the kernel streams: its shared memory holds the four
+# direction rows and at least two one-row stages
+MAX_ROW_BYTES = 32 * 1024
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -61,8 +65,10 @@ def quantize_dirs(dirs2: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_dirs(dirs2: torch.Tensor, cols: int) -> torch.Tensor:
-    """The kernel's (4, cols) int8 direction rows [lo0, lo1, hi0, hi1]: the
-    even and odd rows of the quantized directions, zero-padded to ``cols``."""
+    """The (4, cols) int8 direction rows [lo0, lo1, hi0, hi1] that the kernel
+    builds in its shared memory: the even and odd rows of the quantized
+    directions, zero-padded to ``cols`` (for the tests; the wrapper passes
+    the f32 directions as they are)."""
     q = quantize_dirs(dirs2)
     d = torch.cat([q[0::2].T, q[1::2].T])     # (4, S/2)
     return torch.nn.functional.pad(d, (0, cols - d.shape[1])).contiguous()
@@ -133,9 +139,9 @@ def packed_select(P: torch.Tensor, dirs2: torch.Tensor, nrminv: torch.Tensor,
     """Packed-int4 select: (int32 index, f32 score) as 0-dim device tensors.
 
     P: (n, S/2) packed int8 (:func:`pack_int4`), any n; dirs2: (S, 2) f32;
-    nrminv, bias: (n,) f32.  On a CUDA tensor this launches the kernel on
-    the current stream without synchronizing (padding P's columns to whole
-    16-byte chunks first if they are not); on a CPU tensor it runs
+    nrminv, bias: (n,) f32.  On a CUDA tensor this makes one kernel launch
+    on the current stream, without synchronizing (padding P's columns to
+    whole 16-byte chunks first if they are not); on a CPU tensor it runs
     :func:`packed_select_ref`.
     """
     global launches
@@ -145,17 +151,20 @@ def packed_select(P: torch.Tensor, dirs2: torch.Tensor, nrminv: torch.Tensor,
     if P.device.type != "cuda":
         raise ValueError(f"packed_select runs on CPU or CUDA tensors, not {P.device}")
     Pp = padded(P)
-    q4 = kernel_dirs(dirs2, Pp.shape[1])
+    if Pp.shape[1] > MAX_ROW_BYTES:
+        raise ValueError(f"packed_select on CUDA streams rows of at most {MAX_ROW_BYTES} "
+                         f"bytes; got {Pp.shape[1]}")
+    dirs2 = dirs2.contiguous()
     dev = P.device
-    key = torch.zeros(1, dtype=torch.int64, device=dev)
     idx = torch.empty(1, dtype=torch.int32, device=dev)
     score = torch.empty(1, dtype=torch.float32, device=dev)
     lib = _cuda_build.load_library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        ws, stream = workspace(dev)
         err = lib.packed_select_launch(
             ctypes.c_void_p(Pp.data_ptr()), Pp.shape[0], Pp.shape[1],
-            *(ctypes.c_void_p(t.data_ptr()) for t in (q4, nrminv, bias, key, idx, score)),
+            ctypes.c_void_p(dirs2.data_ptr()), dirs2.shape[0],
+            *(ctypes.c_void_p(t.data_ptr()) for t in (nrminv, bias, ws, idx, score)),
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"packed_select kernel launch failed: CUDA error {err}")

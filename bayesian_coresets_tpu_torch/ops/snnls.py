@@ -394,7 +394,9 @@ class SparseNNLS:
     (snnls/snnls.py:8-106): ``build(itrs)``, ``weights()``, ``error()``,
     ``size()``, ``reset()`` and the ``reached_numeric_limit`` latch.
 
-    The problem lives on A's device (``device`` moves it there first).
+    The problem lives on A's device: a tensor's own, else ``device``, else
+    the default device (the CUDA card); ``b`` and ``valid`` go there, and a
+    tensor of theirs on another device raises.
     ``seed`` is kept for the reference's signature; GIGA draws nothing.
     ``optimize()`` re-solves the active weights (FISTA on the device, or
     exact Lawson-Hanson on the host); ``save``/``restore`` and
@@ -405,11 +407,10 @@ class SparseNNLS:
 
     def __init__(self, A, b, valid=None, seed: int = 0, max_active: int | None = None,
                  select_dtype=None, device=None):
-        A = torch.as_tensor(A, dtype=config.default_dtype(), device=device)
-        b = torch.as_tensor(b, dtype=config.default_dtype(), device=A.device)
+        A = config.as_tensor(A, config.default_dtype(), device)
+        b = config.on_device(b, config.default_dtype(), A.device, "b")
         requested = (torch.ones(A.shape[1], dtype=torch.bool, device=A.device)
-                     if valid is None
-                     else torch.as_tensor(valid, dtype=torch.bool, device=A.device))
+                     if valid is None else config.on_device(valid, torch.bool, A.device, "valid"))
         self.consts = make_consts(A, b, valid=requested, select_dtype=select_dtype)
         # the reference's zero-column rejection (giga.py:11-13); explicitly
         # masked (padded) columns are exempt

@@ -8,6 +8,12 @@ package (bayesian_coresets_tpu/utils/config.py).
 Float32 matrix products run in full float32: TF32 keeps about three decimal
 digits, which the projection GEMM and the Laplace Newton solve cannot afford
 (the JAX package forces ``highest`` precision for the same reason).
+
+The default device is this package's counterpart of the JAX package's
+default platform: the entry points put data that is not a tensor yet (numpy
+arrays, lists) on :func:`default_device`, the CUDA card unless
+:func:`set_default_device` says otherwise.  A tensor stays where the caller
+put it.
 """
 
 from __future__ import annotations
@@ -31,6 +37,59 @@ def set_tolerance(tol: float) -> None:
 
 def get_tolerance() -> float:
     return TOL
+
+
+_default_device: torch.device | None = None
+
+
+def set_default_device(dev) -> None:
+    """Where the entry points put data given as numpy arrays or lists, and
+    the generators they make when none is given: ``"cpu"`` to run on the
+    CPU; ``None`` restores the default, the CUDA card."""
+    global _default_device
+    _default_device = None if dev is None else torch.device(dev)
+
+
+def resolve_device(dev) -> torch.device:
+    """``dev`` with a CUDA device's index filled in (the current one), so
+    that it compares equal to the device of the tensors made on it."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def default_device() -> torch.device:
+    """The device set by :func:`set_default_device`, else the CUDA card.
+    Raises where there is no card and the CPU was not chosen: nothing falls
+    back to the CPU silently."""
+    if _default_device is not None:
+        return resolve_device(_default_device)
+    if torch.cuda.is_available():
+        return resolve_device("cuda")
+    raise RuntimeError(
+        "no CUDA device: call bayesian_coresets_tpu_torch.set_default_device('cpu') "
+        "to run on the CPU, or pass CPU tensors")
+
+
+def as_tensor(x, dtype: torch.dtype | None = None, device=None) -> torch.Tensor:
+    """``x`` as an entry point takes it: a tensor stays on its device (the
+    caller chose it) unless ``device`` is given; anything else goes to
+    ``device``, else to :func:`default_device`."""
+    if device is not None:
+        return torch.as_tensor(x, dtype=dtype, device=resolve_device(device))
+    if isinstance(x, torch.Tensor):
+        return x if dtype is None else x.to(dtype)
+    return torch.as_tensor(x, dtype=dtype, device=default_device())
+
+
+def on_device(x, dtype: torch.dtype | None, dev: torch.device, what: str) -> torch.Tensor:
+    """``x`` on ``dev``, the device of the data it goes with: a tensor on
+    another device raises, anything else is placed there."""
+    if isinstance(x, torch.Tensor) and x.device != dev:
+        raise ValueError(f"{what} is on {x.device} but the data is on {dev}; "
+                         "pass both on one device")
+    return torch.as_tensor(x, dtype=dtype, device=dev)
 
 
 def default_dtype() -> torch.dtype:

@@ -11,14 +11,21 @@ script exits non-zero without printing the final result line):
    (one nvcc per source, all at once);
 3. kernel against plain: the GIGA select kernel against its plain PyTorch
    version on the card, int8/bf16/f32 at (n=100k, S=500) and int8 at
-   (n=1M, S=500), with invalid blocks, ties and an all-invalid input;
-   median times from CUDA events;
+   (n=1M, S=500), with invalid blocks, ties, an all-invalid input and (int8)
+   directions on the rounding boundaries of 127 d; for every shape its
+   bound (bytes over the HBM rate) and share of it, the kernel's time from
+   a batch of direct launches, its cold-L2 time (a 128 MB buffer written
+   before each launch, each launch between its own events, median of 50),
+   and for int8 the yardstick ``torch._int_mm(Vsel, Q)`` (the two dots
+   only: no score, no argmax; the port never calls it);
 4. packed select: the packed-int4 select kernel against its plain version
    at the probe's size (N=2^20, S=512): random directions, the winner's
-   block invalid, ties, all invalid, and a row count off the block; the
-   kernel, the plain version and the int8 GIGA select kernel timed on the
-   same (N, S); then the probe's path (``scripts/probe_int4_torch.py``),
-   int8 stream against packed stream, with its launches counted;
+   block invalid, ties, all invalid, a row count off the tile, and
+   directions on the rounding boundaries; the kernel (batch and cold-L2),
+   the plain version and the int8 GIGA select kernel timed on the same
+   (N, S), each beside its bound; then the probe's path
+   (``scripts/probe_int4_torch.py``), int8 stream against packed stream,
+   with its launches counted;
 5. build parity: a GIGA build (int8, N=20k, S=500, M=200) on the card
    through the kernel and on the CPU through the plain version, from the
    same arrays, must select the same atoms;
@@ -26,7 +33,10 @@ script exits non-zero without printing the final result line):
    logistic data N=100k, D=10 -> BlackBoxProjector(S=500 samples
    theta ~ 0.1 N(0, I)) -> HilbertCoreset(int8 select, max_active=1024)
    .build(500), with the kernel's launch count checked against the
-   iterations run;
+   iterations run; then a profiled window of 64 iterations (after 65 of
+   warm-up, as ``scripts/profile_torch_build.py`` counts them): the select
+   kernel's launches per iteration, which must be 1, and all launches per
+   iteration;
 7. NUTS on the coreset: ``mcmc.weighted.run`` on phase 6's coreset with
    1024 chains x (150 warmup + 150 draws) (bench.py:54, 319-322), checked
    for finite samples, split R-hat <= 1.05, divergences <= 1% of the
@@ -73,6 +83,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SELECT_TOL = 1e-6           # relative score tolerance, kernel against plain
+# peak rates of one H100 SXM at 700 W (NVIDIA's data sheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = {"int8": 1979e12, "bfloat16": 989e12, "float32": 67e12}
+COLD_REPS = 50
+FLUSH_BYTES = 128 << 20     # written before each cold-L2 launch (L2 is 50 MB)
+PROFILE_ITRS = 64           # GIGA iterations in phase 6's profiled window
 N_MAIN, D_MAIN, S_MAIN, M_MAIN = 100_000, 10, 500, 500
 N_PROBE, S_PROBE = 1 << 20, 512                 # probe_int4_pallas.py:30
 NUTS_CHAINS, NUTS_DRAWS = 1024, 150             # bench.py:54
@@ -143,14 +159,103 @@ def _median_ms(torch, fn, batches: int = 7, per_batch: int = 20) -> float:
     return times[len(times) // 2]
 
 
-def _direct_ms(torch, lib_fn, *args) -> float:
-    """Median device time of direct launches of a kernel entry point (no
-    wrapper host work; repeated launches on one key return one maximum)."""
+def _launcher(lib_fn, *args):
     def launch():
         err = lib_fn(*args)
         if err:
             raise RuntimeError(f"{lib_fn.__name__} returned CUDA error {err}")
-    return _median_ms(torch, launch)
+    return launch
+
+
+def _direct_ms(torch, lib_fn, *args) -> float:
+    """Median device time of direct launches of a kernel entry point (no
+    wrapper host work; each launch leaves its workspace zero for the next)."""
+    return _median_ms(torch, _launcher(lib_fn, *args))
+
+
+_flush = []
+
+
+def _cold_ms(torch, fn, reps: int = COLD_REPS) -> float:
+    """Median device time of single calls, each after FLUSH_BYTES were
+    written (so nothing of the inputs is left in L2) and each between its
+    own pair of CUDA events."""
+    if not _flush:
+        _flush.append(torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda"))
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(reps):
+        _flush[0].fill_(i & 0xFF)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _bound(nbytes: int, ops: int, kind: str):
+    """The least time the card could take (ms), and what bounds it: every
+    input byte read once and every output byte written once at the HBM
+    rate, against the operations at the peak rate of ``kind``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S[kind]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _select_bound(torch, Vsel, S):
+    """Bound of one GIGA select over ``Vsel`` with S directions: Vsel, the
+    valid bytes, the norms (read for bf16/f32 only), the f32 directions
+    and the (idx, score) out; a multiply and an add per element and
+    direction."""
+    n, Sp = Vsel.shape
+    nbytes = Vsel.numel() * Vsel.element_size() + n + S * 2 * 4 + 8
+    if Vsel.dtype != torch.int8:
+        nbytes += 4 * n
+    return _bound(nbytes, 4 * n * Sp, str(Vsel.dtype).replace("torch.", ""))
+
+
+def _half_integer_dirs(torch, k):
+    """(S, 2) f32 directions d on the card with 127 d == k exactly in f32,
+    for the half-integer (S, 2) tensor k."""
+    import numpy as np
+    k = k.cpu().numpy().astype(np.float32)
+    d = (k / np.float32(127.0)).astype(np.float32)
+    for cand in (np.nextafter(d, np.float32(np.inf)), np.nextafter(d, np.float32(-np.inf))):
+        off = (d * np.float32(127.0)).astype(np.float32) != k
+        d[off] = cand[off]
+    if not ((d * np.float32(127.0)).astype(np.float32) == k).all():
+        raise AssertionError("no f32 direction on a rounding boundary")
+    return torch.as_tensor(d, device="cuda")
+
+
+def _boundary_dirs(torch, S, seed):
+    """127 d exactly on +-0.5, +-1.5, +-2.5: the kernels' own quantization
+    must round half to even, as torch.round does."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return _half_integer_dirs(torch, torch.randint(-3, 3, (S, 2), device="cuda",
+                                                   generator=gen) + 0.5)
+
+
+def _int_mm_ms(torch, Vsel, dirs):
+    """The yardstick: ``torch._int_mm`` of the int8 copy against Q, the two
+    quantized directions and six zero columns (cuBLASLt's smallest width);
+    it computes the dots only.  Returns (ms, how) or (None, why not)."""
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+    Q = torch.zeros((8, Vsel.shape[1]), dtype=torch.int8, device=Vsel.device)
+    Q[:2] = gs.quantize_dirs(dirs, Vsel.shape[1], torch.int8)
+    why = []
+    for layout, B in (("Q_col_major", Q.T), ("Q_row_major", Q.T.contiguous())):
+        try:
+            torch._int_mm(Vsel, B)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            why.append(f"{layout}:{str(e).splitlines()[0][:60]}".replace(" ", "_"))
+            continue
+        return _median_ms(torch, lambda: torch._int_mm(Vsel, B)), layout
+    return None, "refused(" + ";".join(why) + ")"
 
 
 def _hold(kernel, plain, args, label, expect_idx=None):
@@ -198,14 +303,18 @@ def phase_select(torch):
         c, dirs = _select_problem(torch, n, S_MAIN, dtype, seed=n + codes[dtype])
         Vsel, norms, valid = c.Vsel, c.norms, c.valid
 
-        def check(Vs, nr, ok, label, expect_idx=None):
+        def check(Vs, nr, ok, label, expect_idx=None, d=dirs):
             nonlocal max_err
-            f, err = _hold(gs.giga_select, gs.giga_select_ref, (Vs, dirs, nr, ok),
+            f, err = _hold(gs.giga_select, gs.giga_select_ref, (Vs, d, nr, ok),
                            f"select {dtype} n={n} {label}", expect_idx)
             max_err = max(max_err, err)
             return f
 
         f = check(Vsel, norms, valid, "random")
+        checks = ["random", "invalid_block", "ties", "all_invalid"]
+        if dtype == torch.int8:
+            check(Vsel, norms, valid, "rounding_boundaries", d=_boundary_dirs(torch, S_MAIN, n))
+            checks.append("rounding_boundaries")
         # the winner's 1024-row block invalid: the kernel must skip it
         ok2 = valid.clone()
         ok2[f // 1024 * 1024: f // 1024 * 1024 + 1024] = False
@@ -219,26 +328,36 @@ def phase_select(torch):
         del Vt, nt
         check(Vsel, norms, torch.zeros_like(valid), "all_invalid", expect_idx=0)
 
-        # device time: the kernel launched directly (no wrapper host work;
-        # repeated launches on one key return the same maximum), and the
-        # plain version as the wrapper would run it on a CPU tensor
-        q = gs.quantize_dirs(dirs, Vsel.shape[1], Vsel.dtype)
-        key = torch.zeros(1, dtype=torch.int64, device="cuda")
+        # device time: the kernel launched directly (no wrapper host work),
+        # in a batch and cold; the plain version as the wrapper would run
+        # it on a CPU tensor
+        ws, stream = gs.workspace(Vsel.device)
         idx = torch.empty(1, dtype=torch.int32, device="cuda")
         score = torch.empty(1, dtype=torch.float32, device="cuda")
-        stream = torch.cuda.current_stream().cuda_stream
-        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (Vsel, q, norms, valid, key, idx, score)]
-        k_ms = _direct_ms(torch, lib.giga_select_launch, ptrs[0], codes[dtype], n,
-                          Vsel.shape[1] * Vsel.element_size(), *ptrs[1:],
-                          ctypes.c_void_p(stream))
+        ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+        launch = (lib.giga_select_launch, ptr(Vsel), codes[dtype], n,
+                  Vsel.shape[1] * Vsel.element_size(), ptr(dirs), S_MAIN, ptr(norms),
+                  ptr(valid), ptr(ws), ptr(idx), ptr(score), ctypes.c_void_p(stream))
+        k_ms = _direct_ms(torch, *launch)
+        cold_ms = _cold_ms(torch, _launcher(*launch))
         w_ms = _median_ms(torch, lambda: gs.giga_select(Vsel, dirs, norms, valid))
         p_ms = _median_ms(torch, lambda: gs.giga_select_ref(Vsel, dirs, norms, valid),
                           batches=5, per_batch=5)
+        bound_ms, bound_by = _select_bound(torch, Vsel, S_MAIN)
+        lib_ms, lib_how = ((None, "int8_only") if dtype != torch.int8
+                           else _int_mm_ms(torch, Vsel, dirs))
         gbps = Vsel.numel() * Vsel.element_size() / (k_ms * 1e-3) / 1e9
-        timing[(dtype, n)] = (k_ms, p_ms)
+        timing[(dtype, n)] = (k_ms, p_ms, bound_ms, bound_by, lib_ms)
         say("select", dtype=str(dtype).replace("torch.", ""), n=n, S=S_MAIN,
-            kernel_ms=f"{k_ms:.4f}", wrapper_ms=f"{w_ms:.4f}", plain_ms=f"{p_ms:.4f}",
-            kernel_GBps=f"{gbps:.1f}", checks="random,invalid_block,ties,all_invalid")
+            kernel_ms=f"{k_ms:.4f}", cold_l2_ms=f"{cold_ms:.4f}", wrapper_ms=f"{w_ms:.4f}",
+            plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            share_of_bound=f"{bound_ms / k_ms:.3f}", cold_share=f"{bound_ms / cold_ms:.3f}",
+            kernel_GBps=f"{gbps:.1f}",
+            int_mm_dots_only_ms="not_run" if lib_ms is None else f"{lib_ms:.4f}",
+            int_mm=lib_how, checks=",".join(checks))
+        if not bound_ms / k_ms >= 0.5:
+            raise AssertionError(f"select {dtype} n={n}: {k_ms} ms, under half of its "
+                                 f"bound {bound_ms} ms")
         del c, Vsel, norms, valid, dirs
         torch.cuda.empty_cache()
     return max_err, timing[(torch.int8, N_MAIN)]
@@ -278,27 +397,44 @@ def phase_packed(torch):
     check(P, nrminv, torch.full_like(bias, float("-inf")), "all_invalid", expect_idx=0)
     m = n - 77
     check(P[:m], nrminv[:m], bias[:m], "odd_rows")
+    _, err = _hold(ps.packed_select, ps.packed_select_ref,
+                   (P, _boundary_dirs(torch, S, n), nrminv, bias),
+                   "packed select rounding_boundaries")
+    max_err = max(max_err, err)
 
     lib = _cuda_build.load_library()
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    key = torch.zeros(1, dtype=torch.int64, device="cuda")
+    ws, stream = gs.workspace(P.device)
     idx = torch.empty(1, dtype=torch.int32, device="cuda")
     score = torch.empty(1, dtype=torch.float32, device="cuda")
-    q4 = ps.kernel_dirs(dirs, P.shape[1])
-    k_ms = _direct_ms(torch, lib.packed_select_launch, ptr(P), n, P.shape[1], ptr(q4),
-                      ptr(nrminv), ptr(bias), ptr(key), ptr(idx), ptr(score), stream)
-    q8 = gs.quantize_dirs(dirs, S, torch.int8)
     valid = torch.ones(n, dtype=torch.bool, device="cuda")
-    i8_ms = _direct_ms(torch, lib.giga_select_launch, ptr(V8), gs._DTYPE_CODE[torch.int8], n, S,
-                       ptr(q8), ptr(nrminv), ptr(valid), ptr(key), ptr(idx), ptr(score), stream)
+    tail = (ptr(ws), ptr(idx), ptr(score), ctypes.c_void_p(stream))
+    packed = (lib.packed_select_launch, ptr(P), n, P.shape[1], ptr(dirs), S, ptr(nrminv),
+              ptr(bias), *tail)
+    int8 = (lib.giga_select_launch, ptr(V8), gs._DTYPE_CODE[torch.int8], n, S, ptr(dirs), S,
+            ptr(nrminv), ptr(valid), *tail)
+    k_ms, k_cold = _direct_ms(torch, *packed), _cold_ms(torch, _launcher(*packed))
+    i8_ms, i8_cold = _direct_ms(torch, *int8), _cold_ms(torch, _launcher(*int8))
     p_ms = _median_ms(torch, lambda: ps.packed_select_ref(P, dirs, nrminv, bias),
                       batches=5, per_batch=3)
+    # P, nrminv and bias read once, the f32 directions, (idx, score) out; a
+    # multiply and an add per 4-bit value and direction
+    bound_ms, bound_by = _bound(P.numel() + 8 * n + S * 2 * 4 + 8, 4 * n * S, "int8")
+    i8_bound_ms, _ = _select_bound(torch, V8, S)
     gb = lambda t, ms: t.numel() * t.element_size() / (ms * 1e-3) / 1e9  # noqa: E731
-    say("packed_select", n=n, S=S, kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
-        int8_kernel_ms=f"{i8_ms:.4f}", kernel_GBps=f"{gb(P, k_ms):.1f}",
-        int8_GBps=f"{gb(V8, i8_ms):.1f}", max_abs_err=max_err,
-        checks="random,invalid_block,ties,all_invalid,odd_rows")
+    say("packed_select", n=n, S=S, kernel_ms=f"{k_ms:.4f}", cold_l2_ms=f"{k_cold:.4f}",
+        plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        share_of_bound=f"{bound_ms / k_ms:.3f}", cold_share=f"{bound_ms / k_cold:.3f}",
+        kernel_GBps=f"{gb(P, k_ms):.1f}", max_abs_err=max_err,
+        checks="random,invalid_block,ties,all_invalid,odd_rows,rounding_boundaries")
+    say("int8_select_same_matrix", n=n, S=S, kernel_ms=f"{i8_ms:.4f}",
+        cold_l2_ms=f"{i8_cold:.4f}", bound_ms=f"{i8_bound_ms:.4f}",
+        share_of_bound=f"{i8_bound_ms / i8_ms:.3f}", cold_share=f"{i8_bound_ms / i8_cold:.3f}",
+        kernel_GBps=f"{gb(V8, i8_ms):.1f}", packed_over_int8=f"{k_ms / i8_ms:.3f}")
+    for name, ms, bms in (("packed", k_ms, bound_ms), ("int8", i8_ms, i8_bound_ms)):
+        if not bms / ms >= 0.5:
+            raise AssertionError(f"{name} select at n={n}: {ms} ms, under half of its "
+                                 f"bound {bms} ms")
 
     # the probe's path, through the wrappers, with its launches counted
     spec = importlib.util.spec_from_file_location(
@@ -315,7 +451,7 @@ def phase_packed(torch):
         packed_launches=launches, int8_launches=gs.launches)
     del V8, P
     torch.cuda.empty_cache()
-    return launches, max_err, k_ms, p_ms
+    return launches, max_err, k_ms, p_ms, bound_ms, bound_by
 
 
 def phase_build_parity(torch):
@@ -409,11 +545,43 @@ def phase_main(torch, smi):
     say("main", N=N_MAIN, D=D_MAIN, S=S_MAIN, M=M_MAIN, itr=itr, size=wts.size,
         done=coreset.reached_numeric_limit, launches=launches,
         err50=f"{err50:.6e}", err=f"{err:.6e}")
+    _profile_build(torch, coreset.snnls.consts)
     say("main_time", setup_s=f"{t_setup:.4f}", projection_s=f"{t_proj:.4f}",
         build_s=f"{t_build:.4f}", ms_per_itr=f"{1e3 * t_build / itr:.4f}",
         points_per_s=f"{M_MAIN / (t_proj + t_build):.2f}",
         peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}", card=repr(smi))
     return launches, wts, pts, coreset
+
+
+def _profile_build(torch, consts):
+    """Launches per GIGA iteration on phase 6's problem: 65 iterations of
+    warm-up from a fresh state, then PROFILE_ITRS under torch.profiler (one
+    refresh inside), as scripts/profile_torch_build.py counts them.  The
+    build is functional: the coreset's own state is not touched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+    from bayesian_coresets_tpu_torch.ops import snnls
+
+    s = snnls.build(consts, snnls.init_state(consts, 1024), 65, 1e-6)
+    torch.cuda.synchronize()
+    before = gs.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s2 = snnls.build(consts, s, PROFILE_ITRS, 1e-6)
+        torch.cuda.synchronize()
+    itrs = int(s2.itr) - int(s.itr)
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if itrs != PROFILE_ITRS or not rows:
+        raise AssertionError(f"main path profile: {itrs} iterations, {len(rows)} kernel rows")
+    total = sum(e.count for e in rows)
+    select = sum(e.count for e in rows if "giga_select" in e.key)
+    busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
+    say("main_launches", window_itrs=itrs, select_launches_per_itr=f"{select / itrs:.3f}",
+        wrapper_launches_per_itr=f"{(gs.launches - before) / itrs:.3f}",
+        launches_per_itr=f"{total / itrs:.2f}", device_busy_us_per_itr=f"{busy_us / itrs:.1f}")
+    if select != itrs or gs.launches - before != itrs:
+        raise AssertionError(f"main path: {select} select kernels on the card and "
+                             f"{gs.launches - before} wrapper launches for {itrs} iterations")
 
 
 def _importance_moments(torch, zc, wc, n=200_000, seed=6, inflate=1.3):
@@ -764,8 +932,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     smi = phase_device(torch)
     phase_build()
-    max_err, (k_ms, p_ms) = phase_select(torch)
-    packed_launches, packed_err, pk_ms, pp_ms = phase_packed(torch)
+    max_err, (k_ms, p_ms, k_bound, k_bound_by, k_lib) = phase_select(torch)
+    packed_launches, packed_err, pk_ms, pp_ms, pk_bound, pk_bound_by = phase_packed(torch)
     phase_build_parity(torch)
     from bayesian_coresets_tpu_torch.ops import giga_select as gs
     from bayesian_coresets_tpu_torch.ops import packed_select as ps
@@ -782,19 +950,24 @@ def main() -> int:
     phase_svi_parity(torch)
     phase_bpsvi(torch, smi)
     say("svi_bpsvi_optimize_launches", giga_select=gs.launches, packed_select=ps.launches)
+    from bayesian_coresets_tpu_torch import native
     if any(m == "jax" or m.startswith(("jax.", "bayesian_coresets_tpu."))
            or m == "bayesian_coresets_tpu" for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
+    if not native.SOURCE.resolve().is_relative_to(ROOT / "bayesian_coresets_tpu_torch"):
+        raise AssertionError(f"the port builds from {native.SOURCE}, outside its package")
     print(json.dumps({"kernels": [
         {"name": "giga_select", "route": "cuda",
          "source": "bayesian_coresets_tpu_torch/csrc/giga_select.cu",
          "replaces": "bayesian_coresets_tpu/ops/pallas_kernels.py:110",
-         "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms},
+         "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+         "bound_ms": k_bound, "bound_by": k_bound_by, "library_ms": k_lib},
         {"name": "packed_select", "route": "cuda",
          "source": "bayesian_coresets_tpu_torch/csrc/packed_select.cu",
          "replaces": "scripts/probe_int4_pallas.py:73",
          "launches": packed_launches, "max_abs_err": packed_err, "ms": pk_ms,
-         "plain_ms": pp_ms}]}), flush=True)
+         "plain_ms": pp_ms, "bound_ms": pk_bound, "bound_by": pk_bound_by,
+         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -22,9 +22,19 @@ import bayesian_coresets_tpu as jbc
 import bayesian_coresets_tpu_torch as tbc
 from bayesian_coresets_tpu.coresets import bpsvi as jbp
 from bayesian_coresets_tpu_torch.coresets import bpsvi as tbp
+from bayesian_coresets_tpu_torch.utils import config
 from test_torch_svi import _bb_family, _data, _exact_families, _jax_bb_family, _rkl
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default_device():
+    """Numpy data, and the generators the entry points make, go to the CPU."""
+    config.set_default_device("cpu")
+    yield
+    config.set_default_device(None)
+
 
 SCHED = lambda i: 1.0 / (1.0 + i)   # noqa: E731
 

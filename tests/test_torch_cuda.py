@@ -1,5 +1,8 @@
 """CUDA-only checks of the PyTorch port: the hand-written select kernels
-(GIGA's and the packed-int4 probe's) against their plain PyTorch versions,
+(GIGA's and the packed-int4 probe's) against their plain PyTorch versions
+(directions on the int8 rounding boundaries, row counts below and off the
+tile size, 100 calls back to back on one workspace, two streams, one
+launch per select), numpy data landing on the card,
 a GIGA build on the card against the same build on the CPU, a short
 NUTS run on the card, projected Adam, SparseVI and ``optimize()`` on the
 card against the CPU, and SparseVI and BatchPSVI builds that read nothing
@@ -133,6 +136,156 @@ def test_packed_kernel_matches_plain(case, cuda_device):
         np.testing.assert_allclose(float(ks), float(pscore), rtol=1e-6)
     if case == "ties":
         assert int(ki) == f // 2
+
+
+def _boundary_dirs(rng, S):
+    """(S, 2) f32 directions d with 127 d exactly on a half integer in f32
+    (+-0.5, +-1.5, +-2.5), so the in-kernel int8 quantization must round
+    half to even to match the plain version."""
+    k = rng.integers(-3, 3, size=(S, 2)).astype(np.float32) + np.float32(0.5)
+    d = (k / np.float32(127.0)).astype(np.float32)
+    for cand in (np.nextafter(d, np.float32(np.inf)), np.nextafter(d, np.float32(-np.inf))):
+        off = (d * np.float32(127.0)).astype(np.float32) != k
+        d[off] = cand[off]
+    assert ((d * np.float32(127.0)).astype(np.float32) == k).all()
+    return torch.as_tensor(d)
+
+
+def _giga_inputs(dtype, n, S=500, seed=3):
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(S, n)).astype(np.float32)
+    c = snnls.make_consts(torch.as_tensor(A), torch.as_tensor(A.sum(axis=1)),
+                          select_dtype=dtype)
+    dirs = rng.normal(size=(S, 2)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=0)
+    return [c.Vsel, torch.as_tensor(dirs), c.norms, c.valid]
+
+
+def _packed_inputs(n, S=512, seed=4):
+    rng = np.random.default_rng(seed)
+    P = ps.pack_int4(torch.as_tensor(rng.integers(-7, 8, size=(n, S)).astype(np.int8)))
+    dirs = torch.as_tensor(rng.uniform(-0.04, 0.04, size=(S, 2)).astype(np.float32))
+    nrminv = torch.as_tensor(rng.uniform(0.5, 2.0, size=n).astype(np.float32))
+    return [P, dirs, nrminv, torch.zeros(n)]
+
+
+KERNELS = {"giga": (gs.giga_select, gs.giga_select_ref),
+           "packed": (ps.packed_select, ps.packed_select_ref)}
+
+
+def _hold(kind, args):
+    kernel, plain = KERNELS[kind]
+    ki, ks = kernel(*args)
+    pi, pscore = plain(*args)
+    assert int(ki) == int(pi)
+    if float(pscore) == -np.inf:
+        assert float(ks) == -np.inf
+    else:
+        np.testing.assert_allclose(float(ks), float(pscore), rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "packed"])
+def test_in_kernel_quantization_rounds_half_to_even(kind, cuda_device):
+    rng = np.random.default_rng(5)
+    if kind == "int8":
+        args = _giga_inputs(torch.int8, 3000)
+        args[1] = _boundary_dirs(rng, 500)
+        _hold("giga", [t.to(cuda_device) for t in args])
+    else:
+        args = _packed_inputs(3000)
+        args[1] = _boundary_dirs(rng, 512)
+        _hold("packed", [t.to(cuda_device) for t in args])
+
+
+# int8 rows of 512 B fill 8 KB tiles with 16 rows (bf16 8, f32 4): n=1 and
+# 7 are below one tile, 129 and 5003 are off the tile size with a ragged
+# last tile
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 129, 5003])
+@pytest.mark.parametrize("dtype", DTYPES + ["packed"])
+def test_kernel_row_counts(dtype, n, cuda_device):
+    if dtype == "packed":
+        _hold("packed", [t.to(cuda_device) for t in _packed_inputs(n)])
+    else:
+        _hold("giga", [t.to(cuda_device) for t in _giga_inputs(dtype, n)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["giga", "packed"])
+def test_back_to_back_calls_reuse_the_workspace(kind, cuda_device):
+    """100 calls on one stream with no reset between them, an all-invalid
+    call among them: each takes the key and ticket the last one left zero."""
+    args = (_giga_inputs(torch.int8, 20000) if kind == "giga"
+            else _packed_inputs(20000))
+    args = [t.to(cuda_device) for t in args]
+    kernel, plain = KERNELS[kind]
+    dirs = [args[1] * (1.0 + 0.05 * k) + 0.01 * k for k in range(5)]
+    want = [int(plain(args[0], d, *args[2:])[0]) for d in dirs]
+    dead = (torch.zeros_like(args[3]) if kind == "giga"
+            else torch.full_like(args[3], -np.inf))
+    got, dead_out = [], None
+    for r in range(100):
+        if r == 50:
+            dead_out = kernel(args[0], args[1], args[2], dead)
+        got.append(kernel(args[0], dirs[r % 5], *args[2:])[0])
+    torch.cuda.synchronize()
+    assert [int(g) for g in got] == [want[r % 5] for r in range(100)]
+    assert int(dead_out[0]) == 0 and float(dead_out[1]) == -np.inf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["giga", "packed"])
+def test_calls_on_two_streams(kind, cuda_device):
+    make = (lambda seed: _giga_inputs(torch.int8, 30000, seed=seed)) if kind == "giga" \
+        else (lambda seed: _packed_inputs(30000, seed=seed))
+    kernel, plain = KERNELS[kind]
+    inputs = [[t.to(cuda_device) for t in make(seed)] for seed in (6, 7)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(10):
+        for args, st in zip(inputs, streams):
+            with torch.cuda.stream(st):
+                outs.append(kernel(*args))
+    torch.cuda.synchronize()
+    want = [int(plain(*args)[0]) for args in inputs]
+    assert [int(o[0]) for o in outs] == want * 10
+    keys = {k for k in gs._workspaces if k[1] in {s.cuda_stream for s in streams}}
+    assert len(keys) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["giga", "packed"])
+def test_each_select_is_one_launch(kind, cuda_device):
+    from torch.profiler import ProfilerActivity, profile
+
+    args = [t.to(cuda_device) for t in (_giga_inputs(torch.int8, 20000) if kind == "giga"
+                                        else _packed_inputs(20000))]
+    kernel, _ = KERNELS[kind]
+    kernel(*args)                       # the stream's workspace exists from here on
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            kernel(*args)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 3, [e.name for e in kernels]
+    assert all(("select" in e.name) for e in kernels), [e.name for e in kernels]
+
+
+@pytest.mark.cuda
+def test_numpy_data_lands_on_the_card(cuda_device):
+    rng = np.random.default_rng(8)
+    z = rng.normal(size=(3000, 4)).astype(np.float32)
+    proj = bc.BlackBoxProjector(
+        lambda g, n, w, p: 0.1 * torch.randn((n, 4), generator=g, device=g.device), 64,
+        lambda p, th: -torch.nn.functional.softplus(-(p @ th.T)))
+    c = bc.HilbertCoreset(z, proj, select_dtype=torch.int8)
+    assert c.data.device == torch.device("cuda", 0) == proj.device
+    assert c.snnls.consts.Vsel.device == torch.device("cuda", 0)
+    c.build(10)
+    assert c.size() > 0
 
 
 def _gauss_logp(device):

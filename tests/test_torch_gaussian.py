@@ -25,9 +25,18 @@ from bayesian_coresets_tpu.models import logistic as jlr
 from bayesian_coresets_tpu_torch.models import gaussian as tg
 from bayesian_coresets_tpu_torch.models import laplace as tlap
 from bayesian_coresets_tpu_torch.models import logistic as tlr
-from bayesian_coresets_tpu_torch.utils import interop
+from bayesian_coresets_tpu_torch.utils import config, interop
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default_device():
+    """Numpy data, and the generators the entry points make, go to the CPU."""
+    config.set_default_device("cpu")
+    yield
+    config.set_default_device(None)
+
 
 RT = dict(rtol=1e-5, atol=1e-5)
 D = 6

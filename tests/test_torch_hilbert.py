@@ -16,8 +16,18 @@ import bayesian_coresets_tpu as jbc
 import bayesian_coresets_tpu_torch as tbc
 from bayesian_coresets_tpu.models import logistic as jlr
 from bayesian_coresets_tpu_torch.models import logistic as tlr
+from bayesian_coresets_tpu_torch.utils import config
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default_device():
+    """Numpy data, and the generators the entry points make, go to the CPU."""
+    config.set_default_device("cpu")
+    yield
+    config.set_default_device(None)
+
 
 N, D, S, M = 2000, 5, 64, 100
 

@@ -29,8 +29,17 @@ from bayesian_coresets_tpu_torch import native as tnative
 from bayesian_coresets_tpu_torch.ops import nnls as tnn
 from bayesian_coresets_tpu_torch.ops import snnls as tsn
 from bayesian_coresets_tpu_torch.utils import checkpoint
+from bayesian_coresets_tpu_torch.utils import config
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default_device():
+    """Numpy data, and the generators the entry points make, go to the CPU."""
+    config.set_default_device("cpu")
+    yield
+    config.set_default_device(None)
 
 
 def _problem(seed=0, S=60, n=150):

@@ -17,8 +17,18 @@ from bayesian_coresets_tpu.ops import snnls as jsn
 from bayesian_coresets_tpu_torch.ops import snnls as tsn
 from bayesian_coresets_tpu_torch.utils import interop
 from bayesian_coresets_tpu_torch.utils.errors import NumericalPrecisionError
+from bayesian_coresets_tpu_torch.utils import config
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default_device():
+    """Numpy data, and the generators the entry points make, go to the CPU."""
+    config.set_default_device("cpu")
+    yield
+    config.set_default_device(None)
+
 
 SD = {"float32": (None, None), "bfloat16": (jnp.bfloat16, torch.bfloat16),
       "int8": (jnp.int8, torch.int8)}

@@ -25,9 +25,18 @@ from bayesian_coresets_tpu.coresets import sparsevi as jsv
 from bayesian_coresets_tpu.models import gaussian as jg
 from bayesian_coresets_tpu_torch.coresets import sparsevi as tsv
 from bayesian_coresets_tpu_torch.models import gaussian as tg
-from bayesian_coresets_tpu_torch.utils import interop
+from bayesian_coresets_tpu_torch.utils import config, interop
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default_device():
+    """Numpy data, and the generators the entry points make, go to the CPU."""
+    config.set_default_device("cpu")
+    yield
+    config.set_default_device(None)
+
 
 N, D, M, OPT, CAP = 300, 12, 32, 20, 32
 SCHED = lambda i: 1.0 / (1.0 + i)   # noqa: E731
