@@ -4,17 +4,20 @@ A second package beside the JAX one, grown slice by slice and held against
 it by tests on identical inputs.  The slices so far are the flagship path
 in both its stages, and the variational coreset constructions:
 
-- the Hilbert-GIGA coreset on logistic regression: data, a Laplace fit, the
-  black-box projection, and GIGA, whose per-iteration select is a
-  hand-written CUDA kernel on CUDA tensors (``ops/giga_select.py``,
-  ``csrc/giga_select.cu``);
+- the Hilbert coreset on logistic regression: data, a Laplace fit, the
+  black-box projection, and a sparse-NNLS solver (``ops/snnls.py``): GIGA,
+  Frank-Wolfe and orthogonal matching pursuit, whose per-iteration select
+  is a hand-written CUDA kernel on CUDA tensors (``ops/giga_select.py``,
+  ``csrc/giga_select.cu``), and importance and uniform sampling;
 - weighted NUTS on the coreset (``mcmc/``): Laplace preconditioning, chains
   batched on one device, per-chain or pooled adaptation, diagnostics;
 - SparseVI and BatchPSVI (``coresets/sparsevi.py``, ``coresets/bpsvi.py``)
   with projected Adam (``ops/opt.py``), the conjugate Gaussian model and
   its exact tangent family, the uniform-sampling baseline, and the active
   set re-solve of ``HilbertCoreset.optimize()`` (``ops/nnls.py``, and the
-  exact host solver in ``native/``).
+  exact host solver in ``native/``);
+- the Poisson and linear-regression models (``models/poisson.py``,
+  ``models/linreg.py``) and the linear-regression exact tangent family.
 
 ``ops/packed_select.py`` (``csrc/packed_select.cu``) carries the JAX
 package's packed-int4 select probe.  The entry points run on the CUDA card:
@@ -42,6 +45,7 @@ from .coresets import (
     center_glls,
     gaussian_tangent_family,
     identity_tangent_family,
+    linreg_tangent_family,
     project,
 )
 from .utils import default_device, set_default_device, set_tolerance, set_verbosity
@@ -69,6 +73,7 @@ __all__ = [
     "project",
     "gaussian_tangent_family",
     "identity_tangent_family",
+    "linreg_tangent_family",
     "set_tolerance",
     "set_verbosity",
     "default_device",

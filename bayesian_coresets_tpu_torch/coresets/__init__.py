@@ -3,7 +3,7 @@ sampling, and the projectors and tangent families they consume."""
 
 from .bpsvi import BatchPSVICoreset
 from .coreset import Coreset
-from .exact import gaussian_tangent_family, identity_tangent_family
+from .exact import gaussian_tangent_family, identity_tangent_family, linreg_tangent_family
 from .hilbert import HilbertCoreset
 from .projector import (
     BlackBoxProjector,
@@ -34,4 +34,5 @@ __all__ = [
     "project",
     "gaussian_tangent_family",
     "identity_tangent_family",
+    "linreg_tangent_family",
 ]

@@ -3,8 +3,10 @@
 Port of the in-memory path of ``bayesian_coresets_tpu/coresets/hilbert.py``
 (reference ``bayesiancoresets/coreset/hilbert.py:6-48``): discretize
 log-likelihoods into per-datum feature vectors, form the system
-A = vecs.T, b = sum of valid vecs, and hand it to GIGA.  Weights map back
-through the (optional) subsample indices.
+A = vecs.T, b = sum of valid vecs, and hand it to a sparse-NNLS solver:
+``snnls`` is GIGA (the default), FrankWolfe, OrthoPursuit,
+ImportanceSampling or UniformSampling of :mod:`..ops.snnls`.  Weights map
+back through the (optional) subsample indices.
 
 The projection, the system and the solver stay on the data's device: a
 tensor's own, else ``device``, else the default device (the CUDA card).

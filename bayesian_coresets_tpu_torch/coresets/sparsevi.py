@@ -279,15 +279,20 @@ class SparseVICoreset(Coreset):
 
         Both residual norms are evaluated in one shared context built from
         the pre-optimize weights (see :func:`svi_error_pair`), with draws
-        from a clone of the generator's state taken before the optimize.
-        An optimize that raises that error beyond ``_CRN_SLACK`` is rolled
-        back and latches the numeric limit.
+        from a generator of their own, seeded by one draw taken from the
+        coreset's generator before the optimize (where the JAX package
+        splits ``k_err`` off its key, coresets/sparsevi.py:322).  The
+        optimize starts at the same weights, so a clone of the generator
+        would hand the check the draws of the optimizer's first step, which
+        it has already fitted.  An optimize that raises that error beyond
+        ``_CRN_SLACK`` is rolled back and latches the numeric limit.
         """
         if self._cap == 0 or self._size == 0:
             self._optimize()
             return
-        g_err = torch.Generator(device=self._gen.device)
-        g_err.set_state(self._gen.get_state())
+        dev = self._gen.device
+        g_err = torch.Generator(device=dev)
+        g_err.manual_seed(int(torch.randint(0, 2**62, (1,), generator=self._gen, device=dev)))
         old = (self._wts, self._idcs, self._size)
         self._optimize()
         prev_cost, new_cost = (float(v) for v in svi_error_pair(

@@ -45,6 +45,8 @@
 //     scores never reach device memory;
 //   - one launch: a packed 64-bit atomicMax per block, then the block with
 //     the last ticket decodes the key and resets the workspace.
+// Rows wider than the ring can hold (past 48 KB: f32 S > 12288) take
+// giga_select_wide_kernel below, in the same one launch.
 // The TPU kernel's sequential running accumulator has no counterpart:
 // blocks on Hopper run in parallel and in no order.  The score epilogue
 // uses the _rn intrinsics so that FMA contraction cannot change its rounding
@@ -125,6 +127,37 @@ __device__ __forceinline__ void dot(int4 v, int4 p, int4 q, float& a0, float& a1
   chunk_dot(v, p, q, a0, a1, std::integral_constant<int, DT>());
 }
 
+// One direction value in Vsel's type: int8 is round half to even of 127 d,
+// clipped to +-127; bf16 rounds to nearest even.
+__device__ __forceinline__ int quantize_int8(float f) {
+  const int q = __float2int_rn(__fmul_rn(f, 127.0f));
+  return q < -127 ? -127 : (q > 127 ? 127 : q);
+}
+
+// A row's packed key from its two summed dots, its norm (unused for int8)
+// and its valid byte.
+template <int DT, typename Acc>
+__device__ __forceinline__ unsigned long long row_key(Acc a0, Acc a1, float nr, bool ok,
+                                                      long long row) {
+  float d0, d1;
+  if constexpr (DT == kInt8) {
+    // int32 -> f32 rounds to nearest even, as astype(float32) does (exact
+    // while |dot| < 2^24, which unit rows and unit directions never pass)
+    d0 = __fmul_rn((float)a0, kInv127Sq);
+    d1 = __fmul_rn((float)a1, kInv127Sq);
+  } else {
+    d0 = __fdiv_rn(a0, nr);
+    d1 = __fdiv_rn(a1, nr);
+  }
+  const float om = __fsub_rn(1.0f, __fmul_rn(d1, d1));
+  // f32(-1 + 1e-14) == -1.0f
+  const bool geo_ok = (d1 > -1.0f) && (om > 0.0f);
+  float sc = geo_ok ? __fdiv_rn(d0, __fsqrt_rn(fmaxf(om, 1e-30f))) : 0.0f;
+  if (!ok) sc = __int_as_float(0xff800000);         // -inf
+  if (sc == 0.0f) sc = 0.0f;                        // -0 ties +0, as in argmax
+  return pack_key(sc, row);
+}
+
 // The directions in Vsel's type, (2, Sp) zero-padded, into shared memory,
 // by the consumer warps: every thread loads its values before it stores any.
 template <int DT>
@@ -145,9 +178,7 @@ __device__ __forceinline__ void quantize_dirs(const float* __restrict__ dirs, in
       const int i = base + k * kStride;
       if (i >= 2 * Sp) break;
       if constexpr (DT == kInt8) {
-        int q = __float2int_rn(__fmul_rn(f[k], 127.0f));   // round half to even
-        q = q < -127 ? -127 : (q > 127 ? 127 : q);
-        reinterpret_cast<signed char*>(dq)[i] = (signed char)q;
+        reinterpret_cast<signed char*>(dq)[i] = (signed char)quantize_int8(f[k]);
       } else if constexpr (DT == kBf16) {
         reinterpret_cast<__nv_bfloat16*>(dq)[i] = __float2bfloat16_rn(f[k]);
       } else {
@@ -248,28 +279,61 @@ __global__ void __launch_bounds__(kThreads) giga_select_kernel(const SelectArgs 
         row_pair<LOG_G, U>(v, lane, e, a0, a1);
         const int rl = r0 + (u0 + e) * RPW + grp;
         if (rl < rows) {
-          float d0, d1;
-          if constexpr (DT == kInt8) {
-            // int32 -> f32 rounds to nearest, as astype(float32) does (exact
-            // while |dot| < 2^24, i.e. for every Sp < 1040)
-            d0 = __fmul_rn((float)a0, kInv127Sq);
-            d1 = __fmul_rn((float)a1, kInv127Sq);
-          } else {
-            d0 = __fdiv_rn(a0, nr[e]);
-            d1 = __fdiv_rn(a1, nr[e]);
-          }
-          const float om = __fsub_rn(1.0f, __fmul_rn(d1, d1));
-          // f32(-1 + 1e-14) == -1.0f
-          const bool geo_ok = (d1 > -1.0f) && (om > 0.0f);
-          float sc = geo_ok ? __fdiv_rn(d0, __fsqrt_rn(fmaxf(om, 1e-30f))) : 0.0f;
-          if (!ok[e]) sc = __int_as_float(0xff800000);   // -inf
-          if (sc == 0.0f) sc = 0.0f;                      // -0 ties +0, as in argmax
-          const unsigned long long key = pack_key(sc, row0 + rl);
+          const unsigned long long key = row_key<DT>(a0, a1, nr[e], ok[e], row0 + rl);
           best = key > best ? key : best;
         }
       }
     }
   });
+  finish(best, a.ws, a.idx, a.score);
+}
+
+// Chunk c (16 bytes of a row) of both directions, quantized from the f32
+// (S, 2) array as quantize_dirs does, zero past S.
+struct Dirs2 {
+  int4 p, q;
+};
+
+template <int DT>
+__device__ __forceinline__ Dirs2 dirs_chunk(const float* __restrict__ dirs, int S, int c) {
+  constexpr int E = DT == kInt8 ? 16 : (DT == kBf16 ? 8 : 4);   // values per chunk
+  unsigned int p[4] = {}, q[4] = {};
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    const int s = c * E + k;
+    const float f0 = s < S ? __ldg(dirs + 2 * s) : 0.0f;
+    const float f1 = s < S ? __ldg(dirs + 2 * s + 1) : 0.0f;
+    if constexpr (DT == kInt8) {
+      p[k / 4] |= ((unsigned int)quantize_int8(f0) & 0xFFu) << (8 * (k % 4));
+      q[k / 4] |= ((unsigned int)quantize_int8(f1) & 0xFFu) << (8 * (k % 4));
+    } else if constexpr (DT == kBf16) {
+      p[k / 2] |= (unsigned int)__bfloat16_as_ushort(__float2bfloat16_rn(f0)) << (16 * (k % 2));
+      q[k / 2] |= (unsigned int)__bfloat16_as_ushort(__float2bfloat16_rn(f1)) << (16 * (k % 2));
+    } else {
+      p[k] = __float_as_uint(f0);
+      q[k] = __float_as_uint(f1);
+    }
+  }
+  return Dirs2{make_int4((int)p[0], (int)p[1], (int)p[2], (int)p[3]),
+               make_int4((int)q[0], (int)q[1], (int)q[2], (int)q[3])};
+}
+
+// The same select for rows that the ring cannot hold (stream_rows.cuh's
+// wide_rows): no shared-memory directions, each chunk's are quantized from
+// the f32 array as they are used (it stays in L2), once for the warp's
+// kWideRowsPerWarp rows.  It is simple and not fast: each lane has few loads
+// in flight, and for int8 it converts 32 direction values per 16 data bytes.
+template <int DT>
+__global__ void __launch_bounds__(kThreads) giga_select_wide_kernel(const SelectArgs a) {
+  using Acc = typename std::conditional<DT == kInt8, int, float>::type;
+  const unsigned long long best = wide_rows<Acc>(
+      a.V, a.n, a.row_bytes,
+      [&](int c) { return dirs_chunk<DT>(a.dirs, a.S, c); },
+      [](int4 x, const Dirs2& d, Acc& a0, Acc& a1) { dot<DT>(x, d.p, d.q, a0, a1); },
+      [&](Acc a0, Acc a1, long long row) {
+        const float nr = DT == kInt8 ? 1.0f : a.norms[row];
+        return row_key<DT>(a0, a1, nr, a.valid[row] != 0, row);
+      });
   finish(best, a.ws, a.idx, a.score);
 }
 
@@ -291,8 +355,11 @@ const void* pick(int log_g) {
 // 16-byte aligned, row_bytes % 16 == 0; dirs: (S, 2) f32, S <= row_bytes /
 // elem; norms: (n,) f32 (unused for int8); valid: (n,) bool; workspace: 16
 // zero bytes owned by the caller for this stream (left zero again by every
-// launch); idx/score: one int32 / one f32.  One kernel launch on `stream`;
-// never synchronizes; returns cudaGetLastError().
+// launch); idx/score: one int32 / one f32.  One kernel launch on `stream`:
+// the ring kernel where plan_launch can place the rows (the directions and
+// two one-row stages in shared memory: rows up to 48 KB), else the wide-row
+// kernel, up to rows of 1 MiB; never synchronizes; returns
+// cudaGetLastError().
 extern "C" int giga_select_launch(const void* V, int dtype, long long n, long long row_bytes,
                                   const void* dirs, int S, const void* norms, const void* valid,
                                   void* workspace, void* idx, void* score, void* stream) {
@@ -311,6 +378,10 @@ extern "C" int giga_select_launch(const void* V, int dtype, long long n, long lo
                reinterpret_cast<Workspace*>(workspace), reinterpret_cast<int*>(idx),
                reinterpret_cast<float*>(score)};
   void* args[] = {&a};
+  if (plan.stages == 0)                               // too wide for the ring
+    kernel = dtype == kInt8 ? reinterpret_cast<const void*>(&giga_select_wide_kernel<kInt8>)
+             : dtype == kBf16 ? reinterpret_cast<const void*>(&giga_select_wide_kernel<kBf16>)
+                              : reinterpret_cast<const void*>(&giga_select_wide_kernel<kF32>);
   err = cudaLaunchKernel(kernel, dim3(plan.grid), dim3(kThreads), args, plan.smem,
                          reinterpret_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;

@@ -27,6 +27,8 @@
 // hi1] are quantized in the kernel, once per block, into shared memory,
 // and each lane keeps its chunk of all four in registers for the whole
 // kernel when a row fits one pass of its group (every S <= 1024).
+// Packed rows wider than the ring can hold (past 32 KB) take
+// packed_select_wide_kernel below, in the same one launch.
 // The nibbles are never widened: (w << 4) & 0xF0F0F0F0 and w & 0xF0F0F0F0
 // leave each signed nibble in the high half of its byte, i.e. 16x its value
 // as an int8 lane, which __dp4a takes as it is.  The int32 sums are then
@@ -85,6 +87,26 @@ __device__ __forceinline__ void packed_chunk_dot(int4 v, const Dirs4& d, int& a0
   }
 }
 
+// round(127 d), half to even, clipped to +-127
+__device__ __forceinline__ int quantize_int8(float f) {
+  const int q = __float2int_rn(__fmul_rn(f, 127.0f));
+  return q < -127 ? -127 : (q > 127 ? 127 : q);
+}
+
+// A row's packed key from its two summed 16x dots and its scalars.
+__device__ __forceinline__ unsigned long long row_key(int a0, int a1, float nr, float bi,
+                                                      long long row) {
+  // a >> 4 is exact (a is a multiple of 16); int32 -> f32 is exact while
+  // |dot| < 2^24
+  const float d0 = __fmul_rn(__fmul_rn((float)(a0 >> 4), kInv7x127), nr);
+  const float d1 = __fmul_rn(__fmul_rn((float)(a1 >> 4), kInv7x127), nr);
+  const float om = __fsub_rn(1.0f, __fmul_rn(d1, d1));
+  const float cl = om < 1e-30f ? 1e-30f : om;         // NaN passes, as in jnp.clip
+  float sc = __fadd_rn(__fdiv_rn(d0, __fsqrt_rn(cl)), bi);
+  if (sc == 0.0f) sc = 0.0f;                          // -0 ties +0, as in argmax
+  return pack_key(sc, row);
+}
+
 // The four direction rows [lo0, lo1, hi0, hi1] of the quantized directions
 // (even and odd rows of q), each zero-padded to row_bytes, into shared
 // memory, by the consumer warps: every thread loads before it stores.
@@ -104,9 +126,7 @@ __device__ __forceinline__ void quantize_dirs4(const float* __restrict__ dirs, i
     for (int k = 0; k < 4; ++k) {
       const int i = base + k * kStride;
       if (i >= 4 * rb) break;
-      int q = __float2int_rn(__fmul_rn(f[k], 127.0f));   // round half to even
-      q = q < -127 ? -127 : (q > 127 ? 127 : q);
-      dq[i] = (signed char)q;
+      dq[i] = (signed char)quantize_int8(f[k]);
     }
   }
 }
@@ -198,20 +218,48 @@ __global__ void __launch_bounds__(kThreads) packed_select_kernel(const PackedArg
         row_pair<LOG_G, U>(v, lane, e, a0, a1);
         const int rl = r0 + (u0 + e) * RPW + grp;
         if (rl < rows) {
-          // a >> 4 is exact (a is a multiple of 16); int32 -> f32 is exact
-          // while |dot| < 2^24
-          const float d0 = __fmul_rn(__fmul_rn((float)(a0 >> 4), kInv7x127), nr[e]);
-          const float d1 = __fmul_rn(__fmul_rn((float)(a1 >> 4), kInv7x127), nr[e]);
-          const float om = __fsub_rn(1.0f, __fmul_rn(d1, d1));
-          const float cl = om < 1e-30f ? 1e-30f : om;   // NaN passes, as in jnp.clip
-          float sc = __fadd_rn(__fdiv_rn(d0, __fsqrt_rn(cl)), bi[e]);
-          if (sc == 0.0f) sc = 0.0f;                    // -0 ties +0, as in argmax
-          const unsigned long long key = pack_key(sc, row0 + rl);
+          const unsigned long long key = row_key(a0, a1, nr[e], bi[e], row0 + rl);
           best = key > best ? key : best;
         }
       }
     }
   });
+  finish(best, a.ws, a.idx, a.score);
+}
+
+// Chunk c of the four direction rows, quantized from the f32 (S, 2) array as
+// quantize_dirs4 does: byte j of [lo0, lo1, hi0, hi1] is q[2j][0], q[2j][1],
+// q[2j+1][0], q[2j+1][1], four consecutive floats; zero past S.
+__device__ __forceinline__ Dirs4 dirs_chunk_global(const float* __restrict__ dirs, int S, int c) {
+  unsigned int w[4][4] = {};                          // [direction row][32-bit word]
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const int j = 16 * c + k;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int s = 2 * j + (r >> 1);
+      const float f = s < S ? __ldg(dirs + 2 * s + (r & 1)) : 0.0f;
+      w[r][k / 4] |= ((unsigned int)quantize_int8(f) & 0xFFu) << (8 * (k % 4));
+    }
+  }
+  const auto row = [&](int r) {
+    return make_int4((int)w[r][0], (int)w[r][1], (int)w[r][2], (int)w[r][3]);
+  };
+  return Dirs4{row(0), row(1), row(2), row(3)};
+}
+
+// The same select for rows that the ring cannot hold (stream_rows.cuh's
+// wide_rows): each chunk's directions are quantized from the f32 array as
+// they are used, once for the warp's kWideRowsPerWarp rows.  Simple, not
+// fast: 64 direction values are converted per 16 data bytes.
+__global__ void __launch_bounds__(kThreads) packed_select_wide_kernel(const PackedArgs a) {
+  const unsigned long long best = wide_rows<int>(
+      a.P, a.n, a.row_bytes,
+      [&](int c) { return dirs_chunk_global(a.dirs, a.S, c); },
+      [](int4 x, const Dirs4& d, int& a0, int& a1) { packed_chunk_dot(x, d, a0, a1); },
+      [&](int a0, int a1, long long row) {
+        return row_key(a0, a1, a.nrminv[row], a.bias[row], row);
+      });
   finish(best, a.ws, a.idx, a.score);
 }
 
@@ -233,7 +281,10 @@ const void* pick(int log_g) {
 // nothing); dirs: (S, 2) f32 with S / 2 <= row_bytes; nrminv, bias: (n,) f32;
 // workspace: 16 zero bytes owned by the caller for this stream (left zero
 // again by every launch); idx/score: one int32 / one f32.  One kernel launch
-// on `stream`; never synchronizes; returns cudaGetLastError().
+// on `stream`: the ring kernel where plan_launch can place the rows (the four
+// direction rows and two one-row stages in shared memory: rows up to 32 KB),
+// else the wide-row kernel, up to rows of 1 MiB; never synchronizes; returns
+// cudaGetLastError().
 extern "C" int packed_select_launch(const void* P, long long n, long long row_bytes,
                                     const void* dirs, int S, const void* nrminv,
                                     const void* bias, void* workspace, void* idx, void* score,
@@ -250,6 +301,8 @@ extern "C" int packed_select_launch(const void* P, long long n, long long row_by
                reinterpret_cast<const float*>(bias), reinterpret_cast<Workspace*>(workspace),
                reinterpret_cast<int*>(idx), reinterpret_cast<float*>(score)};
   void* args[] = {&a};
+  if (plan.stages == 0)                               // too wide for the ring
+    kernel = reinterpret_cast<const void*>(&packed_select_wide_kernel);
   err = cudaLaunchKernel(kernel, dim3(plan.grid), dim3(kThreads), args, plan.smem,
                          reinterpret_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;

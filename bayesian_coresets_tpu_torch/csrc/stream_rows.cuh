@@ -21,6 +21,10 @@
 //     ticket decodes the key into (idx, score) and resets key and ticket to
 //     0, so the workspace is ready for the next launch on the stream.
 //
+// Rows too wide for the ring (the directions plus two one-row stages exceed
+// a block's shared memory) take wide_rows below instead of the ring, with
+// the same finish.
+//
 // Everything here has internal linkage: each kernel source includes its own
 // copy, so the library links without duplicate symbols.
 
@@ -45,6 +49,12 @@ constexpr int kMaxStages = 4;
 constexpr int kTileTarget = 8192;                      // bytes per tile
 constexpr int kBarBytes = 128;                         // 2 x kMaxStages mbarriers
 constexpr int kRowsPerStep = 4;                        // rows per lane group per step
+// Rows too wide for the ring (see plan_launch) take a kernel without one:
+// every warp of the block reads kWideRowsPerWarp rows at a time straight
+// from global memory, in a grid-stride loop.
+constexpr int kWideRowsPerWarp = 4;
+constexpr int kWideRowsPerBlock = kWideRowsPerWarp * (kThreads / 32);
+constexpr int kWideBlocksPerSM = 4;
 
 // The per-(device, stream) state of the one-launch finish; zero between
 // launches.
@@ -180,6 +190,56 @@ __device__ __forceinline__ void stream_rows(const unsigned char* __restrict__ sr
   }
 }
 
+// The wide-row stream: rows that the ring cannot hold (plan_launch) are read
+// straight from global memory.  Every warp of the block, the ninth too,
+// takes kWideRowsPerWarp rows at a time in a grid-stride loop; its lanes
+// take the rows' 16-byte chunks c = lane, lane + 32, ..., so a warp's loads
+// are contiguous, and one set of directions serves all the warp's rows.
+// dirs_at(c) gives chunk c of the directions, dot(x, d, a0, a1) adds one
+// chunk's products to a row's two sums, and key(a0, a1, row) is the row's
+// packed key from its summed dots.  Returns this thread's best key.
+template <typename Acc, class DirsAt, class Dot, class Key>
+__device__ __forceinline__ unsigned long long wide_rows(const unsigned char* __restrict__ src,
+                                                        long long n, int row_bytes,
+                                                        DirsAt&& dirs_at, Dot&& dot, Key&& key) {
+  constexpr int U = kWideRowsPerWarp;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int C = row_bytes / 16;
+  const long long stride = (long long)gridDim.x * kWideRowsPerBlock;
+  unsigned long long best = 0ull;                     // below every real key
+  // r0 and C are the same on every lane, so every lane reaches the shuffles
+  for (long long r0 = ((long long)blockIdx.x * (kThreads / 32) + warp) * U; r0 < n;
+       r0 += stride) {
+    Acc v[2 * U];
+#pragma unroll
+    for (int k = 0; k < 2 * U; ++k) v[k] = 0;
+    for (int c = lane; c < C; c += 32) {
+      const auto d = dirs_at(c);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (r0 + u < n) {
+          const int4 x = reinterpret_cast<const int4*>(src + (size_t)(r0 + u) * row_bytes)[c];
+          dot(x, d, v[2 * u], v[2 * u + 1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 2 * U; ++k) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v[k] += __shfl_xor_sync(0xFFFFFFFFu, v[k], off);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {                     // lane u scores row r0 + u
+      if (lane == u && r0 + u < n) {
+        const unsigned long long k = key(v[2 * u], v[2 * u + 1], r0 + u);
+        best = k > best ? k : best;
+      }
+    }
+  }
+  return best;
+}
+
 // The block's best key (every thread passes its own; 0 = none) into the
 // device maximum; the last block decodes it into (idx, score) and resets
 // the workspace.  Called by every thread of the block.
@@ -207,7 +267,9 @@ __device__ __forceinline__ void finish(unsigned long long best, Workspace* __res
   }
 }
 
-// Host side: the launch shape of one select.
+// Host side: the launch shape of one select.  stages == 0: the rows are too
+// wide for the ring, and `grid` is the wide-row kernel's (no dynamic shared
+// memory).
 struct Plan {
   int grid;
   int stages;
@@ -219,6 +281,8 @@ struct Plan {
 // `step_rows` rows when a step fits; stages: kMaxStages, fewer if the
 // device's shared memory cannot hold them (at least 2); grid: SMs x resident
 // blocks, capped at the tile count.  `kernel` is the instantiation to run.
+// Where the directions and two one-row stages do not fit the block's shared
+// memory, the plan is the wide-row kernel's (stages == 0).
 inline cudaError_t plan_launch(const void* kernel, long long n, int row_bytes, int dirs_bytes,
                                int step_rows, Plan* out) {
   static std::mutex mu;
@@ -251,7 +315,12 @@ inline cudaError_t plan_launch(const void* kernel, long long n, int row_bytes, i
   int stages = kMaxStages;
   while (stages > 2 && fixed + stages * tile_bytes > budget) --stages;
   const size_t smem = fixed + stages * tile_bytes;
-  if (smem > budget) return cudaErrorInvalidValue;    // rows too wide
+  if (smem > budget) {                                // rows too wide for the ring
+    const long long want = (n + kWideRowsPerBlock - 1) / kWideRowsPerBlock;
+    const long long cap = (long long)sms * kWideBlocksPerSM;
+    *out = Plan{(int)(want < cap ? want : cap), 0, 0, 0};
+    return cudaSuccess;
+  }
   int occ = 0;
   {
     std::lock_guard<std::mutex> lock(mu);

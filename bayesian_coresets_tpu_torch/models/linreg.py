@@ -1,0 +1,170 @@
+"""Bayesian linear regression (conjugate, RBF-basis capable).
+
+Port of ``bayesian_coresets_tpu/models/linreg.py`` (reference
+``examples/common/model_linreg.py:4-37``): Gaussian likelihood with known
+noise variance sigsq, Gaussian prior, the closed-form weighted posterior,
+and the data-gradient used by pseudocoreset optimization.  Rows
+z_i = [x_i, y_i] (features, then the response).
+
+Model: y_i ~ N(x_i . th, sigsq), th ~ N(th0, Sig0).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .gaussian import WeightedPost, _atleast_2d, _randn, kl_divergence  # noqa: F401
+
+_LOG2PI = 1.8378770664093453
+
+__all__ = [
+    "log_likelihood",
+    "grad_x_log_likelihood",
+    "weighted_post",
+    "sample_weighted_post",
+    "weighted_post_lowrank",
+    "lowrank_basis",
+    "LowRankBasis",
+    "kl_divergence",
+    "rbf_features",
+]
+
+
+def _split(z: torch.Tensor):
+    z = _atleast_2d(z)
+    return z[:, :-1], z[:, -1]
+
+
+def _scalar(v, like: torch.Tensor) -> torch.Tensor:
+    """``v`` (a number or a tensor) as a 0-dim tensor of ``like``'s dtype on
+    its device, so that the CPU and the card divide alike."""
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+
+
+def log_likelihood(z: torch.Tensor, th: torch.Tensor, sigsq) -> torch.Tensor:
+    """(n, S) Gaussian regression log-likelihood (model_linreg.py:4-11).
+
+    The residual is (y - x.th)^2, not the reference's expanded
+    y^2 - 2 pred y + pred^2: equal in exact arithmetic, but the expanded form
+    cancels in f32 when the posterior is concentrated (the centered
+    projections underflow to zero).
+    """
+    x, y = _split(z)
+    sigsq = _scalar(sigsq, x)
+    resid_sq = (y[:, None] - x @ _atleast_2d(th).T) ** 2                 # (n, S)
+    return -0.5 * (_LOG2PI + torch.log(sigsq)) - resid_sq / (2.0 * sigsq)
+
+
+def grad_x_log_likelihood(z: torch.Tensor, th: torch.Tensor, sigsq) -> torch.Tensor:
+    """(n, S, d+1) gradient with respect to the full row z = [x, y]:
+    d/dx_j = (y - x.th) th_j / sigsq, d/dy = -(y - x.th) / sigsq.  (The
+    reference, model_linreg.py:13-17, has +1 at the d/dy entry, a sign slip;
+    like the JAX package this is the correct derivative.)"""
+    x, y = _split(z)
+    th = _atleast_2d(th)
+    r = (y[:, None] - x @ th.T) / _scalar(sigsq, x)                      # (n, S)
+    return torch.cat([r[:, :, None] * th[None, :, :], -r[:, :, None]], dim=2)
+
+
+def weighted_post(th0, Sig0inv, sigsq, z, w) -> WeightedPost:
+    """Closed-form weighted posterior (model_linreg.py:26-37): precision
+    Sig0inv + X^T diag(w) X / sigsq, mean solving
+    Prec mu = Sig0inv th0 + X^T (w y) / sigsq.
+
+    By QR of the stacked weighted design [sqrt(w) X / sigma; L0^T], not by a
+    Cholesky of the normal equations: the RBF designs of the
+    linear_regression experiment have condition numbers far beyond f32's
+    reach once squared.  R is sign-normalized to a positive diagonal (the
+    unique upper-triangular factor), so it does not depend on the QR
+    routine's conventions.
+    """
+    x, y = _split(z)
+    d = th0.shape[0]
+    sw = torch.sqrt(torch.clamp_min(w, 0.0))
+    L0 = torch.linalg.cholesky(Sig0inv)                  # Sig0inv = L0 L0^T
+    srt = torch.sqrt(_scalar(sigsq, x))
+    B = torch.cat([sw[:, None] * x / srt, L0.T], dim=0)
+    c = torch.cat([sw * y / srt, L0.T @ th0], dim=0)
+    Q, R = torch.linalg.qr(B, mode="reduced")            # prec = R^T R
+    diag = torch.diagonal(R)
+    s = torch.sign(torch.where(diag == 0, 1.0, diag))
+    R = s[:, None] * R
+    eye = torch.eye(d, dtype=R.dtype, device=R.device)
+    USig = torch.linalg.solve_triangular(R, eye, upper=True)            # Sig = USig USig^T
+    # least-squares mean: mu = R^{-1} Q^T c (never forms B^T B or B^T c)
+    mu = torch.linalg.solve_triangular(R, (s * (Q.T @ c))[:, None], upper=True)[:, 0]
+    return WeightedPost(mu, USig, R.T)
+
+
+def sample_weighted_post(gen: torch.Generator, th0, Sig0inv, sigsq, z, w,
+                         n_samples: int) -> torch.Tensor:
+    """Samples mu + R^{-1} eps (covariance R^{-1} R^{-T} = Prec^{-1})."""
+    post = weighted_post(th0, Sig0inv, sigsq, z, w)
+    eps = _randn(gen, (n_samples, th0.shape[0]), post.USig)
+    return post.mu + torch.linalg.solve_triangular(post.LSigInv.T, eps.T, upper=True).T
+
+
+class LowRankBasis(NamedTuple):
+    """One-time prior factorization for :func:`weighted_post_lowrank`."""
+
+    L0inv: torch.Tensor    # (d, d) with Sig0inv = L0 L0^T
+    L0invT: torch.Tensor   # (d, d)
+    r0: torch.Tensor       # (d,) = Sig0inv @ th0
+    sigsq: torch.Tensor    # noise variance (0-dim)
+
+
+def lowrank_basis(th0, Sig0inv, sigsq) -> LowRankBasis:
+    d = th0.shape[0]
+    L0 = torch.linalg.cholesky(Sig0inv)
+    eye = torch.eye(d, dtype=L0.dtype, device=L0.device)
+    L0inv = torch.linalg.solve_triangular(L0, eye, upper=False)
+    return LowRankBasis(L0inv, L0inv.T.contiguous(), Sig0inv @ th0, _scalar(sigsq, L0))
+
+
+def weighted_post_lowrank(basis: LowRankBasis, z, w):
+    """Weighted posterior by a RANK-m Woodbury update of the prior.
+
+    The coreset design has only m = len(w) rows, so
+    ``prec = Sig0inv + X^T diag(w) X / sigsq = L0 (I + W^T W) L0^T`` with
+    ``W = diag(sqrt(w)) X L0^{-T} / sigma`` (m, d): an eigh of the (m, m)
+    Gram replaces the (m+d, d) QR on SparseVI's per-Adam-step path
+    (reference sparsevi.py:70-74).
+
+    Returns ``(mu, F)`` with ``Sig = F F^T`` (a non-triangular factor, valid
+    wherever only the Gram matters: tangent features, sampling).  The Gram
+    squares W's conditioning, so for designs with lam_max/lam_min beyond
+    ~1/eps_f32 prefer the QR path (:func:`weighted_post`).
+    """
+    x, y = _split(z)
+    sw = torch.sqrt(torch.clamp_min(w, 0.0))
+    W = (sw[:, None] * x) @ basis.L0invT / torch.sqrt(basis.sigsq)       # (m, d)
+    G = W @ W.T
+    lam, U = torch.linalg.eigh(0.5 * (G + G.T))                          # (m,), (m, m)
+    lam = torch.clamp_min(lam, 0.0)
+    mask = lam > 1e-7 * torch.clamp_min(torch.max(lam), 1e-30)
+    lam_safe = torch.where(mask, lam, 1.0)
+    V = (W.T @ U) / torch.sqrt(lam_safe)[None, :]                        # (d, m)
+    V = torch.where(mask[None, :], V, 0.0)
+    c_inv = torch.where(mask, lam / (1.0 + lam), 0.0)
+    c_half = torch.where(mask, 1.0 - 1.0 / torch.sqrt(1.0 + lam), 0.0)
+
+    rhs = basis.r0 + x.T @ (w * y) / basis.sigsq
+    t = basis.L0inv @ rhs
+    t = t - V @ (c_inv * (V.T @ t))                                      # (I + W^T W)^{-1}
+    mu = basis.L0invT @ t
+    F = basis.L0invT - ((basis.L0invT @ V) * c_half[None, :]) @ V.T
+    return mu, F
+
+
+def rbf_features(x: torch.Tensor, centers: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Multi-scale RBF basis expansion of the linear_regression experiment
+    (reference examples/linear_regression/main.py:80-108): features
+    exp(-||x - c||^2 / (2 s^2)) for every (center, scale) pair.
+
+    x: (n, p) raw inputs; centers: (k, p); scales: (m,).  Returns (n, k*m).
+    """
+    sq = torch.sum((x[:, None, :] - centers[None, :, :]) ** 2, dim=-1)   # (n, k)
+    feats = torch.exp(-sq[:, :, None] / (2.0 * scales[None, None, :] ** 2))
+    return feats.reshape(x.shape[0], -1)

@@ -1,13 +1,18 @@
-"""Numerical kernels: the GIGA solver, its fused select, the packed-int4
+"""Numerical kernels: the sparse-NNLS solvers (GIGA, Frank-Wolfe, OMP,
+importance and uniform sampling), their fused select, the packed-int4
 select probe, the active-set NNLS re-solve, and projected Adam."""
 
 from . import giga_select, nnls, packed_select
 from .opt import nn_opt
 from .snnls import (
     GIGA,
+    FrankWolfe,
+    ImportanceSampling,
+    OrthoPursuit,
     SNNLSConsts,
     SNNLSState,
     SparseNNLS,
+    UniformSampling,
     build,
     init_state,
     make_consts,
@@ -16,6 +21,10 @@ from .snnls import (
 
 __all__ = [
     "GIGA",
+    "FrankWolfe",
+    "OrthoPursuit",
+    "ImportanceSampling",
+    "UniformSampling",
     "SparseNNLS",
     "SNNLSConsts",
     "SNNLSState",

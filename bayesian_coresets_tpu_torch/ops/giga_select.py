@@ -11,7 +11,7 @@ the two unit directions [cdir_n, xw_n] and takes the first maximum:
 :func:`giga_select` launches the hand-written CUDA kernel
 (``csrc/giga_select.cu``) for CUDA tensors, one launch per select and no
 other kernel (the kernel quantizes the directions itself and resets its
-own workspace), and uses the plain PyTorch version :func:`giga_select_ref`
+own workspace; rows of any width up to 1 MiB), and uses the plain PyTorch version :func:`giga_select_ref`
 for CPU tensors; there is no other route and no fallback.  ``launches``
 counts kernel launches.
 """
@@ -27,9 +27,6 @@ from . import _cuda_build
 launches = 0   # kernel launches by giga_select (plain-version calls not counted)
 
 _DTYPE_CODE = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
-# widest row the kernel streams: its shared memory holds the (2, Sp)
-# directions and at least two one-row stages
-MAX_ROW_BYTES = 48 * 1024
 
 _workspaces: dict[tuple[int, int], torch.Tensor] = {}
 
@@ -131,8 +128,12 @@ def giga_select(Vsel: torch.Tensor, dirs: torch.Tensor, norms: torch.Tensor,
     whole number of 16-byte chunks; dirs: (S, 2) f32 [cdir_n, xw_n] with
     S <= Sp; norms: (n,) f32 row norms (unused for int8); valid: (n,) bool.
     On a CUDA tensor this makes one kernel launch on the current stream,
-    without synchronizing (rows of at most ``MAX_ROW_BYTES``); on a CPU
-    tensor it runs :func:`giga_select_ref`.
+    without synchronizing: rows of at most 48 KB (the directions and two
+    one-row stages fit a block's shared memory: f32 S <= 12288, bf16
+    S <= 24576, int8 S <= 49152) stream through the TMA ring kernel, wider
+    rows, up to the entry point's 1 MiB, through the wide-row kernel of the
+    same source, which reads global memory directly.  On a CPU tensor it
+    runs :func:`giga_select_ref`.
     """
     global launches
     _check(Vsel, dirs, norms, valid)
@@ -142,9 +143,6 @@ def giga_select(Vsel: torch.Tensor, dirs: torch.Tensor, norms: torch.Tensor,
         raise ValueError(f"giga_select runs on CPU or CUDA tensors, not {Vsel.device}")
     n, Sp = Vsel.shape
     row_bytes = Sp * Vsel.element_size()
-    if row_bytes > MAX_ROW_BYTES:
-        raise ValueError(f"giga_select on CUDA streams rows of at most {MAX_ROW_BYTES} bytes; "
-                         f"got {Sp} {Vsel.dtype} columns ({row_bytes} bytes)")
     dirs = dirs.contiguous()
     dev = Vsel.device
     idx = torch.empty(1, dtype=torch.int32, device=dev)

@@ -36,9 +36,6 @@ from .giga_select import sqrt_rn, workspace
 launches = 0   # kernel launches by packed_select (plain-version calls not counted)
 
 _CHUNK = 16                                   # bytes per kernel load
-# widest packed row the kernel streams: its shared memory holds the four
-# direction rows and at least two one-row stages
-MAX_ROW_BYTES = 32 * 1024
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -141,8 +138,11 @@ def packed_select(P: torch.Tensor, dirs2: torch.Tensor, nrminv: torch.Tensor,
     P: (n, S/2) packed int8 (:func:`pack_int4`), any n; dirs2: (S, 2) f32;
     nrminv, bias: (n,) f32.  On a CUDA tensor this makes one kernel launch
     on the current stream, without synchronizing (padding P's columns to
-    whole 16-byte chunks first if they are not); on a CPU tensor it runs
-    :func:`packed_select_ref`.
+    whole 16-byte chunks first if they are not): packed rows of at most
+    32 KB (the four direction rows and two one-row stages fit a block's
+    shared memory) stream through the TMA ring kernel, wider rows, up to the
+    entry point's 1 MiB, through the wide-row kernel of the same source.  On
+    a CPU tensor it runs :func:`packed_select_ref`.
     """
     global launches
     _check(P, dirs2, nrminv, bias)
@@ -151,9 +151,6 @@ def packed_select(P: torch.Tensor, dirs2: torch.Tensor, nrminv: torch.Tensor,
     if P.device.type != "cuda":
         raise ValueError(f"packed_select runs on CPU or CUDA tensors, not {P.device}")
     Pp = padded(P)
-    if Pp.shape[1] > MAX_ROW_BYTES:
-        raise ValueError(f"packed_select on CUDA streams rows of at most {MAX_ROW_BYTES} "
-                         f"bytes; got {Pp.shape[1]}")
     dirs2 = dirs2.contiguous()
     dev = P.device
     idx = torch.empty(1, dtype=torch.int32, device=dev)

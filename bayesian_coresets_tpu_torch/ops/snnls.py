@@ -1,30 +1,37 @@
-"""Sparse non-negative least squares by GIGA, on one device.
+"""Sparse non-negative least squares on one device: GIGA, Frank-Wolfe,
+orthogonal matching pursuit, and importance and uniform sampling.
 
-Port of the GIGA parts of ``bayesian_coresets_tpu/ops/snnls.py`` (reference
-``bayesiancoresets/snnls/snnls.py`` and ``giga.py``).  The algebra is the
-JAX package's, step for step:
+Port of ``bayesian_coresets_tpu/ops/snnls.py`` (reference
+``bayesiancoresets/snnls/``: ``snnls.py``, ``giga.py``, ``frankwolfe.py``,
+``orthopursuit.py``, ``sampling.py``).  The algebra is the JAX package's,
+step for step:
 
 - **Incremental O(S) reweighting.**  Every step has the form
   ``w <- alpha*w; w[f] = new``, so the cached image ``xw = A @ w`` updates
   as ``alpha*xw + delta*A[:, f]``; an exact refresh from the tracked
   support runs every ``REFRESH_EVERY`` iterations to bound f32 drift.
-- **Scale-carried weights.**  The global ``alpha`` rescale rides a scalar
-  (``GigaAux.wscale``): only index f is written per iteration, and the
-  scale folds into the weights when it would underflow and once on return.
+- **Scale-carried weights** (GIGA, Frank-Wolfe).  The global ``alpha``
+  rescale rides a scalar (``GigaAux.wscale``): only index f is written per
+  iteration, and the scale folds into the weights when it would underflow
+  and once on return.
 - **Flags, not exceptions.**  A failed step is discarded and counted; two
   consecutive failures, or selecting more distinct atoms than
   ``max_active``, latch ``done`` (reference snnls.py:40-74).
 - **Data-point-major layout.**  ``V = A.T`` is (n, S); the select streams
   a reduced-precision copy ``Vsel`` once per iteration through the fused
-  kernel of :mod:`.giga_select`.
+  kernel of :mod:`.giga_select`: GIGA with its two directions, Frank-Wolfe
+  and OMP with ``[rn, 0]`` (then the score is the plain normalized dot,
+  the JAX package's ``_select_dots``).  The sampling solvers select by a
+  categorical draw and never pass over V.
 
 Where the JAX package runs the whole build as one ``lax.while_loop``, this
 is an eager Python loop over the same step.  The iteration count is kept on
-the host (so the refresh cadence needs no device read), and the three
-conditions that depend on the device (the loop guard ``done``, the wscale
-fold, and the overflow latch, which feeds ``done``) come back in ONE small
-device-to-host transfer per iteration.  The weight vector is updated in
-place: ``build`` copies it once on entry.
+the host (so the refresh cadence needs no device read), and the
+conditions that depend on the device (the loop guard ``done``, which the
+overflow latch feeds, and for GIGA and Frank-Wolfe the wscale fold) come
+back in ONE small device-to-host transfer per iteration.  The weight vector
+(the sampling solvers' counts) is updated in place: ``build`` copies it once
+on entry.
 
 The O(S) and O(K*S) reductions of the step (the scalar cache, the reweight
 dots, the support refresh) accumulate in float64 and round to float32, and
@@ -48,7 +55,7 @@ import torch.nn.functional as F
 from .. import native
 from ..utils import checkpoint, config
 from ..utils.errors import NumericalPrecisionError
-from .giga_select import col_multiple, giga_select, sqrt_rn
+from .giga_select import col_multiple, giga_select, quantize_dirs, sqrt_rn
 from .nnls import nnls_rows
 
 REFRESH_EVERY = 64      # exact xw = A@w recompute cadence (f32 drift control)
@@ -63,6 +70,8 @@ class SNNLSConsts(NamedTuple):
     norms: torch.Tensor   # (n,) row norms ||V[i]|| (1 for invalid rows)
     bnorm: torch.Tensor   # 0-dim ||b||
     valid: torch.Tensor   # (n,) bool mask of selectable rows
+    ps: torch.Tensor      # (n,) sampling probabilities (importance, uniform;
+    #                       size 0 for the other solvers)
     Vsel: torch.Tensor    # (n, Sp) select-phase copy of V, columns zero-padded
     #                       to whole 16-byte rows (the kernel's load width):
     #                       - float32: V itself (aliased when S needs no pad)
@@ -77,6 +86,7 @@ class SNNLSState(NamedTuple):
 
     w: torch.Tensor       # (n,) weights
     xw: torch.Tensor      # (S,) cached A @ w
+    cts: torch.Tensor     # (n,) selection counts (sampling solvers; size 0 else)
     idcs: torch.Tensor    # (K,) int32 active-slot indices (-1 = empty)
     size: torch.Tensor    # int32 number of active slots
     itr: torch.Tensor     # int32 total iterations attempted (lifetime)
@@ -90,13 +100,34 @@ def _pad_cols(x: torch.Tensor, mult: int) -> torch.Tensor:
     return x if Sp == S else F.pad(x, (0, Sp - S))
 
 
+def _sampling_ps(norms: torch.Tensor, valid: torch.Tensor, sampling: str | None) -> torch.Tensor:
+    """Row-sampling probabilities of the importance and uniform solvers
+    (ops/snnls.py:92-107 of the JAX package): proportional to the valid
+    rows' norms (uniform over the valid rows when they sum to 0), or uniform
+    over the valid rows.  The other solvers carry none (size 0), which
+    :func:`init_state` reads as "no counts either"."""
+    if sampling is None:
+        return torch.zeros(0, dtype=norms.dtype, device=norms.device)
+    if sampling not in ("importance", "uniform"):
+        raise ValueError(f"sampling must be None, 'importance' or 'uniform'; got {sampling!r}")
+    nv = torch.clamp_min(torch.sum(valid), 1).to(norms.dtype)
+    uniform = torch.where(valid, torch.reciprocal(nv), 0.0)
+    if sampling == "uniform":
+        return uniform
+    raw = torch.where(valid, norms, 0.0)
+    tot = torch.sum(raw.double()).to(norms.dtype)
+    return torch.where(tot > 0, raw / torch.where(tot > 0, tot, 1.0), uniform)
+
+
 def make_consts(A: torch.Tensor, b: torch.Tensor, valid: torch.Tensor | None = None,
-                select_dtype: torch.dtype | None = None) -> SNNLSConsts:
+                select_dtype: torch.dtype | None = None,
+                sampling: str | None = None) -> SNNLSConsts:
     """Precompute solver constants from A (S, n) and b (S,), on A's device.
 
     ``select_dtype`` (``torch.bfloat16`` or ``torch.int8``) stores a
     reduced-precision copy of V used only by the select; all weight and
-    error arithmetic stays f32.
+    error arithmetic stays f32.  ``sampling`` (``"importance"`` or
+    ``"uniform"``) adds that solver's probabilities ``ps``.
     """
     V = A.T.contiguous()
     b = b.to(V.device)
@@ -116,7 +147,7 @@ def make_consts(A: torch.Tensor, b: torch.Tensor, valid: torch.Tensor | None = N
     else:
         raise ValueError(f"select_dtype must be None, bfloat16 or int8; got {select_dtype}")
     Vsel = _pad_cols(Vsel, col_multiple(Vsel.dtype))
-    return SNNLSConsts(V, b, norms, bnorm, valid, Vsel)
+    return SNNLSConsts(V, b, norms, bnorm, valid, _sampling_ps(norms, valid, sampling), Vsel)
 
 
 def init_state(consts: SNNLSConsts, max_active: int = 0) -> SNNLSState:
@@ -126,6 +157,8 @@ def init_state(consts: SNNLSConsts, max_active: int = 0) -> SNNLSState:
     return SNNLSState(
         w=torch.zeros(n, dtype=dt, device=dev),
         xw=torch.zeros(S, dtype=dt, device=dev),
+        # counts exist only for the sampling solvers (ops/snnls.py:412 there)
+        cts=torch.zeros(n if consts.ps.shape[0] else 0, dtype=dt, device=dev),
         idcs=torch.full((max_active,), -1, **i32),
         size=torch.zeros((), **i32),
         itr=torch.zeros((), **i32),
@@ -181,10 +214,15 @@ def _track_support(state: SNNLSState, f: torch.Tensor):
     return idcs, size, overflow
 
 
+def _active_mask(idcs: torch.Tensor, size) -> tuple[torch.Tensor, torch.Tensor]:
+    """(live-slot mask, slot indices with 0 at dead slots) of a slot list."""
+    mask = torch.arange(idcs.shape[0], device=idcs.device) < size
+    return mask, torch.where(mask, idcs, 0).long()
+
+
 def _support_matvec(consts: SNNLSConsts, w, idcs, size) -> torch.Tensor:
     """Exact V^T w via the tracked support (w>0 entries all lie in idcs)."""
-    mask = torch.arange(idcs.shape[0], device=idcs.device) < size
-    safe = torch.where(mask, idcs, 0)
+    mask, safe = _active_mask(idcs, size)
     rows = torch.where(mask[:, None], consts.V.index_select(0, safe), 0.0)
     return _dot(torch.where(mask, w.index_select(0, safe), 0.0), rows)
 
@@ -321,40 +359,274 @@ def _carried_commit(state: SNNLSState, st: GigaStep, fold_commit: bool):
             st.aux._replace(wscale=ws_out))
 
 
-def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float) -> SNNLSState:
-    """Run up to ``itrs`` GIGA iterations, continuing from ``state``.
+def _normalize(x: torch.Tensor) -> torch.Tensor:
+    """x / ||x||; a zero vector divides by 1 (ops/snnls.py:446-449 there)."""
+    n = sqrt_rn(_dot(x, x))
+    return x / torch.where(n == 0, 1.0, n)
 
-    Port of the JAX package's ``build_core``/``build`` for
-    ``method="giga"`` (the only solver ported).  Returns a new state with
-    TRUE-scale weights; ``state`` itself is left unchanged.
+
+def _select_residual(consts: SNNLSConsts, rn: torch.Tensor):
+    """(index, value) of the largest <V_i/||V_i||, rn> over the valid rows:
+    the fused select with directions ``[rn, 0]``.  The second dot is exactly
+    0 for every dtype, so the select's score is the first dot itself, for
+    int8 the JAX package's ``int32 * (1/127^2)`` to the bit."""
+    dirs = torch.stack([rn, torch.zeros_like(rn)], dim=1)
+    return giga_select(consts.Vsel, dirs, consts.norms, consts.valid)
+
+
+def _fw_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux, tol: float,
+             nsum: torch.Tensor) -> GigaStep:
+    """Frank-Wolfe step (ops/snnls.py:712-758 there; reference
+    frankwolfe.py:5-40), scale-carried and self-committing like GIGA: the
+    rescale w <- (1 - gamma) w rides ``aux.wscale`` and only the selected
+    index is written.  ``nsum`` is the sum of the valid rows' norms."""
+    resid = consts.b - state.xw
+    f, _ = _select_residual(consts, _normalize(resid))   # scale-invariant argmax
+    fl = f.long().view(1)
+
+    nf = consts.norms.index_select(0, fl)[0]
+    xf = _v_row(consts, fl)
+    # as in _giga_step: with support slots, size == 0 ignores that every
+    # tracked weight may have fallen to 0 (ROADMAP Queue 3, defect (a), kept
+    # for parity with ops/snnls.py:726-727 there)
+    if state.idcs.shape[0]:
+        size_zero = state.size == 0
+    else:
+        size_zero = ~torch.any(state.w > 0)
+
+    # line search (frankwolfe.py:26-37)
+    dvec = nsum / nf * xf - state.xw
+    gammanum = _dot(dvec, resid)
+    gammadenom = _dot(dvec, dvec)
+    ok = (gammanum >= 0.0) & (gammadenom > 0.0) & (gammanum <= gammadenom)
+    gamma = gammanum / torch.where(gammadenom == 0, 1.0, gammadenom)
+    alpha = torch.where(size_zero, 0.0, 1.0 - gamma)
+    beta = torch.where(size_zero, nsum / nf, nsum / nf * gamma)
+    ok = ok | size_zero                                  # first-point vertex init
+
+    ws = aux.wscale
+    old_raw = state.w.index_select(0, fl)[0]
+    old_wf = ws * old_raw
+    new_wf = torch.clamp_min(alpha * old_wf + beta, 0.0)
+    delta = new_wf - alpha * old_wf
+    xw2 = alpha * state.xw + delta * xf
+
+    # the monotone gate in the step (reference snnls.py:54-61), so that the
+    # commit gates the single-index write; FW carries no scalar error cache
+    new_err = _cached_error(consts, xw2)
+    ok = ok & (size_zero | (new_err <= _cached_error(consts, state.xw) * (1.0 + tol)))
+    ok = ok & torch.isfinite(new_err)
+    idcs2, size2, overflow = _track_support(state, f)
+    ws2 = alpha * ws
+    return GigaStep(fl, ws2, ws2 < _WSCALE_FLOOR, new_wf, old_raw, xw2, ok & ~overflow,
+                    ok, overflow, idcs2, size2, aux)
+
+
+def _select_dots_rows(rows: torch.Tensor, norms: torch.Tensor, rn: torch.Tensor) -> torch.Tensor:
+    """<V_i/||V_i||, rn> for the given rows of the selection copy, computed
+    as the select computes it for that dtype (int8: integer dots times
+    1/127^2; else f32 dots over the row's norm)."""
+    dirs = torch.stack([rn, torch.zeros_like(rn)], dim=1)
+    q = quantize_dirs(dirs, rows.shape[1], rows.dtype)[0]
+    if rows.dtype == torch.int8:
+        return (rows.double() @ q.double()).float() * (1.0 / (127.0 * 127.0))
+    return (rows.float() @ q.float()) / norms
+
+
+def _omp_step(consts: SNNLSConsts, state: SNNLSState, nnls_iters: int = 256):
+    """Orthogonal matching pursuit step (ops/snnls.py:765-793 there;
+    reference orthopursuit.py:7-42): the candidate ``(w, xw, idcs, size,
+    overflow)``, which the loop gates and commits.
+
+    Two argmaxes over one set of dots: the largest dot over the valid rows,
+    and the largest NEGATED dot over the active rows (w > 0); the negative
+    side wins only when some weight is positive and its value is strictly
+    larger.  The positive side is the fused select.  The active rows all
+    lie in the tracked support, so the negative side reads at most
+    ``max_active`` gathered rows of the selection copy, never all of V;
+    among equal values it takes the lowest row index, as an argmax over all
+    rows in index order does.  Without support slots the full vector of dots
+    is formed with torch ops."""
+    n = consts.V.shape[0]
+    rn = _normalize(consts.b - state.xw)    # scale-invariant: only comparisons matter
+    fpos, vpos = _select_residual(consts, rn)
+    K = state.idcs.shape[0]
+    if K:
+        mask, safe = _active_mask(state.idcs, state.size)
+        active = mask & (state.w.index_select(0, safe) > 0)
+        dots = _select_dots_rows(consts.Vsel.index_select(0, safe),
+                                 consts.norms.index_select(0, safe), rn)
+        rows = safe
+    else:
+        active = state.w > 0
+        dots = _select_dots_rows(consts.Vsel, consts.norms, rn)
+        rows = torch.arange(n, device=dots.device)
+    neg = torch.where(active, -dots, float("-inf"))
+    vneg = torch.max(neg)
+    fneg = torch.min(torch.where(active & (neg == vneg), rows, n))
+    any_active = torch.any(active)
+    f = torch.where(~any_active | (vpos >= vneg), fpos, fneg.to(fpos.dtype))
+
+    idcs, size, overflow = _track_support(state, f)
+    if K == 0:
+        # no slots: the gathered system is empty and the weights stay 0,
+        # as in the JAX package
+        return torch.zeros_like(state.w), torch.zeros_like(state.xw), idcs, size, overflow
+    # NNLS on the active slots (orthopursuit.py:37-41), warm-started from
+    # the current weights
+    mask0, safe0 = _active_mask(idcs, size)
+    x0 = torch.where(mask0, state.w.index_select(0, safe0), 0.0)
+    Aact = torch.where(mask0[:, None], consts.V.index_select(0, safe0), 0.0)
+    w_act = nnls_rows(Aact, consts.b, mask0, num_iters=nnls_iters, x0=x0)
+    w = torch.zeros_like(state.w).index_add_(0, safe0, torch.where(mask0, w_act, 0.0))
+    return w, w_act @ Aact, idcs, size, overflow      # exact: support == active slots
+
+
+class Draws:
+    """The sampling solvers' random draws, one index per iteration, from a
+    ``torch.Generator``.  Any object with the same method serves: the tests
+    give ``build`` a source that replays the indices ``jax.random`` drew."""
+
+    def __init__(self, gen: torch.Generator):
+        self.gen = gen
+
+    def index(self, cdf: torch.Tensor) -> torch.Tensor:
+        """(1,) int64 index drawn with probability ``cdf[i] - cdf[i-1]``, by
+        the inverse of the (unnormalized, f64) ``cdf``; nothing is read back
+        to the host.  u lies in (0, cdf[-1]], so the first i with
+        cdf[i] >= u exists and has positive probability."""
+        r = torch.rand(1, generator=self.gen, dtype=cdf.dtype, device=self.gen.device)
+        return torch.searchsorted(cdf, (1.0 - r.to(cdf.device)) * cdf[-1])
+
+
+def as_draws(source) -> Draws:
+    """A ``torch.Generator`` becomes a :class:`Draws`; a draw source is kept."""
+    return Draws(source) if isinstance(source, torch.Generator) else source
+
+
+def _sampling_weights(consts: SNNLSConsts, cts: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """w_i = (cts_i / T) / ps_i where ps_i > 0 (sampling.py:6-37)."""
+    pos = consts.ps > 0
+    return torch.where(pos, (cts / T) / torch.where(pos, consts.ps, 1.0), 0.0)
+
+
+def _sampling_step(consts: SNNLSConsts, state: SNNLSState, fl: torch.Tensor,
+                   T_old: torch.Tensor):
+    """One categorical draw ``fl`` (ops/snnls.py:800-847 there): the count of
+    f rises by one, in place, and the cached image follows the weight map
+    w_i = (cts_i / T) / ps_i in O(S): ``xw <- (T/(T+1)) xw + V[f] / ((T+1)
+    ps_f)``.  A draw that would overflow the support slots changes nothing.
+    Returns ``(xw, idcs, size, overflow)``; the weights are formed from the
+    counts when they are needed (:func:`_sampling_weights`)."""
+    idcs, size, overflow = _track_support(state, fl[0].to(torch.int32))
+    commit = ~overflow
+    state.cts.index_add_(0, fl, commit.to(state.cts.dtype).view(1))
+    T_new = T_old + 1.0
+    alpha = T_old / T_new
+    beta = 1.0 / (T_new * torch.clamp_min(consts.ps.index_select(0, fl)[0], 1e-30))
+    xw = alpha * state.xw + beta * _v_row(consts, fl)
+    return (torch.where(commit, xw, state.xw), torch.where(commit, idcs, state.idcs),
+            torch.where(commit, size, state.size), overflow)
+
+
+METHODS = ("giga", "frankwolfe", "orthopursuit", "importance", "uniform")
+
+
+def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
+          method: str = "giga", draws=None) -> SNNLSState:
+    """Run up to ``itrs`` iterations of ``method``, continuing from ``state``.
+
+    Port of the JAX package's ``build_core``/``build``
+    (ops/snnls.py:870-989 there): one eager loop for the five solvers.
+    GIGA and Frank-Wolfe commit inside their step (the monotone gate
+    included), so the loop does not gate them again; OMP's candidate passes
+    the loop's monotone gate and where-gated commit; the sampling solvers
+    have no gate.  Two failed steps in a row, or a step that would track
+    more than ``max_active`` atoms, latch ``done``.  ``draws`` (a
+    ``torch.Generator`` on the data's device, or a draw source, see
+    :class:`Draws`) feeds the sampling solvers; the default is a generator
+    seeded with 0.  Returns a new state with TRUE-scale weights; ``state``
+    itself is left unchanged.
     """
+    if method not in METHODS:
+        raise ValueError(f"method must be one of {METHODS}; got {method!r}")
     dev = consts.V.device
     itr = int(state.itr)
     itr_end = itr + int(itrs)
     done = bool(state.done)
     K = state.idcs.shape[0]
-    s = state._replace(w=state.w.clone())
+    carried = method in ("giga", "frankwolfe")
+    sampling = method in ("importance", "uniform")
+    if sampling and state.cts.shape[0] != consts.V.shape[0]:
+        raise ValueError(f"method {method!r} needs constants made with sampling= and a "
+                         "state made from them (ps and cts of n entries)")
+    s = state._replace(w=state.w.clone(), cts=state.cts.clone())
     aux = _aux_from_xw(consts, s.xw)
+    if method == "frankwolfe":
+        nsum = torch.sum(torch.where(consts.valid, consts.norms, 0.0).double()).float()
+    if sampling:
+        draws = as_draws(draws if draws is not None else torch.Generator(device=dev))
+        cdf = torch.cumsum(consts.ps.double(), dim=0)
+        T0 = torch.sum(s.cts)
+        first_commit = overflow = None     # the first draw's commit flag, the last's overflow
+    first = itr
     while itr < itr_end and not done:
         if itr % REFRESH_EVERY == 0:
+            if sampling and itr > first:
+                s = s._replace(w=_sampling_weights(consts, s.cts, T0 + float(itr - first)))
             # exact refresh of the cached matvec AND the scalar cache; with
             # support slots it gathers only the tracked rows (O(K*S))
             exact = (_support_matvec(consts, s.w, s.idcs, s.size) if K
                      else _v_matvec(consts, s.w))
-            xw = aux.wscale * exact       # state.w is raw-scale
+            xw = aux.wscale * exact       # state.w is raw-scale (wscale is 1
+            #                               for OMP and the sampling solvers)
             aux = _aux_from_xw(consts, xw, wscale=aux.wscale)
             s = s._replace(xw=xw)
-        st = _giga_step(consts, s, aux, tol)
-        fail = torch.where(st.ok, 0, s.fail + 1)
-        # retry-once-then-latch; a support-capacity overflow latches at once
-        done_t = s.done | (fail >= 2) | st.overflow
-        fold_commit, done = torch.stack([st.fold & st.commit, done_t]).tolist()
-        w, xw, idcs, size, aux = _carried_commit(s, st, fold_commit)
-        s = SNNLSState(w, xw, idcs, size, s.itr, fail, done_t)
+        if carried:
+            st = (_giga_step(consts, s, aux, tol) if method == "giga"
+                  else _fw_step(consts, s, aux, tol, nsum))
+            fail = torch.where(st.ok, 0, s.fail + 1)
+            # retry-once-then-latch; a support-capacity overflow latches at once
+            done_t = s.done | (fail >= 2) | st.overflow
+            fold_commit, done = torch.stack([st.fold & st.commit, done_t]).tolist()
+            w, xw, idcs, size, aux = _carried_commit(s, st, fold_commit)
+            s = s._replace(w=w, xw=xw, idcs=idcs, size=size, fail=fail, done=done_t)
+        elif sampling:
+            xw, idcs, size, overflow = _sampling_step(
+                consts, s, draws.index(cdf), T0 + float(itr - first))
+            if first_commit is None:
+                first_commit = ~overflow
+            # every draw is ok: only an overflow, which needs slots, latches
+            done_t = s.done | overflow
+            done = bool(done_t) if K else False
+            s = s._replace(xw=xw, idcs=idcs, size=size,
+                           fail=torch.zeros_like(s.fail), done=done_t)
+        else:
+            w2, xw2, idcs2, size2, overflow = _omp_step(consts, s)
+            # the loop's monotone gate (ops/snnls.py:946-954 there): fail iff
+            # the error rose beyond the tolerance's slack
+            size_nonzero = s.size > 0 if K else torch.any(s.w > 0)
+            new_err = _cached_error(consts, xw2)
+            ok = ((~size_nonzero | (new_err <= _cached_error(consts, s.xw) * (1.0 + tol)))
+                  & torch.isfinite(new_err))
+            fail = torch.where(ok, 0, s.fail + 1)
+            done_t = s.done | (fail >= 2) | overflow
+            commit = ok & ~overflow
+            done = bool(done_t)
+            s = s._replace(w=torch.where(commit, w2, s.w), xw=torch.where(commit, xw2, s.xw),
+                           idcs=torch.where(commit, idcs2, s.idcs),
+                           size=torch.where(commit, size2, s.size), fail=fail, done=done_t)
         itr += 1
-    # fold the carried scale back: callers always see TRUE weights
-    return s._replace(w=aux.wscale * s.w,
-                      itr=torch.tensor(itr, dtype=torch.int32, device=dev))
+    if carried:
+        # fold the carried scale back: callers always see TRUE weights
+        s = s._replace(w=aux.wscale * s.w)
+    elif sampling and itr > first:
+        # the weights follow the counts.  Only the last draw can have been
+        # refused (it ended the loop); if that was the first, the weights
+        # stay as they were found
+        T = T0 + float(itr - first) - overflow.to(T0.dtype)
+        s = s._replace(w=torch.where(first_commit, _sampling_weights(consts, s.cts, T), s.w))
+    return s._replace(itr=torch.tensor(itr, dtype=torch.int32, device=dev))
 
 
 def optimize_active(consts: SNNLSConsts, state: SNNLSState, idcs: torch.Tensor,
@@ -366,8 +638,7 @@ def optimize_active(consts: SNNLSConsts, state: SNNLSState, idcs: torch.Tensor,
     (:mod:`.nnls`).  Returns the new state and whether the cost did not
     rise: if it rose, the weights are kept and ``done`` latches.
     """
-    mask = torch.arange(idcs.shape[0], device=idcs.device) < size
-    safe = torch.where(mask, idcs, 0).long()
+    mask, safe = _active_mask(idcs, size)
     Aact = torch.where(mask[:, None], consts.V.index_select(0, safe), 0.0)
     w_act = nnls_rows(Aact, consts.b, mask, num_iters=num_iters)
     w = torch.zeros_like(state.w).index_add_(0, safe, torch.where(mask, w_act, 0.0))
@@ -392,15 +663,18 @@ def _active_set(state: SNNLSState):
 class SparseNNLS:
     """Stateful facade with the reference's user-facing API
     (snnls/snnls.py:8-106): ``build(itrs)``, ``weights()``, ``error()``,
-    ``size()``, ``reset()`` and the ``reached_numeric_limit`` latch.
+    ``size()``, ``reset()`` and the ``reached_numeric_limit`` latch.  The
+    subclasses name the solver (``method``).
 
     The problem lives on A's device: a tensor's own, else ``device``, else
     the default device (the CUDA card); ``b`` and ``valid`` go there, and a
     tensor of theirs on another device raises.
-    ``seed`` is kept for the reference's signature; GIGA draws nothing.
+    ``seed`` seeds the sampling solvers' generator, which lives on that
+    device too; ``reset()`` re-seeds it.  The greedy solvers draw nothing.
     ``optimize()`` re-solves the active weights (FISTA on the device, or
     exact Lawson-Hanson on the host); ``save``/``restore`` and
-    ``build(checkpoint_path=...)`` checkpoint the solver state.
+    ``build(checkpoint_path=...)`` checkpoint the solver state and the
+    generator's.
     """
 
     method = "giga"
@@ -411,26 +685,32 @@ class SparseNNLS:
         b = config.on_device(b, config.default_dtype(), A.device, "b")
         requested = (torch.ones(A.shape[1], dtype=torch.bool, device=A.device)
                      if valid is None else config.on_device(valid, torch.bool, A.device, "valid"))
-        self.consts = make_consts(A, b, valid=requested, select_dtype=select_dtype)
-        # the reference's zero-column rejection (giga.py:11-13); explicitly
-        # masked (padded) columns are exempt
-        if bool(torch.any(requested & ~self.consts.valid)):
+        sampling = self.method if self.method in ("importance", "uniform") else None
+        self.consts = make_consts(A, b, valid=requested, select_dtype=select_dtype,
+                                  sampling=sampling)
+        # the reference's zero-column rejection (giga.py:11-13), for the
+        # greedy solvers only; explicitly masked (padded) columns are exempt
+        if sampling is None and bool(torch.any(requested & ~self.consts.valid)):
             raise ValueError(f"{type(self).__name__}: A must not have any 0 columns")
-        if float(self.consts.bnorm) == 0.0:
+        if self.method == "giga" and float(self.consts.bnorm) == 0.0:
             raise NumericalPrecisionError("norm of b must be > 0")
         n = self.consts.V.shape[0]
         self._max_active = int(max_active) if max_active is not None else min(n, 1024)
-        self.state = init_state(self.consts, self._max_active)
+        self._seed = seed
+        self._gen = torch.Generator(device=A.device) if sampling else None
+        self.reset()
 
     def reset(self):
+        if self._gen is not None:
+            self._gen.manual_seed(self._seed)
         self.state = init_state(self.consts, self._max_active)
 
     def save(self, path: str):
         """Checkpoint the solver state (resume with :meth:`restore`)."""
-        checkpoint.save(path, self.state, meta={"method": self.method})
+        checkpoint.save(path, self.state, meta={"method": self.method}, generator=self._gen)
 
     def restore(self, path: str):
-        self.state, _ = checkpoint.load(path, like=self.state)
+        self.state, _ = checkpoint.load(path, like=self.state, generator=self._gen)
 
     def size(self) -> int:
         return int(torch.sum(self.state.w > 0))
@@ -469,18 +749,22 @@ class SparseNNLS:
         if self.reached_numeric_limit or self.consts.V.numel() == 0 or itrs <= 0:
             return
         if checkpoint_path is None:
-            self.state = build(self.consts, self.state, itrs, config.TOL)
+            self.state = self._run_build(itrs)
             return
         target = int(self.state.itr) + itrs
         if os.path.exists(checkpoint_path):
             saved, _ = checkpoint.load(checkpoint_path, like=self.state)
             if int(saved.itr) > int(self.state.itr):
-                self.state = saved
+                self.restore(checkpoint_path)       # the generator's state too
         chunk = checkpoint_every or itrs
         while int(self.state.itr) < target and not self.reached_numeric_limit:
             step = min(chunk, target - int(self.state.itr))
-            self.state = build(self.consts, self.state, step, config.TOL)
+            self.state = self._run_build(step)
             self.save(checkpoint_path)
+
+    def _run_build(self, itrs: int) -> SNNLSState:
+        return build(self.consts, self.state, itrs, config.TOL, method=self.method,
+                     draws=self._gen)
 
     def optimize(self, solver: str = "fista"):
         """Re-solve the weights on the active set (snnls/snnls.py:81-97).
@@ -520,3 +804,32 @@ class SparseNNLS:
 
 class GIGA(SparseNNLS):
     """Greedy iterative geodesic ascent (reference snnls/giga.py:6-64)."""
+
+    method = "giga"
+
+
+class FrankWolfe(SparseNNLS):
+    """Frank-Wolfe on the scaled simplex (reference snnls/frankwolfe.py:5-40)."""
+
+    method = "frankwolfe"
+
+
+class OrthoPursuit(SparseNNLS):
+    """Orthogonal matching pursuit with a full NNLS re-solve on the active
+    set per iteration (reference snnls/orthopursuit.py:7-42)."""
+
+    method = "orthopursuit"
+
+
+class ImportanceSampling(SparseNNLS):
+    """Sampling with probabilities proportional to the columns' norms
+    (reference snnls/sampling.py:6-37)."""
+
+    method = "importance"
+
+
+class UniformSampling(SparseNNLS):
+    """Sampling uniformly over the valid columns (reference
+    snnls/sampling.py:6-37)."""
+
+    method = "uniform"

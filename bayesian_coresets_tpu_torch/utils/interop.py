@@ -29,11 +29,12 @@ def _t(x, device, dtype=None):
 
 
 def snnls_consts(c, device="cpu") -> SNNLSConsts:
-    """SNNLSConsts (V, b, norms, bnorm, valid, Vsel) from numpy fields.
+    """SNNLSConsts (V, b, norms, bnorm, valid, ps, Vsel) from numpy fields.
 
     An empty ``Vsel`` (the JAX package's zero-row "select reads V"
     sentinel) becomes the port's f32 select, which reads V.  int8-resident
-    constants (V itself int8) are not ported and raise.
+    constants (V itself int8) are not ported and raise.  ``ps`` (n entries
+    for the sampling solvers, none otherwise) is carried as it is.
     """
     V = np.asarray(c.V)
     if V.dtype != np.float32:
@@ -52,14 +53,17 @@ def snnls_consts(c, device="cpu") -> SNNLSConsts:
             sel = _t(Vsel[:n, :S], device)
     sel = _pad_cols(sel, col_multiple(sel.dtype)).contiguous()
     return SNNLSConsts(Vt, _t(c.b, device), _t(c.norms, device),
-                       _t(c.bnorm, device), _t(c.valid, device, torch.bool), sel)
+                       _t(c.bnorm, device), _t(c.valid, device, torch.bool),
+                       _t(np.asarray(c.ps)[:n], device), sel)
 
 
 def snnls_state(s, device="cpu") -> SNNLSState:
-    """SNNLSState (w, xw, idcs, size, itr, fail, done) from numpy fields;
-    the sampling solvers' ``cts`` and ``key`` are dropped."""
+    """SNNLSState (w, xw, cts, idcs, size, itr, fail, done) from numpy
+    fields.  The JAX package's PRNG ``key`` has no counterpart: the port's
+    sampling solvers draw from a ``torch.Generator`` handed to ``build``."""
     i32 = torch.int32
-    return SNNLSState(_t(s.w, device), _t(s.xw, device), _t(s.idcs, device, i32),
+    return SNNLSState(_t(s.w, device), _t(s.xw, device), _t(s.cts, device),
+                      _t(s.idcs, device, i32),
                       _t(s.size, device, i32), _t(s.itr, device, i32),
                       _t(s.fail, device, i32), _t(s.done, device, torch.bool))
 

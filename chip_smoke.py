@@ -17,18 +17,22 @@ script exits non-zero without printing the final result line):
    a batch of direct launches, its cold-L2 time (a 128 MB buffer written
    before each launch, each launch between its own events, median of 50),
    and for int8 the yardstick ``torch._int_mm(Vsel, Q)`` (the two dots
-   only: no score, no argmax; the port never calls it);
+   only: no score, no argmax; the port never calls it); then rows past the
+   ring kernel's 48 KB through the wide-row kernel (f32 S=12289 and 16384,
+   bf16 S=24584, int8 S=49168, n=4096: random directions, the winner
+   invalid, ties), each timed beside its bound, and int8 dots past 2^24;
 4. packed select: the packed-int4 select kernel against its plain version
    at the probe's size (N=2^20, S=512): random directions, the winner's
    block invalid, ties, all invalid, a row count off the tile, and
    directions on the rounding boundaries; the kernel (batch and cold-L2),
    the plain version and the int8 GIGA select kernel timed on the same
-   (N, S), each beside its bound; then the probe's path
+   (N, S), each beside its bound; a packed row past the ring kernel's 32 KB
+   (S=65568, n=4096) through the wide-row kernel; then the probe's path
    (``scripts/probe_int4_torch.py``), int8 stream against packed stream,
    with its launches counted;
-5. build parity: a GIGA build (int8, N=20k, S=500, M=200) on the card
-   through the kernel and on the CPU through the plain version, from the
-   same arrays, must select the same atoms;
+5. build parity: a GIGA build and a Frank-Wolfe build (int8, N=20k, S=500,
+   M=200) on the card through the kernel and on the CPU through the plain
+   version, from the same arrays, must select the same atoms;
 6. main path at full width, bench.py's flagship build (bench.py:88-109):
    logistic data N=100k, D=10 -> BlackBoxProjector(S=500 samples
    theta ~ 0.1 N(0, I)) -> HilbertCoreset(int8 select, max_active=1024)
@@ -63,12 +67,29 @@ script exits non-zero without printing the final result line):
 11. BatchPSVI at scripts/bench_svi_tpu.py:138-157's config (N=100k, d=20,
    S=200, sz=100, 20000-row subsamples, 500 joint Adam steps, black-box):
    build seconds, µs and launches per joint step; finite, no host read,
-   and both rKL and error() below those of its initialization.
+   and both rKL and error() below those of its initialization;
+12. Frank-Wolfe at full width: phase 6's data and projection,
+   ``HilbertCoreset(snnls=FrankWolfe).build(500)``: one select launch per
+   iteration, ms per iteration, error()/|b| at M, and a profiled window as
+   in phase 6 with the select's share of the device time;
+13. OMP on the same projection, 100 iterations with max_active=128: one
+   select launch per iteration, the error printed every 25 iterations must
+   not rise, ms per iteration and the share of it that the 256-step FISTA
+   re-solve takes;
+14. importance and uniform sampling on the same projection, 500 draws each:
+   no kernel launch, the counts sum to 500, finite nonnegative weights and
+   error(), ms per draw, launches and host reads per draw;
+15. the Poisson model: ``poisson.gen_synthetic`` at N=100k ->
+   BlackBoxProjector (S=500) -> a GIGA build (M=200) -> ``mcmc.weighted.run``
+   on the coreset with 256 chains x (100 + 100), held to phase 7's gates
+   (finite, split R-hat <= 1.05, divergences <= 1%).
 
-Phases 8-11 launch no hand-written kernel: the JAX package computes
-SparseVI, BatchPSVI and the re-solve with plain XLA ops.  Every path is
-driven with the kernels' launch counts set to 0 just before it and read
-just after.  The line before the last is the kernels' JSON; the
+Phases 8-11 and 14 launch no hand-written kernel: the JAX package computes
+SparseVI, BatchPSVI, the re-solve and the sampling solvers with plain XLA
+ops.  Every path is driven with the kernels' launch counts set to 0 just
+before it and read just after; the kernels' ``launches`` are the sums over
+the paths that select through them (phases 6, 12, 13, 15).  The line before
+the last is the kernels' JSON; the
 last line is ``{"ok": true, "device": {...}}``.  The port imports no JAX.
 """
 
@@ -110,6 +131,13 @@ JAX_RKL_MAX = {"canonical_blackbox": 1162.0726287995294,
                "scaled_N100k_sub1024": 136240.48075067793}
 RKL_SLACK = 1.5
 PROFILE_STEPS = 10          # Adam steps in each profiled window
+# rows past the ring kernels' shared memory (48 KB; packed 32 KB): (dtype, S)
+WIDE_N = 4096
+WIDE_SELECT = [("float32", 12289), ("float32", 16384), ("bfloat16", 24584), ("int8", 49168)]
+WIDE_PACKED_S = 65568       # a 32784-byte packed row
+OMP_ITRS, OMP_ACTIVE, OMP_CHUNK = 100, 128, 25
+SAMPLING_DRAWS = 500
+POIS_M, POIS_CHAINS, POIS_DRAWS = 200, 256, 100
 
 
 def say(phase: str, **kv) -> None:
@@ -291,6 +319,130 @@ def _select_problem(torch, n, S, dtype, seed):
     return c, dirs
 
 
+def _hold_wide(torch, kernel, plain, args, kill, label):
+    """A wide-row select against its plain version: random directions, the
+    winner dead (``kill(args, f)`` returns the inputs with row f invalid),
+    and copies of the winner before and after it (the first wins).  Returns
+    the largest score error."""
+    n = args[0].shape[0]
+    f, err = _hold(kernel, plain, args, f"{label} random")
+    f2, e2 = _hold(kernel, plain, kill(args, f), f"{label} invalid_winner")
+    if f2 == f:
+        raise AssertionError(f"{label}: the dead row {f} was selected")
+    tied = list(args)
+    tied[0], tied[2] = args[0].clone(), args[2].clone()
+    first = f // 2 if f > 1 else f
+    for j in (first, n - 1):
+        tied[0][j], tied[2][j] = args[0][f], args[2][f]
+    _, e3 = _hold(kernel, plain, tied, f"{label} ties", expect_idx=min(first, f))
+    return max(err, e2, e3)
+
+
+def _wide_select(torch, lib):
+    """Kernel 1 on rows past the ring's shared memory: the wide-row kernel
+    against the plain version, and its time beside its bound."""
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+
+    def kill(args, f):
+        ok = args[3].clone()
+        ok[f] = False
+        return [*args[:3], ok]
+
+    max_err = 0.0
+    for name, S in WIDE_SELECT:
+        dtype = getattr(torch, name)
+        c, dirs = _select_problem(torch, WIDE_N, S, dtype, seed=S)
+        args = [c.Vsel, dirs, c.norms, c.valid]
+        row_bytes = c.Vsel.shape[1] * c.Vsel.element_size()
+        if row_bytes <= 48 * 1024:
+            raise AssertionError(f"wide select {name} S={S}: a row of {row_bytes} bytes")
+        before = gs.launches
+        err = _hold_wide(torch, gs.giga_select, gs.giga_select_ref, args, kill,
+                         f"wide select {name} S={S}")
+        if gs.launches - before != 3:
+            raise AssertionError(f"wide select {name} S={S}: {gs.launches - before} launches "
+                                 "for 3 selects")
+        max_err = max(max_err, err)
+        ws, stream = gs.workspace(c.Vsel.device)
+        idx = torch.empty(1, dtype=torch.int32, device="cuda")
+        score = torch.empty(1, dtype=torch.float32, device="cuda")
+        ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+        k_ms = _direct_ms(torch, lib.giga_select_launch, ptr(c.Vsel), gs._DTYPE_CODE[dtype],
+                          WIDE_N, row_bytes, ptr(dirs), S, ptr(c.norms), ptr(c.valid), ptr(ws),
+                          ptr(idx), ptr(score), ctypes.c_void_p(stream))
+        p_ms = _median_ms(torch, lambda: gs.giga_select_ref(*args), batches=3, per_batch=3)
+        bound_ms, bound_by = _select_bound(torch, c.Vsel, S)
+        say("select_wide", dtype=name, n=WIDE_N, S=S, row_bytes=row_bytes,
+            kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+            bound_by=bound_by, share_of_bound=f"{bound_ms / k_ms:.3f}",
+            kernel_GBps=f"{c.Vsel.numel() * c.Vsel.element_size() / (k_ms * 1e-3) / 1e9:.1f}",
+            max_abs_err=err, checks="random,invalid_winner,ties")
+        del c, args, dirs
+        torch.cuda.empty_cache()
+
+    # int8 dots past 2^24: rows aligned with +-1 directions reach 49168 *
+    # 127^2 = 7.9e8, where int32 -> f32 rounds (to nearest even, as the plain
+    # version's f64 -> f32 does); the scores must be equal to the bit
+    n, S = 300, 49168
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    sign = torch.randint(0, 2, (S,), generator=gen, device="cuda") * 2 - 1
+    V = torch.randint(-127, 128, (n, S), generator=gen, device="cuda", dtype=torch.int8)
+    for r, keep in ((17, S), (101, S - 1), (250, S - 3)):
+        V[r, :keep] = (127 * sign[:keep]).to(torch.int8)
+    dirs = torch.stack([sign.float(), torch.zeros(S, device="cuda")], dim=1).contiguous()
+    args = (V, dirs, torch.ones(n, device="cuda"), torch.ones(n, dtype=torch.bool, device="cuda"))
+    (ki, ks), (pi, pscore) = gs.giga_select(*args), gs.giga_select_ref(*args)
+    if (int(ki), float(ks)) != (int(pi), float(pscore)) or int(ki) != 17 \
+            or not float(ks) * 127.0 ** 2 > 2.0 ** 24:
+        raise AssertionError(f"int8 dots past 2^24: kernel ({int(ki)}, {float(ks)}), "
+                             f"plain ({int(pi)}, {float(pscore)})")
+    say("select_wide_int8_past_2^24", S=S, idx=int(ki), dot=f"{float(ks) * 127.0 ** 2:.0f}",
+        score="identical")
+    return max_err
+
+
+def _wide_packed(torch, lib):
+    """Kernel 2 on a packed row past the ring's shared memory."""
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+    from bayesian_coresets_tpu_torch.ops import packed_select as ps
+
+    n, S = WIDE_N, WIDE_PACKED_S
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    P = ps.pack_int4(torch.randint(-7, 8, (n, S), generator=gen, device="cuda",
+                                   dtype=torch.int8))
+    dirs = torch.rand((S, 2), generator=gen, device="cuda") * 0.08 - 0.04
+    nrminv = 0.02 * (torch.rand(n, generator=gen, device="cuda") + 0.5)
+    args = [P, dirs, nrminv, torch.zeros(n, device="cuda")]
+    if P.shape[1] <= 32 * 1024:
+        raise AssertionError(f"wide packed select: a row of {P.shape[1]} bytes")
+
+    def kill(a, f):
+        bias = a[3].clone()
+        bias[f] = float("-inf")
+        return [*a[:3], bias]
+
+    before = ps.launches
+    err = _hold_wide(torch, ps.packed_select, ps.packed_select_ref, args, kill,
+                     f"wide packed select S={S}")
+    if ps.launches - before != 3:
+        raise AssertionError(f"wide packed select: {ps.launches - before} launches for 3 selects")
+    ws, stream = gs.workspace(P.device)
+    idx = torch.empty(1, dtype=torch.int32, device="cuda")
+    score = torch.empty(1, dtype=torch.float32, device="cuda")
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    k_ms = _direct_ms(torch, lib.packed_select_launch, ptr(P), n, P.shape[1], ptr(dirs), S,
+                      ptr(nrminv), ptr(args[3]), ptr(ws), ptr(idx), ptr(score),
+                      ctypes.c_void_p(stream))
+    p_ms = _median_ms(torch, lambda: ps.packed_select_ref(*args), batches=3, per_batch=3)
+    bound_ms, bound_by = _bound(P.numel() + 8 * n + S * 2 * 4 + 8, 4 * n * S, "int8")
+    say("packed_select_wide", n=n, S=S, row_bytes=P.shape[1], kernel_ms=f"{k_ms:.4f}",
+        plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        share_of_bound=f"{bound_ms / k_ms:.3f}",
+        kernel_GBps=f"{P.numel() / (k_ms * 1e-3) / 1e9:.1f}", max_abs_err=err,
+        checks="random,invalid_winner,ties")
+    return err
+
+
 def phase_select(torch):
     from bayesian_coresets_tpu_torch.ops import _cuda_build
     from bayesian_coresets_tpu_torch.ops import giga_select as gs
@@ -360,6 +512,7 @@ def phase_select(torch):
                                  f"bound {bound_ms} ms")
         del c, Vsel, norms, valid, dirs
         torch.cuda.empty_cache()
+    max_err = max(max_err, _wide_select(torch, lib))
     return max_err, timing[(torch.int8, N_MAIN)]
 
 
@@ -436,6 +589,8 @@ def phase_packed(torch):
             raise AssertionError(f"{name} select at n={n}: {ms} ms, under half of its "
                                  f"bound {bms} ms")
 
+    max_err = max(max_err, _wide_packed(torch, lib))
+
     # the probe's path, through the wrappers, with its launches counted
     spec = importlib.util.spec_from_file_location(
         "probe_int4_torch", ROOT / "scripts" / "probe_int4_torch.py")
@@ -471,24 +626,26 @@ def phase_build_parity(torch):
     vecs = center_lls(logistic.log_likelihood(torch.as_tensor(z), torch.as_tensor(th)))
     c_cpu = snnls.make_consts(vecs.T, vecs.sum(dim=0), select_dtype=torch.int8)
     c_gpu = interop.snnls_consts(type(c_cpu)(*(t.numpy() for t in c_cpu)), "cuda")
-    t0 = time.perf_counter()
-    s_cpu = snnls.build(c_cpu, snnls.init_state(c_cpu, 1024), M, 1e-6)
-    t_cpu = time.perf_counter() - t0
-    before = gs.launches
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    s_gpu = snnls.build(c_gpu, snnls.init_state(c_gpu, 1024), M, 1e-6)
-    torch.cuda.synchronize()
-    t_gpu = time.perf_counter() - t0
-    k = int(s_cpu.size)
-    ig, ic = s_gpu.idcs[:int(s_gpu.size)].cpu().numpy(), s_cpu.idcs[:k].numpy()
-    if not np.array_equal(ig, ic):
-        raise AssertionError(f"build parity: card selected {ig[:20]}..., CPU {ic[:20]}...")
-    if gs.launches - before != int(s_gpu.itr):
-        raise AssertionError("build parity: kernel launches != iterations")
-    np.testing.assert_allclose(s_gpu.w.cpu().numpy(), s_cpu.w.numpy(), rtol=1e-4, atol=1e-6)
-    say("build_parity", n=n, S=S, M=M, atoms=k, itr=int(s_gpu.itr), idcs="identical",
-        cuda_s=f"{t_gpu:.3f}", cpu_s=f"{t_cpu:.3f}")
+    for method in ("giga", "frankwolfe"):
+        t0 = time.perf_counter()
+        s_cpu = snnls.build(c_cpu, snnls.init_state(c_cpu, 1024), M, 1e-6, method=method)
+        t_cpu = time.perf_counter() - t0
+        before = gs.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s_gpu = snnls.build(c_gpu, snnls.init_state(c_gpu, 1024), M, 1e-6, method=method)
+        torch.cuda.synchronize()
+        t_gpu = time.perf_counter() - t0
+        k = int(s_cpu.size)
+        ig, ic = s_gpu.idcs[:int(s_gpu.size)].cpu().numpy(), s_cpu.idcs[:k].numpy()
+        if not np.array_equal(ig, ic):
+            raise AssertionError(f"build parity ({method}): card selected {ig[:20]}..., "
+                                 f"CPU {ic[:20]}...")
+        if gs.launches - before != int(s_gpu.itr):
+            raise AssertionError(f"build parity ({method}): kernel launches != iterations")
+        np.testing.assert_allclose(s_gpu.w.cpu().numpy(), s_cpu.w.numpy(), rtol=1e-4, atol=1e-6)
+        say("build_parity", method=method, n=n, S=S, M=M, atoms=k, itr=int(s_gpu.itr),
+            idcs="identical", cuda_s=f"{t_gpu:.3f}", cpu_s=f"{t_cpu:.3f}")
 
 
 def _near_map_sampler(gen, n, wts, pts):
@@ -545,42 +702,53 @@ def phase_main(torch, smi):
     say("main", N=N_MAIN, D=D_MAIN, S=S_MAIN, M=M_MAIN, itr=itr, size=wts.size,
         done=coreset.reached_numeric_limit, launches=launches,
         err50=f"{err50:.6e}", err=f"{err:.6e}")
-    _profile_build(torch, coreset.snnls.consts)
+    _profile_build(torch, coreset.snnls.consts, "giga", "main_launches")
     say("main_time", setup_s=f"{t_setup:.4f}", projection_s=f"{t_proj:.4f}",
         build_s=f"{t_build:.4f}", ms_per_itr=f"{1e3 * t_build / itr:.4f}",
         points_per_s=f"{M_MAIN / (t_proj + t_build):.2f}",
         peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}", card=repr(smi))
-    return launches, wts, pts, coreset
+    return launches, wts, pts, coreset, Z, projector
 
 
-def _profile_build(torch, consts):
-    """Launches per GIGA iteration on phase 6's problem: 65 iterations of
-    warm-up from a fresh state, then PROFILE_ITRS under torch.profiler (one
-    refresh inside), as scripts/profile_torch_build.py counts them.  The
+def _profile_build(torch, consts, method, tag):
+    """Launches per iteration of ``method`` on phase 6's problem: 65
+    iterations of warm-up from a fresh state, then PROFILE_ITRS under
+    torch.profiler (one refresh inside), as scripts/profile_torch_build.py
+    counts them; and the select kernel's share of the device time.  The
     build is functional: the coreset's own state is not touched."""
     from torch.profiler import ProfilerActivity, profile
 
     from bayesian_coresets_tpu_torch.ops import giga_select as gs
     from bayesian_coresets_tpu_torch.ops import snnls
 
-    s = snnls.build(consts, snnls.init_state(consts, 1024), 65, 1e-6)
+    s = snnls.build(consts, snnls.init_state(consts, 1024), 65, 1e-6, method=method)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snnls.build(consts, s, PROFILE_ITRS, 1e-6, method=method)     # the window, unprofiled
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / PROFILE_ITRS
     before = gs.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        s2 = snnls.build(consts, s, PROFILE_ITRS, 1e-6)
+        s2 = snnls.build(consts, s, PROFILE_ITRS, 1e-6, method=method)
         torch.cuda.synchronize()
     itrs = int(s2.itr) - int(s.itr)
     rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     if itrs != PROFILE_ITRS or not rows:
-        raise AssertionError(f"main path profile: {itrs} iterations, {len(rows)} kernel rows")
+        raise AssertionError(f"{tag}: {itrs} iterations, {len(rows)} kernel rows")
     total = sum(e.count for e in rows)
     select = sum(e.count for e in rows if "giga_select" in e.key)
     busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
-    say("main_launches", window_itrs=itrs, select_launches_per_itr=f"{select / itrs:.3f}",
+    select_us = sum(getattr(e, "self_device_time_total", 0.0) for e in rows
+                    if "giga_select" in e.key)
+    say(tag, method=method, window_itrs=itrs, select_launches_per_itr=f"{select / itrs:.3f}",
         wrapper_launches_per_itr=f"{(gs.launches - before) / itrs:.3f}",
-        launches_per_itr=f"{total / itrs:.2f}", device_busy_us_per_itr=f"{busy_us / itrs:.1f}")
+        launches_per_itr=f"{total / itrs:.2f}", device_busy_us_per_itr=f"{busy_us / itrs:.1f}",
+        unprofiled_wall_ms_per_itr=f"{wall_ms:.4f}",
+        idle_share=f"{1.0 - busy_us * 1e-3 / itrs / wall_ms:.4f}",
+        select_us_per_itr=f"{select_us / itrs:.1f}",
+        select_share_of_device=f"{select_us / busy_us:.3f}" if busy_us else "not_measured")
     if select != itrs or gs.launches - before != itrs:
-        raise AssertionError(f"main path: {select} select kernels on the card and "
+        raise AssertionError(f"{tag}: {select} select kernels on the card and "
                              f"{gs.launches - before} wrapper launches for {itrs} iterations")
 
 
@@ -923,6 +1091,199 @@ def phase_bpsvi(torch, smi):
         raise AssertionError("bpsvi: rKL not finite")
 
 
+def phase_frankwolfe(torch, smi, Z, projector):
+    """Frank-Wolfe at full width, on phase 6's data and projector."""
+    import numpy as np
+    import bayesian_coresets_tpu_torch as bc
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+
+    gs.launches = 0
+    coreset = bc.HilbertCoreset(Z, projector, snnls=bc.snnls.FrankWolfe,
+                                select_dtype=torch.int8, max_active=1024)
+    bnorm = float(coreset.snnls.consts.bnorm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coreset.build(50)
+    err50 = coreset.error() / bnorm
+    coreset.build(M_MAIN - 50)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0        # with the error() read at 50
+    launches = gs.launches
+    itr = int(coreset.snnls.state.itr)
+    err = coreset.error() / bnorm
+    wts, pts, _ = coreset.get()
+    if launches != itr or itr != M_MAIN:
+        raise AssertionError(f"frankwolfe: {launches} select launches for {itr} iterations")
+    if wts.size == 0 or not np.isfinite(wts).all() or (wts <= 0).any() \
+            or pts.shape != (wts.size, D_MAIN):
+        raise AssertionError("frankwolfe: empty, non-finite or malformed coreset")
+    if not err < err50:
+        raise AssertionError(f"frankwolfe: error/|b| {err} at M={itr} not below {err50} at 50")
+    say("frankwolfe", N=N_MAIN, S=S_MAIN, M=M_MAIN, itr=itr, size=wts.size,
+        done=coreset.reached_numeric_limit, launches=launches, err50=f"{err50:.6e}",
+        err=f"{err:.6e}", build_s=f"{t_build:.4f}", ms_per_itr=f"{1e3 * t_build / itr:.4f}",
+        card=repr(smi))
+    _profile_build(torch, coreset.snnls.consts, "frankwolfe", "frankwolfe_launches")
+    return launches
+
+
+def phase_omp(torch, smi, Z, projector):
+    """OMP on phase 6's projection: the error every OMP_CHUNK iterations,
+    and the FISTA re-solve's share of an iteration."""
+    import bayesian_coresets_tpu_torch as bc
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+    from bayesian_coresets_tpu_torch.ops import nnls, snnls
+
+    gs.launches = 0
+    coreset = bc.HilbertCoreset(Z, projector, snnls=bc.snnls.OrthoPursuit,
+                                select_dtype=torch.int8, max_active=OMP_ACTIVE)
+    bnorm = float(coreset.snnls.consts.bnorm)
+    errs, secs = [], []
+    for _ in range(OMP_ITRS // OMP_CHUNK):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coreset.build(OMP_CHUNK)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        errs.append(coreset.error() / bnorm)
+    t_build = sum(secs)
+    launches, itr = gs.launches, int(coreset.snnls.state.itr)
+    if launches != itr or itr != OMP_ITRS or coreset.reached_numeric_limit:
+        raise AssertionError(f"omp: {launches} select launches for {itr} iterations, "
+                             f"latched={coreset.reached_numeric_limit}")
+    if any(b > a * (1.0 + 1e-6) for a, b in zip(errs, errs[1:])):
+        raise AssertionError(f"omp: the error rose: {errs}")
+    # the re-solve alone, on the final active set, warm-started as the step does
+    st, c = coreset.snnls.state, coreset.snnls.consts
+    mask, safe = snnls._active_mask(st.idcs, st.size)
+    Aact = torch.where(mask[:, None], c.V.index_select(0, safe), 0.0)
+    x0 = torch.where(mask, st.w.index_select(0, safe), 0.0)
+    fista_ms = _median_ms(torch, lambda: nnls.nnls_rows(Aact, c.b, mask, num_iters=256, x0=x0),
+                          batches=3, per_batch=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        nnls.nnls_rows(Aact, c.b, mask, num_iters=256, x0=x0)
+    torch.cuda.synchronize()
+    fista_wall_ms = 1e3 * (time.perf_counter() - t0) / 3
+    ms_itr = 1e3 * secs[-1] / OMP_CHUNK          # the last chunk: the fullest active set
+    say("omp", N=N_MAIN, S=S_MAIN, itr=itr, max_active=OMP_ACTIVE, size=coreset.size(),
+        launches=launches, errs=",".join(f"{e:.6e}" for e in errs), build_s=f"{t_build:.4f}",
+        chunk_s=",".join(f"{t:.3f}" for t in secs), ms_per_itr_last_chunk=f"{ms_itr:.3f}",
+        fista_wall_ms=f"{fista_wall_ms:.3f}", fista_event_ms=f"{fista_ms:.3f}",
+        fista_share_of_itr=f"{fista_wall_ms / ms_itr:.3f}", card=repr(smi))
+    return launches
+
+
+def phase_sampling(torch, smi, Z, projector):
+    """Importance and uniform sampling on phase 6's projection."""
+    import numpy as np
+    import bayesian_coresets_tpu_torch as bc
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+    from bayesian_coresets_tpu_torch.ops import packed_select as ps
+
+    gs.launches = ps.launches = 0
+    for cls in (bc.snnls.ImportanceSampling, bc.snnls.UniformSampling):
+        coreset = bc.HilbertCoreset(Z, projector, snnls=cls, max_active=1024, seed=3)
+        sn = coreset.snnls
+        bnorm = float(sn.consts.bnorm)
+        _, syncs, sites = _count_syncs(torch, lambda: coreset.build(SAMPLING_DRAWS))   # warm-up
+        w_first = sn.weights()
+        coreset.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coreset.build(SAMPLING_DRAWS)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        w, cts = sn.weights(), sn.state.cts
+        err = coreset.error() / bnorm
+        launches, busy_us, idle = _profile_window(
+            torch, lambda: bc.snnls.build(sn.consts, sn.state, PROFILE_ITRS, 1e-6,
+                                          method=cls.method,
+                                          draws=torch.Generator(device="cuda").manual_seed(4)),
+            PROFILE_ITRS)
+        say("sampling", method=cls.method, N=N_MAIN, S=S_MAIN, draws=SAMPLING_DRAWS,
+            size=coreset.size(), counts=int(cts.sum()), err=f"{err:.6e}",
+            build_s=f"{t:.4f}", ms_per_draw=f"{1e3 * t / SAMPLING_DRAWS:.4f}",
+            launches_per_draw=launches, device_busy_us_per_draw=busy_us, idle_share=idle,
+            host_reads_per_draw=f"{syncs / SAMPLING_DRAWS:.3f}", host_read_sites=sites,
+            select_launches=gs.launches + ps.launches, card=repr(smi))
+        if int(cts.sum()) != SAMPLING_DRAWS or int(sn.state.itr) != SAMPLING_DRAWS:
+            raise AssertionError(f"sampling {cls.method}: {int(cts.sum())} counts after "
+                                 f"{int(sn.state.itr)} of {SAMPLING_DRAWS} draws")
+        if not (np.isfinite(w).all() and (w >= 0).all() and np.isfinite(err)):
+            raise AssertionError(f"sampling {cls.method}: weights or error not finite")
+        if not np.array_equal(w, w_first):
+            raise AssertionError(f"sampling {cls.method}: reset() and rebuild differ")
+        if syncs > SAMPLING_DRAWS + 16:       # done once per draw; the facade's own reads
+            raise AssertionError(f"sampling {cls.method}: {syncs} host reads in "
+                                 f"{SAMPLING_DRAWS} draws ({sites})")
+    if gs.launches or ps.launches:
+        raise AssertionError("sampling: a select kernel was launched")
+
+
+def phase_poisson(torch, smi):
+    """The Poisson model end to end: data, projection, a GIGA build, and
+    weighted NUTS on the coreset."""
+    import numpy as np
+    import bayesian_coresets_tpu_torch as bc
+    from bayesian_coresets_tpu_torch import mcmc
+    from bayesian_coresets_tpu_torch.mcmc import weighted
+    from bayesian_coresets_tpu_torch.models import poisson
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+
+    dev = torch.device("cuda")
+    d = 2
+    Z = poisson.gen_synthetic(torch.Generator(device=dev).manual_seed(0), N_MAIN)
+    # samples around the generating parameter (1, 0), as wide as the
+    # posterior of ~1e3 points
+    sampler = lambda g, n, w, p: (torch.tensor([1.0, 0.0], device=g.device)   # noqa: E731
+                                  + 0.05 * torch.randn((n, d), generator=g, device=g.device))
+    projector = bc.BlackBoxProjector(sampler, S_MAIN, poisson.log_likelihood,
+                                     generator=torch.Generator(device=dev).manual_seed(1))
+    gs.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coreset = bc.HilbertCoreset(Z, projector, select_dtype=torch.int8, max_active=1024)
+    coreset.build(POIS_M)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    launches, itr = gs.launches, int(coreset.snnls.state.itr)
+    err = coreset.error() / float(coreset.snnls.consts.bnorm)
+    wts, pts, _ = coreset.get()
+    if launches != itr or itr == 0 or wts.size == 0 or not np.isfinite(wts).all():
+        raise AssertionError(f"poisson: {launches} select launches for {itr} iterations, "
+                             f"{wts.size} atoms")
+    zc, wc = torch.as_tensor(pts, device=dev), torch.as_tensor(wts, device=dev)
+    _, t, res = weighted.run(poisson, zc, wc, POIS_DRAWS,
+                             torch.Generator(device=dev).manual_seed(5), d=d,
+                             num_chains=POIS_CHAINS, target_accept=0.8, num_warmup=POIS_DRAWS)
+    samples = res.samples
+    if samples.shape != (POIS_CHAINS, POIS_DRAWS, d) or not torch.isfinite(samples).all():
+        raise AssertionError(f"poisson nuts: samples {tuple(samples.shape)} or not finite")
+    rhat = float(mcmc.split_rhat(samples).max())
+    divs = int(res.num_divergent.sum())
+    mean = samples.reshape(-1, d).mean(dim=0)
+    sd = samples.reshape(-1, d).std(dim=0)
+    # the full-data posterior's Laplace fit: the coreset posterior should sit on it
+    full = weighted.fit_laplace(poisson, Z, torch.ones(N_MAIN, device=dev), d)
+    full_sd = torch.sqrt(torch.diagonal(full.USig @ full.USig.T))
+    off = float(((mean - full.mu).abs() / full_sd).max())
+    say("poisson", N=N_MAIN, S=S_MAIN, M=POIS_M, itr=itr, atoms=wts.size, launches=launches,
+        err=f"{err:.6e}", build_s=f"{t_build:.4f}", chains=POIS_CHAINS, warmup=POIS_DRAWS,
+        draws=POIS_DRAWS, nuts_s=f"{t:.3f}",
+        samples_per_s=f"{POIS_CHAINS * POIS_DRAWS / t:.1f}", max_rhat=f"{rhat:.4f}",
+        divergences=divs, mean=",".join(f"{v:.4f}" for v in mean.tolist()),
+        sd=",".join(f"{v:.5f}" for v in sd.tolist()),
+        full_mode=",".join(f"{v:.4f}" for v in full.mu.tolist()),
+        mean_minus_full_mode_full_sds=f"{off:.3f}", card=repr(smi))
+    if rhat > RHAT_MAX:
+        raise AssertionError(f"poisson nuts: max split R-hat {rhat} > {RHAT_MAX}")
+    if divs > DIV_SHARE_MAX * POIS_CHAINS * POIS_DRAWS:
+        raise AssertionError(f"poisson nuts: {divs} divergences")
+    return launches
+
+
 def main() -> int:
     import torch   # noqa: F401  (fails here without PyTorch)
 
@@ -938,7 +1299,7 @@ def main() -> int:
     from bayesian_coresets_tpu_torch.ops import giga_select as gs
     from bayesian_coresets_tpu_torch.ops import packed_select as ps
     gs.launches = ps.launches = 0
-    launches, wts, pts, coreset = phase_main(torch, smi)
+    launches, wts, pts, coreset, Z, projector = phase_main(torch, smi)
     if ps.launches:
         raise AssertionError("main path: the packed select kernel was launched")
     gs.launches = ps.launches = 0
@@ -950,6 +1311,17 @@ def main() -> int:
     phase_svi_parity(torch)
     phase_bpsvi(torch, smi)
     say("svi_bpsvi_optimize_launches", giga_select=gs.launches, packed_select=ps.launches)
+    fw_launches = phase_frankwolfe(torch, smi, Z, projector)
+    omp_launches = phase_omp(torch, smi, Z, projector)
+    phase_sampling(torch, smi, Z, projector)
+    del Z, projector, coreset
+    torch.cuda.empty_cache()
+    pois_launches = phase_poisson(torch, smi)
+    if ps.launches:
+        raise AssertionError("a solver's path launched the packed select kernel")
+    say("select_launches_by_path", giga=launches, frankwolfe=fw_launches, omp=omp_launches,
+        sampling=0, poisson_giga=pois_launches)
+    launches += fw_launches + omp_launches + pois_launches
     from bayesian_coresets_tpu_torch import native
     if any(m == "jax" or m.startswith(("jax.", "bayesian_coresets_tpu."))
            or m == "bayesian_coresets_tpu" for m in sys.modules):

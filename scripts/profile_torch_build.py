@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's GIGA build goes, on one CUDA card.
+"""Where the time of the PyTorch port's Hilbert build goes, on one CUDA card.
 
     python3 scripts/profile_torch_build.py [--n 100000] [--iters 64]
+        [--method giga|frankwolfe|orthopursuit|importance|uniform]
 
 Builds the main-path problem (bench.py's flagship build: logistic N x D=10,
-S=500 samples theta ~ 0.1 N(0, I), int8 select, max_active=1024), warms
-the build up, then profiles a window
-of ``--iters`` iterations with torch.profiler and prints: wall time per
-iteration, device-busy time per iteration (sum of kernel times), the idle
-share, kernel launches per iteration, and the kernels by total time.
+S=500 samples theta ~ 0.1 N(0, I), max_active=1024; int8 select for the
+greedy solvers, which the sampling solvers do not use), warms the build up
+past the first refresh (65 iterations; OMP 33, so that its active set stays
+small), then profiles a window of ``--iters`` iterations with torch.profiler
+and prints: wall time per iteration, device-busy time per iteration (sum of
+kernel times), the idle share, kernel launches per iteration, and the
+kernels by total time.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=100_000)
     ap.add_argument("--iters", type=int, default=64)
+    ap.add_argument("--method", default="giga", choices=bc.snnls.METHODS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_build: needs a CUDA card")
@@ -41,8 +45,13 @@ def main() -> int:
                                                                    device=g.device), S,
                                 logistic.log_likelihood,
                                 generator=torch.Generator(device=dev).manual_seed(1))
-    c = bc.HilbertCoreset(Z, proj, select_dtype=torch.int8, max_active=1024)
-    c.snnls.build(65)                          # warm up past the first refresh
+    solver = {cls.method: cls for cls in (bc.snnls.GIGA, bc.snnls.FrankWolfe,
+                                          bc.snnls.OrthoPursuit, bc.snnls.ImportanceSampling,
+                                          bc.snnls.UniformSampling)}[args.method]
+    greedy = args.method in ("giga", "frankwolfe", "orthopursuit")
+    c = bc.HilbertCoreset(Z, proj, snnls=solver, max_active=1024,
+                          select_dtype=torch.int8 if greedy else None)
+    c.snnls.build(33 if args.method == "orthopursuit" else 65)   # past the first refresh
     it = args.iters
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -57,7 +66,8 @@ def main() -> int:
     dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)  # noqa: E731
     busy_us = sum(dev_us(e) for e in rows)
     n_kern = sum(e.count for e in rows)
-    print(f"card={torch.cuda.get_device_name(0)!r} n={args.n} S={S} window={it} iterations")
+    print(f"card={torch.cuda.get_device_name(0)!r} method={args.method} n={args.n} S={S} "
+          f"window={it} iterations")
     if not rows:
         print("the profiler recorded no device events; no breakdown")
         return 1

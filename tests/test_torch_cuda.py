@@ -2,8 +2,10 @@
 (GIGA's and the packed-int4 probe's) against their plain PyTorch versions
 (directions on the int8 rounding boundaries, row counts below and off the
 tile size, 100 calls back to back on one workspace, two streams, one
-launch per select), numpy data landing on the card,
-a GIGA build on the card against the same build on the CPU, a short
+launch per select, rows past the ring kernels' width through the wide-row
+kernels, narrow and wide calls in turn), numpy data landing on the card,
+GIGA, Frank-Wolfe and OMP builds on the card against the same builds on the
+CPU, sampling builds that read only ``done``, a short
 NUTS run on the card, projected Adam, SparseVI and ``optimize()`` on the
 card against the CPU, and SparseVI and BatchPSVI builds that read nothing
 back from the card but SparseVI's one flag per select.
@@ -99,6 +101,53 @@ def test_build_on_card_matches_cpu(cuda_device):
     assert int(s_gpu.size) == k
     np.testing.assert_array_equal(s_gpu.idcs[:k].cpu().numpy(), s_cpu.idcs[:k].numpy())
     np.testing.assert_allclose(s_gpu.w.cpu().numpy(), s_cpu.w.numpy(), rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,itrs,rtol", [("frankwolfe", 150, 1e-4), ("orthopursuit", 25, 1e-3)])
+def test_solver_build_on_card_matches_cpu(method, itrs, rtol, cuda_device):
+    """Frank-Wolfe and OMP select through the kernel on the card and through
+    the plain version on the CPU: the same atoms, one launch per iteration.
+    OMP's weights pass 256 f32 FISTA steps per iteration on each device."""
+    rng = np.random.default_rng(1)
+    A = rng.normal(size=(256, 3000)).astype(np.float32)
+    c_cpu = snnls.make_consts(torch.as_tensor(A), torch.as_tensor(A.sum(axis=1)),
+                              select_dtype=torch.int8)
+    c_gpu = interop.snnls_consts(type(c_cpu)(*(t.numpy() for t in c_cpu)), cuda_device)
+    s_cpu = snnls.build(c_cpu, snnls.init_state(c_cpu, 256), itrs, 1e-6, method=method)
+    before = gs.launches
+    s_gpu = snnls.build(c_gpu, snnls.init_state(c_gpu, 256), itrs, 1e-6, method=method)
+    assert gs.launches - before == int(s_gpu.itr) == itrs
+    k = int(s_cpu.size)
+    assert int(s_gpu.size) == k and not bool(s_gpu.done)
+    np.testing.assert_array_equal(s_gpu.idcs[:k].cpu().numpy(), s_cpu.idcs[:k].numpy())
+    np.testing.assert_allclose(s_gpu.w.cpu().numpy(), s_cpu.w.numpy(), rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["importance", "uniform"])
+def test_sampling_build_reads_only_done(method, cuda_device):
+    """A sampling build launches no select kernel and reads one flag per
+    draw (``done``, which a support overflow latches) and nothing else in
+    the loop; without support slots it reads nothing in the loop at all."""
+    rng = np.random.default_rng(2)
+    A = torch.as_tensor(rng.normal(size=(64, 2000)).astype(np.float32), device=cuda_device)
+    c = snnls.make_consts(A, A.sum(dim=1), sampling=method)
+    assert c.ps.is_cuda
+    before = gs.launches
+    for K, per_draw in ((512, 1), (0, 0)):
+        gen = torch.Generator(device=cuda_device).manual_seed(3)
+        s, syncs = _syncs(lambda: snnls.build(c, snnls.init_state(c, K), 80, 1e-6,
+                                              method=method, draws=gen))
+        in_loop = [x for x in syncs if "ops/snnls.py" in x]
+        # outside the loop: the state's itr and done on entry, the carried
+        # scale's initial 1.0 and the new itr written to the card
+        assert len(in_loop) - 80 * per_draw <= 4, syncs
+        assert len(in_loop) == len(syncs)
+        assert s.w.is_cuda and float(s.cts.sum()) == 80 and bool((s.w >= 0).all())
+        np.testing.assert_allclose((A @ s.w).cpu().numpy(), s.xw.cpu().numpy(),
+                                   rtol=1e-3, atol=1e-3)
+    assert gs.launches == before
 
 
 PACKED_CASES = ["random", "invalid_block", "ties", "all_invalid", "odd_rows", "unpadded_cols"]
@@ -232,6 +281,115 @@ def test_back_to_back_calls_reuse_the_workspace(kind, cuda_device):
     torch.cuda.synchronize()
     assert [int(g) for g in got] == [want[r % 5] for r in range(100)]
     assert int(dead_out[0]) == 0 and float(dead_out[1]) == -np.inf
+
+
+# Rows past the ring's shared memory (48 KB; packed 32 KB) take the wide-row
+# kernels: the first column count past the limit for each type, and f32 well
+# past it.  "packed" counts original columns: 65568 is a 32784-byte row.
+WIDE = [("float32", 12289), ("float32", 16384), ("bfloat16", 24584), ("int8", 49168),
+        ("packed", 65568)]
+WIDE_IDS = [f"{k}-{S}" for k, S in WIDE]
+# f32 and bf16 sums of up to 16384 products, taken by 32 lanes in another
+# order than the plain matmul's; int8 and packed dots are integers, exact
+WIDE_RTOL = {"float32": 1e-6, "bfloat16": 1e-6, "int8": 0.0, "packed": 0.0}
+
+
+def _wide_inputs(kind, S, dev, n=2051, seed=11):
+    """Inputs of a wide-row select, made on ``dev``; n is off every tile."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "packed":
+        q = torch.randint(-7, 8, (n, S), generator=gen, device=dev, dtype=torch.int8)
+        dirs = torch.rand((S, 2), generator=gen, device=dev) * 0.08 - 0.04
+        nrminv = 0.02 * (torch.rand(n, generator=gen, device=dev) + 0.5)
+        return [ps.pack_int4(q), dirs, nrminv, torch.zeros(n, device=dev)]
+    V = torch.randn((n, S), generator=gen, device=dev)
+    c = snnls.make_consts(V.T, V.sum(dim=0), select_dtype=getattr(torch, kind))
+    dirs = torch.randn((S, 2), generator=gen, device=dev)
+    dirs /= torch.linalg.vector_norm(dirs, dim=0)
+    return [c.Vsel, dirs.contiguous(), c.norms, c.valid]
+
+
+def _hold_wide(kind, args, expect_idx=None):
+    kernel, plain = KERNELS["packed" if kind == "packed" else "giga"]
+    counter = ps if kind == "packed" else gs
+    before = counter.launches
+    ki, ks = kernel(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    pi, pscore = plain(*args)
+    assert int(ki) == int(pi)
+    if expect_idx is not None:
+        assert int(ki) == expect_idx
+    if float(pscore) == -np.inf:
+        assert float(ks) == -np.inf
+    else:
+        np.testing.assert_allclose(float(ks), float(pscore), rtol=WIDE_RTOL[kind])
+    return int(pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,S", WIDE, ids=WIDE_IDS)
+def test_wide_rows_match_plain(kind, S, cuda_device):
+    """Random directions, then the winner invalid, then copies of the winner
+    before and after it (the first wins), then every row invalid."""
+    args = _wide_inputs(kind, S, cuda_device)
+    n = args[0].shape[0]
+    f = _hold_wide(kind, args)
+    dead = list(args)
+    if kind == "packed":
+        dead[3] = args[3].clone()
+        dead[3][f] = -np.inf
+    else:
+        dead[3] = args[3].clone()
+        dead[3][f] = False
+    assert _hold_wide(kind, dead) != f
+    tied = list(args)
+    tied[0], tied[2] = args[0].clone(), args[2].clone()
+    first = f // 2 if f > 1 else f          # a copy before the winner, if there is room
+    for j in (first, n - 1):
+        tied[0][j], tied[2][j] = args[0][f], args[2][f]
+    _hold_wide(kind, tied, expect_idx=min(first, f))
+    dead[3] = (torch.full_like(args[3], -np.inf) if kind == "packed"
+               else torch.zeros_like(args[3]))
+    _hold_wide(kind, dead, expect_idx=0)
+
+
+@pytest.mark.cuda
+def test_int8_dots_past_2_to_24(cuda_device):
+    """int8 rows of 49168 columns aligned with +-1 directions: |dot| reaches
+    7.9e8, where int32 -> f32 rounds (to nearest even, as the plain version's
+    f64 -> f32 does)."""
+    n, S = 300, 49168
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    sign = torch.randint(0, 2, (S,), generator=gen, device=cuda_device) * 2 - 1
+    V = torch.randint(-127, 128, (n, S), generator=gen, device=cuda_device, dtype=torch.int8)
+    for r, keep in ((17, S), (101, S - 1), (250, S - 3)):     # nearly equal, odd dots
+        V[r, :keep] = (127 * sign[:keep]).to(torch.int8)
+    dirs = torch.stack([sign.float(), torch.zeros(S, device=cuda_device)], dim=1).contiguous()
+    args = [V, dirs, torch.ones(n, device=cuda_device),
+            torch.ones(n, dtype=torch.bool, device=cuda_device)]
+    ki, ks = gs.giga_select(*args)
+    pi, pscore = gs.giga_select_ref(*args)
+    assert int(ki) == int(pi) == 17
+    assert float(ks) == float(pscore) and float(ks) * 127.0 * 127.0 > 2.0 ** 24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "packed"])
+def test_narrow_and_wide_calls_share_the_workspace(kind, cuda_device):
+    """100 calls back to back on one stream, ring kernel and wide-row kernel
+    in turn: both leave key and ticket zero for the other."""
+    if kind == "packed":
+        narrow = [t.to(cuda_device) for t in _packed_inputs(20000)]
+        wide = _wide_inputs("packed", 65568, cuda_device, n=515)
+    else:
+        narrow = [t.to(cuda_device) for t in _giga_inputs(torch.int8, 20000)]
+        wide = _wide_inputs("int8", 49168, cuda_device, n=515)
+    kernel, plain = KERNELS["packed" if kind == "packed" else "giga"]
+    want = [int(plain(*narrow)[0]), int(plain(*wide)[0])]
+    got = [kernel(*(wide if r % 2 else narrow))[0] for r in range(100)]
+    torch.cuda.synchronize()
+    assert [int(g) for g in got] == want * 50
 
 
 @pytest.mark.cuda

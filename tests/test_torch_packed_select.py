@@ -153,3 +153,24 @@ def test_rejects_malformed_inputs(bad):
         P = P.to(torch.int16)
     with pytest.raises(ValueError):
         ps.packed_select(P, d, nr, b)
+
+
+def test_wrapper_takes_rows_past_the_ring_kernels_width():
+    """A packed row past 32 KB (the ring kernel's shared memory; the card
+    takes its wide-row kernel there): no width limit in the wrapper, and on
+    CPU tensors the plain version's result, checked against integer dots."""
+    assert not hasattr(ps, "MAX_ROW_BYTES")
+    S, n = 65568, 6
+    rng = np.random.default_rng(9)
+    q = rng.integers(-7, 8, size=(n, S)).astype(np.int8)
+    dirs = rng.uniform(-0.04, 0.04, size=(S, 2)).astype(np.float32)
+    nrminv = (0.02 * rng.uniform(0.5, 1.5, size=n)).astype(np.float32)
+    bias = np.zeros(n, np.float32)
+    P = ps.pack_int4(torch.as_tensor(q))
+    assert P.shape == (n, 32784)
+    ni, ns = _numpy_select(q, dirs, nrminv, bias)
+    before = ps.launches
+    pi, pscore = ps.packed_select(P, torch.as_tensor(dirs), torch.as_tensor(nrminv),
+                                  torch.as_tensor(bias))
+    assert ps.launches == before and int(pi) == ni
+    np.testing.assert_allclose(float(pscore), ns, rtol=1e-6)

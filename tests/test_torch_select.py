@@ -146,3 +146,40 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         args.update({k: v.to("meta") for k, v in args.items()})
     with pytest.raises(ValueError):
         gs.giga_select(**args)
+
+
+@pytest.mark.parametrize("dtype,S", [(torch.float32, 12289), (torch.float32, 16384),
+                                     (torch.bfloat16, 24584), (torch.int8, 49168)])
+def test_wrapper_takes_rows_past_the_ring_kernels_width(dtype, S):
+    """Rows past 48 KB (the ring kernel's shared memory; the card takes its
+    wide-row kernel there): the wrapper has no width limit, and on CPU
+    tensors gives the plain version's result, checked against f64 numpy."""
+    assert not hasattr(gs, "MAX_ROW_BYTES")
+    rng = np.random.default_rng(S)
+    n = 12
+    V = rng.normal(size=(n, S)).astype(np.float32)
+    norms = np.linalg.norm(V, axis=1).astype(np.float32)
+    dirs = np.zeros((S, 2), np.float32)
+    dirs[:, 0] = V[7] / norms[7] + 0.01 * rng.normal(size=S) / np.sqrt(S)   # row 7 wins
+    mult = gs.col_multiple(dtype)
+    Sp = -(-S // mult) * mult
+    Vp = torch.nn.functional.pad(torch.as_tensor(V), (0, Sp - S))
+    if dtype == torch.int8:
+        Vsel = torch.clamp(torch.round(Vp / torch.as_tensor(norms)[:, None] * 127.0),
+                           -127, 127).to(torch.int8)
+    else:
+        Vsel = Vp.to(dtype)
+    assert Vsel.shape[1] * Vsel.element_size() > 48 * 1024
+    before = gs.launches
+    f, score = gs.giga_select(Vsel, torch.as_tensor(dirs), torch.as_tensor(norms),
+                              torch.ones(n, dtype=torch.bool))
+    assert gs.launches == before and int(f) == 7
+    if dtype == torch.int8:     # integer dots of the quantized copies, exact
+        q = np.clip(np.round(dirs[:, 0] * np.float32(127.0)), -127, 127).astype(np.int64)
+        want = (Vsel.numpy()[:, :S].astype(np.int64) @ q) / 127.0 ** 2
+        rtol = 1e-6
+    else:
+        want = (V.astype(np.float64) @ dirs[:, 0].astype(np.float64)) / norms
+        rtol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert int(np.argmax(want)) == 7
+    np.testing.assert_allclose(float(score), want[7], rtol=rtol)

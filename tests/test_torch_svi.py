@@ -267,6 +267,40 @@ def test_optimize_crn_rollback():
     assert c.error() == 0.0 and c.size() == 0
 
 
+def test_rollback_check_draws_from_its_own_stream():
+    """The rollback check's context uses samples that the optimize never
+    saw: not those of its first step (which starts at the same weights),
+    nor of any later one; and they are reproducible from the seed."""
+    x = torch.as_tensor(_data(6, 200, 5))
+    d = x.shape[1]
+    basis = tg.posterior_basis(torch.zeros(d), torch.eye(d), torch.eye(d))
+    drawn = []
+
+    def sampler(g, n, w, p):
+        if p.numel() == 0:
+            w, p = torch.zeros(1), torch.zeros((1, d))
+        out = tg.sample_weighted_post_basis(g, basis, p, w, n)
+        drawn.append(out.clone())
+        return out
+
+    eye = torch.eye(d)
+    prj = tbc.BlackBoxProjector(sampler, 30, lambda p, th: tg.log_likelihood(p, th, eye, 0.0),
+                                generator=torch.Generator().manual_seed(0))
+    checks = []
+    for _ in range(2):
+        a = tbc.SparseVICoreset(x, prj, opt_itrs=4, seed=2, capacity=8)
+        a.build(5)
+        del drawn[:]
+        a.optimize()
+        assert len(drawn) == 4 + 1 and not a.reached_numeric_limit
+        steps, check = drawn[:-1], drawn[-1]
+        # the first step and the check share the weights, so equal draws
+        # would give equal samples
+        assert all(not torch.equal(check, s) for s in steps)
+        checks.append(check)
+    assert torch.equal(checks[0], checks[1])
+
+
 def test_save_restore_resumes(tmp_path):
     x = _data(6, 100, 5)
     prj = _bb_family(torch.as_tensor(x))
