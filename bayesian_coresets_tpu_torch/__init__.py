@@ -17,7 +17,11 @@ in both its stages, and the variational coreset constructions:
   set re-solve of ``HilbertCoreset.optimize()`` (``ops/nnls.py``, and the
   exact host solver in ``native/``);
 - the Poisson and linear-regression models (``models/poisson.py``,
-  ``models/linreg.py``) and the linear-regression exact tangent family.
+  ``models/linreg.py``) and the linear-regression exact tangent family;
+- the streamed int8-resident construction on one device
+  (``HilbertCoreset(stream_chunk_size=...)``, ``parallel/streamed.py``,
+  ``ops.snnls.make_consts_quantized``), for datasets whose f32 projection
+  does not fit on the card, and phase timers (``utils/profiling.py``).
 
 ``ops/packed_select.py`` (``csrc/packed_select.cu``) carries the JAX
 package's packed-int4 select probe.  The entry points run on the CUDA card:
@@ -29,7 +33,7 @@ it was given on.
 It imports torch and never JAX or the JAX package.
 """
 
-from . import coresets, mcmc, models, ops, utils
+from . import coresets, mcmc, models, ops, parallel, utils
 from . import utils as util           # reference spelling: bc.util.set_verbosity
 from .ops import snnls                # reference pattern: bc.snnls.GIGA
 from .coresets import (
@@ -57,6 +61,7 @@ __all__ = [
     "mcmc",
     "models",
     "ops",
+    "parallel",
     "utils",
     "util",
     "snnls",

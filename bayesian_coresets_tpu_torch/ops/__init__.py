@@ -1,6 +1,7 @@
 """Numerical kernels: the sparse-NNLS solvers (GIGA, Frank-Wolfe, OMP,
 importance and uniform sampling), their fused select, the packed-int4
-select probe, the active-set NNLS re-solve, and projected Adam."""
+select probe, the active-set NNLS re-solve, and projected Adam; the
+solvers also run on int8-resident constants (``make_consts_quantized``)."""
 
 from . import giga_select, nnls, packed_select
 from .opt import nn_opt
@@ -16,6 +17,7 @@ from .snnls import (
     build,
     init_state,
     make_consts,
+    make_consts_quantized,
     optimize_active,
 )
 
@@ -32,6 +34,7 @@ __all__ = [
     "init_state",
     "optimize_active",
     "make_consts",
+    "make_consts_quantized",
     "nn_opt",
     "nnls",
     "giga_select",

@@ -30,6 +30,8 @@ _DTYPE_CODE = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 
 _workspaces: dict[tuple[int, int], torch.Tensor] = {}
 
+_REF_BLOCK_ROWS = 1 << 20    # rows per block of the plain version
+
 
 def workspace(dev: torch.device) -> tuple[torch.Tensor, int]:
     """The select kernels' finish state (16 bytes: the argmax key and a
@@ -86,15 +88,27 @@ def giga_select_ref(Vsel: torch.Tensor, dirs: torch.Tensor, norms: torch.Tensor,
     """Plain PyTorch select: (int32 index, f32 score), 0-dim tensors.
 
     int8 dots are taken in float64, which is exact for these integer sums
-    (an int8 ``@`` on the CPU returns int8 and overflows)."""
+    (an int8 ``@`` on the CPU returns int8 and overflows).  Rows go in
+    blocks of ``_REF_BLOCK_ROWS`` (the f64 copy of a 2^20-row int8 block of
+    512 columns is 4.3 GB; of an 8M-row matrix it would be 33 GB), and the
+    first maximum over the blocks is the global first maximum."""
     q = quantize_dirs(dirs, Vsel.shape[1], Vsel.dtype)
-    if Vsel.dtype == torch.int8:
-        dots = (Vsel.double() @ q.double().T).float() * (1.0 / (127.0 * 127.0))
-    else:
-        dots = (Vsel.float() @ q.float().T) / norms[:, None]
-    score = score_rows(dots, valid)
-    f = torch.argmax(score)
-    return f.to(torch.int32), score[f]
+    best_f = best_s = None
+    for r in range(0, Vsel.shape[0], _REF_BLOCK_ROWS):
+        V, nr = Vsel[r:r + _REF_BLOCK_ROWS], norms[r:r + _REF_BLOCK_ROWS]
+        if V.dtype == torch.int8:
+            dots = (V.double() @ q.double().T).float() * (1.0 / (127.0 * 127.0))
+        else:
+            dots = (V.float() @ q.float().T) / nr[:, None]
+        score = score_rows(dots, valid[r:r + _REF_BLOCK_ROWS])
+        f = torch.argmax(score)
+        s, f = score[f], (f + r).to(torch.int32)
+        if best_f is None:
+            best_f, best_s = f, s
+        else:                          # a later block wins only with a larger score
+            later = s > best_s
+            best_f, best_s = torch.where(later, f, best_f), torch.where(later, s, best_s)
+    return best_f, best_s
 
 
 def _check(Vsel, dirs, norms, valid):

@@ -23,6 +23,13 @@ step for step:
   and OMP with ``[rn, 0]`` (then the score is the plain normalized dot,
   the JAX package's ``_select_dots``).  The sampling solvers select by a
   categorical draw and never pass over V.
+- **int8-resident constants** (:func:`make_consts_quantized`, the JAX
+  package's beyond-f32-memory mode).  V itself is the int8 copy of
+  normalized rows, with f32 norms beside it, and ``Vsel`` is V: no f32
+  (n, S) exists.  Every read of V dequantizes the rows it reads
+  (:func:`_rows`: ``V[f] * (norms[f] * (1/127))``), and
+  the dense matvec gathers only the top ``support`` weights' rows
+  (:func:`_v_matvec`).
 
 Where the JAX package runs the whole build as one ``lax.while_loop``, this
 is an eager Python loop over the same step.  The iteration count is kept on
@@ -65,7 +72,9 @@ _WSCALE_FLOOR = 1e-10   # fold the carried scale into w before it underflows
 class SNNLSConsts(NamedTuple):
     """Problem constants."""
 
-    V: torch.Tensor       # (n, S) = A.T, rows are per-datum feature vectors
+    V: torch.Tensor       # (n, S) = A.T, rows are per-datum feature vectors;
+    #                       int8 in the int8-resident mode (rows normalized and
+    #                       scaled to ±127, see make_consts_quantized)
     b: torch.Tensor       # (S,) target vector
     norms: torch.Tensor   # (n,) row norms ||V[i]|| (1 for invalid rows)
     bnorm: torch.Tensor   # 0-dim ||b||
@@ -79,6 +88,7 @@ class SNNLSConsts(NamedTuple):
     #                       - int8: a quarter; rows PRE-NORMALIZED and scaled
     #                         to ±127 (the /norms division folds into the
     #                         dequantization constant 1/127^2)
+    #                       - int8-resident: V itself (the same tensor)
 
 
 class SNNLSState(NamedTuple):
@@ -150,9 +160,59 @@ def make_consts(A: torch.Tensor, b: torch.Tensor, valid: torch.Tensor | None = N
     return SNNLSConsts(V, b, norms, bnorm, valid, _sampling_ps(norms, valid, sampling), Vsel)
 
 
+def make_consts_quantized(Vq: torch.Tensor, norms: torch.Tensor, b: torch.Tensor,
+                          valid: torch.Tensor | None = None,
+                          sampling: str | None = None) -> SNNLSConsts:
+    """int8-resident constants (ops/snnls.py:159-198 of the JAX package),
+    on ``Vq``'s device.
+
+    ``Vq`` (n, S) int8: each row of V normalized to unit length and scaled
+    to ±127 (:func:`..parallel.streamed.quantize_chunk`); ``norms`` (n,)
+    the rows' norms; ``b`` the target, of at most ``Vq``'s column count.
+    Only the int8 copy and the f32 norms are kept: no f32 (n, S) is formed.
+    The select reads V itself (``Vsel`` is ``Vq``, as the JAX package's
+    ``_vsel`` reads V behind its zero-row sentinel), and the weight and
+    error arithmetic dequantizes the rows it reads.
+
+    Rows: the JAX package pads them to a 1024 multiple for its Pallas tile;
+    this package's kernel takes any row count, so none are added (padded
+    rows that a caller brings, e.g. from the JAX package, stay: they must
+    carry ``valid=False``).  Columns: a ``Vq`` whose column count is a
+    multiple of 16 (whole 16-byte rows for the kernel) is used as it is,
+    never copied; otherwise it is zero-padded to one, which copies it (the
+    streamed constructor allocates its buffer pre-padded).  ``b`` is
+    zero-padded to the column count, which changes no inner product.  The
+    norms are 1 on invalid rows, and a zero row is invalid.
+    """
+    if Vq.dtype != torch.int8 or Vq.dim() != 2:
+        raise ValueError(f"make_consts_quantized takes a 2-D int8 matrix; got {Vq.dtype} "
+                         f"{tuple(Vq.shape)}")
+    dev = Vq.device
+    Vq = _pad_cols(Vq.contiguous(), col_multiple(torch.int8))
+    n, Sp = Vq.shape
+    norms = norms.to(device=dev, dtype=torch.float32)
+    b = b.to(device=dev, dtype=torch.float32)
+    if b.shape[0] > Sp:
+        raise ValueError(f"b has {b.shape[0]} entries for {Sp} columns")
+    b = F.pad(b, (0, Sp - b.shape[0]))
+    if valid is None:
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid = valid.to(dev) & (norms > 0)
+    norms = torch.where(valid, norms, 1.0)
+    # accumulated in f64: the card and the CPU give the same f32 norm
+    bnorm = sqrt_rn(_dot(b, b))
+    return SNNLSConsts(Vq, b, norms, bnorm, valid, _sampling_ps(norms, valid, sampling), Vq)
+
+
+def _is_quantized(consts: SNNLSConsts) -> bool:
+    return consts.V.dtype == torch.int8
+
+
 def init_state(consts: SNNLSConsts, max_active: int = 0) -> SNNLSState:
     n, S = consts.V.shape
-    dev, dt = consts.V.device, consts.V.dtype
+    # weights and caches stay f32 when V is the int8-resident copy
+    dev = consts.V.device
+    dt = consts.b.dtype if _is_quantized(consts) else consts.V.dtype
     i32 = dict(dtype=torch.int32, device=dev)
     return SNNLSState(
         w=torch.zeros(n, dtype=dt, device=dev),
@@ -167,19 +227,45 @@ def init_state(consts: SNNLSConsts, max_active: int = 0) -> SNNLSState:
     )
 
 
+def _rows(consts: SNNLSConsts, idcs: torch.Tensor) -> torch.Tensor:
+    """Rows V[idcs] (K, S) in f32, dequantized in the int8-resident mode as
+    ``V[i] * (norms[i] * (1/127))`` (ops/snnls.py:250-270, 349-369 there)."""
+    rows = consts.V.index_select(0, idcs)
+    if _is_quantized(consts):
+        rows = rows.float() * (consts.norms.index_select(0, idcs) * (1.0 / 127.0))[:, None]
+    return rows
+
+
 def _v_row(consts: SNNLSConsts, fl: torch.Tensor) -> torch.Tensor:
     """Row V[f] in f32; ``fl`` is the (1,) int64 index tensor."""
-    return consts.V.index_select(0, fl)[0]
+    return _rows(consts, fl)[0]
 
 
-def _v_matvec(consts: SNNLSConsts, w: torch.Tensor) -> torch.Tensor:
-    """V^T @ w in f32 (dense)."""
-    return consts.V.T @ w
+def _gather_rows(consts: SNNLSConsts, idcs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Rows V[idcs] (K, S) in f32, zero where ``~mask``."""
+    return torch.where(mask[:, None], _rows(consts, idcs), 0.0)
 
 
-def error(consts: SNNLSConsts, w: torch.Tensor) -> torch.Tensor:
-    """||A w - b||_2 (snnls/snnls.py:28-29)."""
-    return _cached_error(consts, _v_matvec(consts, w))
+def _v_matvec(consts: SNNLSConsts, w: torch.Tensor, support: int = 1024) -> torch.Tensor:
+    """V^T @ w in f32 (ops/snnls.py:372-399 there).
+
+    Dense for f32 constants.  In the int8-resident mode the rows of the
+    ``support`` largest weights are gathered and dequantized, never an f32
+    (n, S): w >= 0, so while nnz(w) <= support its nonzeros are among them,
+    and the build loop keeps nnz(w) <= max_active (it refuses and latches a
+    step that would track one more atom), so ``support=max_active`` is exact
+    for the weights a build makes.
+    """
+    if not _is_quantized(consts):
+        return consts.V.T @ w
+    vals, idx = torch.topk(w, min(int(support), w.shape[0]))
+    return _dot(vals, _rows(consts, idx))
+
+
+def error(consts: SNNLSConsts, w: torch.Tensor, support: int = 1024) -> torch.Tensor:
+    """||A w - b||_2 (snnls/snnls.py:28-29); ``support`` bounds nnz(w) for
+    int8-resident constants (:func:`_v_matvec`)."""
+    return _cached_error(consts, _v_matvec(consts, w, support=support))
 
 
 def _dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -223,7 +309,7 @@ def _active_mask(idcs: torch.Tensor, size) -> tuple[torch.Tensor, torch.Tensor]:
 def _support_matvec(consts: SNNLSConsts, w, idcs, size) -> torch.Tensor:
     """Exact V^T w via the tracked support (w>0 entries all lie in idcs)."""
     mask, safe = _active_mask(idcs, size)
-    rows = torch.where(mask[:, None], consts.V.index_select(0, safe), 0.0)
+    rows = _gather_rows(consts, safe, mask)
     return _dot(torch.where(mask, w.index_select(0, safe), 0.0), rows)
 
 
@@ -476,7 +562,7 @@ def _omp_step(consts: SNNLSConsts, state: SNNLSState, nnls_iters: int = 256):
     # the current weights
     mask0, safe0 = _active_mask(idcs, size)
     x0 = torch.where(mask0, state.w.index_select(0, safe0), 0.0)
-    Aact = torch.where(mask0[:, None], consts.V.index_select(0, safe0), 0.0)
+    Aact = _gather_rows(consts, safe0, mask0)
     w_act = nnls_rows(Aact, consts.b, mask0, num_iters=nnls_iters, x0=x0)
     w = torch.zeros_like(state.w).index_add_(0, safe0, torch.where(mask0, w_act, 0.0))
     return w, w_act @ Aact, idcs, size, overflow      # exact: support == active slots
@@ -533,7 +619,7 @@ METHODS = ("giga", "frankwolfe", "orthopursuit", "importance", "uniform")
 
 
 def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
-          method: str = "giga", draws=None) -> SNNLSState:
+          method: str = "giga", draws=None, matvec_k: int = 1024) -> SNNLSState:
     """Run up to ``itrs`` iterations of ``method``, continuing from ``state``.
 
     Port of the JAX package's ``build_core``/``build``
@@ -545,7 +631,9 @@ def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
     more than ``max_active`` atoms, latch ``done``.  ``draws`` (a
     ``torch.Generator`` on the data's device, or a draw source, see
     :class:`Draws`) feeds the sampling solvers; the default is a generator
-    seeded with 0.  Returns a new state with TRUE-scale weights; ``state``
+    seeded with 0.  ``matvec_k`` bounds nnz(w) for the refresh without
+    support slots on int8-resident constants (:func:`_v_matvec`; ignored
+    for f32 V).  Returns a new state with TRUE-scale weights; ``state``
     itself is left unchanged.
     """
     if method not in METHODS:
@@ -577,7 +665,7 @@ def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
             # exact refresh of the cached matvec AND the scalar cache; with
             # support slots it gathers only the tracked rows (O(K*S))
             exact = (_support_matvec(consts, s.w, s.idcs, s.size) if K
-                     else _v_matvec(consts, s.w))
+                     else _v_matvec(consts, s.w, support=matvec_k))
             xw = aux.wscale * exact       # state.w is raw-scale (wscale is 1
             #                               for OMP and the sampling solvers)
             aux = _aux_from_xw(consts, xw, wscale=aux.wscale)
@@ -639,7 +727,7 @@ def optimize_active(consts: SNNLSConsts, state: SNNLSState, idcs: torch.Tensor,
     rise: if it rose, the weights are kept and ``done`` latches.
     """
     mask, safe = _active_mask(idcs, size)
-    Aact = torch.where(mask[:, None], consts.V.index_select(0, safe), 0.0)
+    Aact = _gather_rows(consts, safe, mask)
     w_act = nnls_rows(Aact, consts.b, mask, num_iters=num_iters)
     w = torch.zeros_like(state.w).index_add_(0, safe, torch.where(mask, w_act, 0.0))
     xw = w_act @ Aact
@@ -671,6 +759,8 @@ class SparseNNLS:
     tensor of theirs on another device raises.
     ``seed`` seeds the sampling solvers' generator, which lives on that
     device too; ``reset()`` re-seeds it.  The greedy solvers draw nothing.
+    :meth:`from_consts` wraps constants made elsewhere, such as the
+    int8-resident ones of :func:`make_consts_quantized`.
     ``optimize()`` re-solves the active weights (FISTA on the device, or
     exact Lawson-Hanson on the host); ``save``/``restore`` and
     ``build(checkpoint_path=...)`` checkpoint the solver state and the
@@ -692,12 +782,33 @@ class SparseNNLS:
         # greedy solvers only; explicitly masked (padded) columns are exempt
         if sampling is None and bool(torch.any(requested & ~self.consts.valid)):
             raise ValueError(f"{type(self).__name__}: A must not have any 0 columns")
+        self._setup(seed, max_active)
+
+    @classmethod
+    def from_consts(cls, consts: SNNLSConsts, seed: int = 0, max_active: int | None = None,
+                    mesh=None):
+        """The solver on constants made elsewhere (ops/snnls.py:1087-1120 of
+        the JAX package), e.g. the int8-resident constants of
+        :func:`make_consts_quantized`, without forming A again.  Zero rows
+        must already be ``valid=False``; the sampling solvers need
+        constants made with their ``sampling=``.  ``mesh`` (a sharded
+        build) is not ported yet and raises."""
+        if mesh is not None:
+            raise ValueError("from_consts(mesh=...): sharded builds are not ported yet "
+                             "(ROADMAP item 16)")
+        self = cls.__new__(cls)
+        self.consts = consts
+        self._setup(seed, max_active)
+        return self
+
+    def _setup(self, seed: int, max_active: int | None):
         if self.method == "giga" and float(self.consts.bnorm) == 0.0:
             raise NumericalPrecisionError("norm of b must be > 0")
         n = self.consts.V.shape[0]
         self._max_active = int(max_active) if max_active is not None else min(n, 1024)
         self._seed = seed
-        self._gen = torch.Generator(device=A.device) if sampling else None
+        sampling = self.method in ("importance", "uniform")
+        self._gen = torch.Generator(device=self.consts.V.device) if sampling else None
         self.reset()
 
     def reset(self):
@@ -730,7 +841,7 @@ class SparseNNLS:
         return idx[keep], vals[keep]
 
     def error(self) -> float:
-        return float(error(self.consts, self.state.w))
+        return float(error(self.consts, self.state.w, support=self._max_active))
 
     @property
     def reached_numeric_limit(self) -> bool:
@@ -764,16 +875,17 @@ class SparseNNLS:
 
     def _run_build(self, itrs: int) -> SNNLSState:
         return build(self.consts, self.state, itrs, config.TOL, method=self.method,
-                     draws=self._gen)
+                     draws=self._gen, matvec_k=self._max_active)
 
     def optimize(self, solver: str = "fista"):
         """Re-solve the weights on the active set (snnls/snnls.py:81-97).
 
         ``solver="fista"``: accelerated projected gradient on the data's
         device (:func:`optimize_active`).  ``solver="exact"``: Lawson-Hanson
-        in f64 on the host (:mod:`..native`), on the active rows only.  Either
-        way, a re-solve that raises the cost is refused and latches the
-        numeric limit.
+        in f64 on the host (:mod:`..native`), on the active rows only
+        (dequantized in f64 for int8-resident constants).  Either way, a
+        re-solve that raises the cost is refused and latches the numeric
+        limit.
         """
         if solver not in ("fista", "exact"):
             raise ValueError(f"solver must be 'fista' or 'exact'; got {solver!r}")
@@ -783,16 +895,21 @@ class SparseNNLS:
         dev = self.consts.V.device
         if solver == "exact":
             act_t = torch.as_tensor(act, device=dev)
-            Vact = self.consts.V.index_select(0, act_t).double().cpu().numpy()
+            Vact = self.consts.V.index_select(0, act_t).cpu().numpy().astype(np.float64)
+            if _is_quantized(self.consts):
+                Vact *= self.consts.norms.index_select(0, act_t).cpu().numpy()[:, None] / 127.0
             prev_err = self.error()
             x, _ = native.nnls(Vact.T, self.consts.b.double().cpu().numpy())
             w = torch.zeros_like(self.state.w)
             w[act_t] = torch.as_tensor(x, dtype=w.dtype, device=dev)
-            if float(error(self.consts, w)) > prev_err * (1.0 + config.TOL):
+            # the support bound of prev_err's, or more: the new weights may
+            # have up to act.size nonzeros (ops/snnls.py:1271-1275 there)
+            support = max(self._max_active, act.size)
+            if float(error(self.consts, w, support=support)) > prev_err * (1.0 + config.TOL):
                 self.state = self.state._replace(done=torch.ones_like(self.state.done))
             else:
                 # the JAX package keeps the old xw here (ROADMAP Queue 3 (f))
-                self.state = self.state._replace(w=w, xw=_v_matvec(self.consts, w))
+                self.state = self.state._replace(w=w, xw=_v_matvec(self.consts, w, support))
             return
         pad = 1 << max(3, int(np.ceil(np.log2(act.size))))
         idcs = np.zeros(pad, dtype=np.int32)

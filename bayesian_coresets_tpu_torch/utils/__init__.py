@@ -1,5 +1,7 @@
-"""Utilities: tolerances, logging, errors, and interop with the JAX package."""
+"""Utilities: tolerances, logging, errors, checkpoints, phase timing, and
+interop with the JAX package."""
 
+from . import checkpoint, profiling
 from .config import (
     TOL,
     default_device,
@@ -12,6 +14,8 @@ from .errors import NumericalPrecisionError
 from .log import get_logger, set_verbosity
 
 __all__ = [
+    "checkpoint",
+    "profiling",
     "TOL",
     "get_tolerance",
     "set_tolerance",

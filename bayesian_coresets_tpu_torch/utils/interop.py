@@ -7,7 +7,8 @@ converted to a numpy array (e.g. ``type(x)(*map(np.asarray, x))``) and
 returns the port's counterpart as tensors on ``device``.  The JAX package
 pads the selection copy to 1024-row and 128-lane tiles for the TPU
 (ops/snnls.py:123-128); that padding is stripped and the copy re-padded to
-this package's own column multiple.  This module imports no JAX: it reads
+this package's own column multiple (int8-resident constants keep theirs,
+see :func:`snnls_consts`).  This module imports no JAX: it reads
 attributes only, so it also takes the port's own values converted to numpy.
 """
 
@@ -33,17 +34,25 @@ def snnls_consts(c, device="cpu") -> SNNLSConsts:
 
     An empty ``Vsel`` (the JAX package's zero-row "select reads V"
     sentinel) becomes the port's f32 select, which reads V.  int8-resident
-    constants (V itself int8) are not ported and raise.  ``ps`` (n entries
-    for the sampling solvers, none otherwise) is carried as it is.
+    constants (V itself int8, from the JAX package's
+    ``make_consts_quantized``) are carried with their padding kept: the
+    JAX package's 1024-multiple rows stay as rows with ``valid`` False and
+    norm 1, and its 128-multiple columns (a multiple of this package's 16)
+    stay zero, with ``b`` zero there; the select then reads V itself, as the
+    port's own int8-resident constants do.  ``ps`` (n entries for the
+    sampling solvers, none otherwise) is carried as it is.
     """
     V = np.asarray(c.V)
-    if V.dtype != np.float32:
-        raise ValueError(f"only f32 V is supported (int8-resident constants are "
-                         f"not ported); got {V.dtype}")
+    if V.dtype not in (np.float32, np.int8):
+        raise ValueError(f"V must be float32 or int8 (int8-resident); got {V.dtype}")
     n, S = V.shape
     Vt = _t(V, device)
+    b = _t(c.b, device)
     Vsel = np.asarray(c.Vsel)
-    if Vsel.shape[0] == 0:
+    if V.dtype == np.int8:
+        Vt = sel = _pad_cols(Vt, col_multiple(torch.int8)).contiguous()
+        b = torch.nn.functional.pad(b, (0, Vt.shape[1] - b.shape[0]))
+    elif Vsel.shape[0] == 0:
         sel = Vt
     else:
         # ml_dtypes' bfloat16 has no torch counterpart in numpy: go by bits
@@ -52,9 +61,8 @@ def snnls_consts(c, device="cpu") -> SNNLSConsts:
         else:
             sel = _t(Vsel[:n, :S], device)
     sel = _pad_cols(sel, col_multiple(sel.dtype)).contiguous()
-    return SNNLSConsts(Vt, _t(c.b, device), _t(c.norms, device),
-                       _t(c.bnorm, device), _t(c.valid, device, torch.bool),
-                       _t(np.asarray(c.ps)[:n], device), sel)
+    return SNNLSConsts(Vt, b, _t(c.norms, device), _t(c.bnorm, device),
+                       _t(c.valid, device, torch.bool), _t(np.asarray(c.ps)[:n], device), sel)
 
 
 def snnls_state(s, device="cpu") -> SNNLSState:

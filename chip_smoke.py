@@ -16,23 +16,28 @@ script exits non-zero without printing the final result line):
    bound (bytes over the HBM rate) and share of it, the kernel's time from
    a batch of direct launches, its cold-L2 time (a 128 MB buffer written
    before each launch, each launch between its own events, median of 50),
-   and for int8 the yardstick ``torch._int_mm(Vsel, Q)`` (the two dots
-   only: no score, no argmax; the port never calls it); then rows past the
-   ring kernel's 48 KB through the wide-row kernel (f32 S=12289 and 16384,
-   bf16 S=24584, int8 S=49168, n=4096: random directions, the winner
-   invalid, ties), each timed beside its bound, and int8 dots past 2^24;
+   and the library call that computes the two dots only (no score, no
+   argmax; the port never calls it): ``torch._int_mm(Vsel, Q)`` for int8,
+   ``torch.matmul(Vsel, Q)`` with TF32 off for bf16 and f32; then rows past
+   the ring kernel's 48 KB through the wide-row kernel (f32 S=12289 and
+   16384, bf16 S=24584, int8 S=49168, n=4096: random directions, the winner
+   invalid, ties), each timed beside its bound and its library call, and
+   int8 dots past 2^24;
 4. packed select: the packed-int4 select kernel against its plain version
    at the probe's size (N=2^20, S=512): random directions, the winner's
    block invalid, ties, all invalid, a row count off the tile, and
    directions on the rounding boundaries; the kernel (batch and cold-L2),
    the plain version and the int8 GIGA select kernel timed on the same
-   (N, S), each beside its bound; a packed row past the ring kernel's 32 KB
+   (N, S), each beside its bound (the int8 one beside ``torch._int_mm``);
+   a packed row past the ring kernel's 32 KB
    (S=65568, n=4096) through the wide-row kernel; then the probe's path
    (``scripts/probe_int4_torch.py``), int8 stream against packed stream,
    with its launches counted;
 5. build parity: a GIGA build and a Frank-Wolfe build (int8, N=20k, S=500,
    M=200) on the card through the kernel and on the CPU through the plain
-   version, from the same arrays, must select the same atoms;
+   version, from the same arrays, must select the same atoms, once with the
+   int8 select copy beside an f32 V and once from int8-resident constants
+   (``make_consts_quantized``);
 6. main path at full width, bench.py's flagship build (bench.py:88-109):
    logistic data N=100k, D=10 -> BlackBoxProjector(S=500 samples
    theta ~ 0.1 N(0, I)) -> HilbertCoreset(int8 select, max_active=1024)
@@ -82,13 +87,28 @@ script exits non-zero without printing the final result line):
 15. the Poisson model: ``poisson.gen_synthetic`` at N=100k ->
    BlackBoxProjector (S=500) -> a GIGA build (M=200) -> ``mcmc.weighted.run``
    on the coreset with 256 chains x (100 + 100), held to phase 7's gates
-   (finite, split R-hat <= 1.05, divergences <= 1%).
+   (finite, split R-hat <= 1.05, divergences <= 1%);
+16. the streamed int8-resident build at full width, bench.py's N=8M arm
+   (bench.py:127-196): logistic data N=8M, D=10 kept on the host ->
+   ``HilbertCoreset(stream_chunk_size=1M, max_active=1024)`` (phase 6's
+   projection samples) -> ``.build(500)`` (GIGA): construction and build
+   seconds from ``utils/profiling.py``, ms per iteration, error()/|b|, one
+   select launch per iteration, a profiled window as in phase 6, and the
+   peak allocation, which must stay below the 16 GB of an f32 (N, S)
+   matrix; the select on that 4.1 GB int8 matrix held against its plain
+   version (in 2^20-row blocks) and timed beside its bound (share >= 0.5)
+   and ``torch._int_mm``; the N=1M quality arm (the in-memory int8 select
+   against the streamed path from the same data and projector: int8 rows
+   equal but for ±1, norms within rtol 1e-5, and the streamed error at
+   M=500 below max(2x the in-memory one, 0.05 x the initial one), the JAX
+   package's rule); OMP (25 iterations, max_active=128) and importance
+   sampling (200 draws) from the N=1M int8-resident constants.
 
 Phases 8-11 and 14 launch no hand-written kernel: the JAX package computes
 SparseVI, BatchPSVI, the re-solve and the sampling solvers with plain XLA
 ops.  Every path is driven with the kernels' launch counts set to 0 just
 before it and read just after; the kernels' ``launches`` are the sums over
-the paths that select through them (phases 6, 12, 13, 15).  The line before
+the paths that select through them (phases 6, 12, 13, 15, 16).  The line before
 the last is the kernels' JSON; the
 last line is ``{"ok": true, "device": {...}}``.  The port imports no JAX.
 """
@@ -138,6 +158,13 @@ WIDE_PACKED_S = 65568       # a 32784-byte packed row
 OMP_ITRS, OMP_ACTIVE, OMP_CHUNK = 100, 128, 25
 SAMPLING_DRAWS = 500
 POIS_M, POIS_CHAINS, POIS_DRAWS = 200, 256, 100
+# the streamed int8-resident build (bench.py:127-196): N=8M in 1M-row chunks,
+# and the N=1M quality arm (bench.py's N=1M arm) in 250k-row chunks
+STREAM_N, STREAM_CHUNK = 8_000_000, 1_000_000
+QUALITY_N, QUALITY_CHUNK = 1_000_000, 250_000
+STREAM_MEM_MAX = 16.0e9     # bytes of the f32 (N, S) matrix alone at N=8M
+STREAM_OMP_ITRS, STREAM_OMP_ACTIVE, STREAM_OMP_CHUNK = 25, 128, 5
+STREAM_DRAWS = 200
 
 
 def say(phase: str, **kv) -> None:
@@ -286,6 +313,24 @@ def _int_mm_ms(torch, Vsel, dirs):
     return None, "refused(" + ";".join(why) + ")"
 
 
+def _library_ms(torch, Vsel, dirs):
+    """The library call that computes the select's two dots (and nothing
+    else: no score, no argmax; the port never calls it): int8
+    ``torch._int_mm`` (``_int_mm_ms``), bf16 and f32 ``torch.matmul(Vsel,
+    Q)`` with Q the (Sp, 2) directions in Vsel's type, TF32 off.  Returns
+    (ms, how) or (None, why not)."""
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+    if Vsel.dtype == torch.int8:
+        return _int_mm_ms(torch, Vsel, dirs)
+    Q = gs.quantize_dirs(dirs, Vsel.shape[1], Vsel.dtype).T
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _median_ms(torch, lambda: torch.matmul(Vsel, Q)), "matmul_tf32_off"
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 def _hold(kernel, plain, args, label, expect_idx=None):
     """A select kernel against its plain version on the same inputs: the
     index identical (and ``expect_idx`` if given), the score within
@@ -371,10 +416,13 @@ def _wide_select(torch, lib):
                           WIDE_N, row_bytes, ptr(dirs), S, ptr(c.norms), ptr(c.valid), ptr(ws),
                           ptr(idx), ptr(score), ctypes.c_void_p(stream))
         p_ms = _median_ms(torch, lambda: gs.giga_select_ref(*args), batches=3, per_batch=3)
+        lib_ms, lib_how = _library_ms(torch, c.Vsel, dirs)
         bound_ms, bound_by = _select_bound(torch, c.Vsel, S)
         say("select_wide", dtype=name, n=WIDE_N, S=S, row_bytes=row_bytes,
             kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
             bound_by=bound_by, share_of_bound=f"{bound_ms / k_ms:.3f}",
+            library_dots_only_ms="not_run" if lib_ms is None else f"{lib_ms:.4f}",
+            library=lib_how,
             kernel_GBps=f"{c.Vsel.numel() * c.Vsel.element_size() / (k_ms * 1e-3) / 1e9:.1f}",
             max_abs_err=err, checks="random,invalid_winner,ties")
         del c, args, dirs
@@ -496,8 +544,7 @@ def phase_select(torch):
         p_ms = _median_ms(torch, lambda: gs.giga_select_ref(Vsel, dirs, norms, valid),
                           batches=5, per_batch=5)
         bound_ms, bound_by = _select_bound(torch, Vsel, S_MAIN)
-        lib_ms, lib_how = ((None, "int8_only") if dtype != torch.int8
-                           else _int_mm_ms(torch, Vsel, dirs))
+        lib_ms, lib_how = _library_ms(torch, Vsel, dirs)
         gbps = Vsel.numel() * Vsel.element_size() / (k_ms * 1e-3) / 1e9
         timing[(dtype, n)] = (k_ms, p_ms, bound_ms, bound_by, lib_ms)
         say("select", dtype=str(dtype).replace("torch.", ""), n=n, S=S_MAIN,
@@ -505,8 +552,8 @@ def phase_select(torch):
             plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
             share_of_bound=f"{bound_ms / k_ms:.3f}", cold_share=f"{bound_ms / cold_ms:.3f}",
             kernel_GBps=f"{gbps:.1f}",
-            int_mm_dots_only_ms="not_run" if lib_ms is None else f"{lib_ms:.4f}",
-            int_mm=lib_how, checks=",".join(checks))
+            library_dots_only_ms="not_run" if lib_ms is None else f"{lib_ms:.4f}",
+            library=lib_how, checks=",".join(checks))
         if not bound_ms / k_ms >= 0.5:
             raise AssertionError(f"select {dtype} n={n}: {k_ms} ms, under half of its "
                                  f"bound {bound_ms} ms")
@@ -574,6 +621,7 @@ def phase_packed(torch):
     # multiply and an add per 4-bit value and direction
     bound_ms, bound_by = _bound(P.numel() + 8 * n + S * 2 * 4 + 8, 4 * n * S, "int8")
     i8_bound_ms, _ = _select_bound(torch, V8, S)
+    i8_lib_ms, i8_lib_how = _library_ms(torch, V8, dirs)
     gb = lambda t, ms: t.numel() * t.element_size() / (ms * 1e-3) / 1e9  # noqa: E731
     say("packed_select", n=n, S=S, kernel_ms=f"{k_ms:.4f}", cold_l2_ms=f"{k_cold:.4f}",
         plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
@@ -583,7 +631,9 @@ def phase_packed(torch):
     say("int8_select_same_matrix", n=n, S=S, kernel_ms=f"{i8_ms:.4f}",
         cold_l2_ms=f"{i8_cold:.4f}", bound_ms=f"{i8_bound_ms:.4f}",
         share_of_bound=f"{i8_bound_ms / i8_ms:.3f}", cold_share=f"{i8_bound_ms / i8_cold:.3f}",
-        kernel_GBps=f"{gb(V8, i8_ms):.1f}", packed_over_int8=f"{k_ms / i8_ms:.3f}")
+        kernel_GBps=f"{gb(V8, i8_ms):.1f}", packed_over_int8=f"{k_ms / i8_ms:.3f}",
+        library_dots_only_ms="not_run" if i8_lib_ms is None else f"{i8_lib_ms:.4f}",
+        library=i8_lib_how)
     for name, ms, bms in (("packed", k_ms, bound_ms), ("int8", i8_ms, i8_bound_ms)):
         if not bms / ms >= 0.5:
             raise AssertionError(f"{name} select at n={n}: {ms} ms, under half of its "
@@ -613,8 +663,8 @@ def phase_build_parity(torch):
     import numpy as np
     from bayesian_coresets_tpu_torch.coresets.projector import center_lls
     from bayesian_coresets_tpu_torch.models import logistic
-    from bayesian_coresets_tpu_torch.ops import giga_select as gs
     from bayesian_coresets_tpu_torch.ops import snnls
+    from bayesian_coresets_tpu_torch.parallel import quantize_chunk
     from bayesian_coresets_tpu_torch.utils import interop
 
     n, d, S, M = 20_000, 10, 500, 200
@@ -625,27 +675,44 @@ def phase_build_parity(torch):
     th = (0.1 * rng.normal(size=(S, d))).astype(np.float32)
     vecs = center_lls(logistic.log_likelihood(torch.as_tensor(z), torch.as_tensor(th)))
     c_cpu = snnls.make_consts(vecs.T, vecs.sum(dim=0), select_dtype=torch.int8)
-    c_gpu = interop.snnls_consts(type(c_cpu)(*(t.numpy() for t in c_cpu)), "cuda")
-    for method in ("giga", "frankwolfe"):
-        t0 = time.perf_counter()
-        s_cpu = snnls.build(c_cpu, snnls.init_state(c_cpu, 1024), M, 1e-6, method=method)
-        t_cpu = time.perf_counter() - t0
-        before = gs.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        s_gpu = snnls.build(c_gpu, snnls.init_state(c_gpu, 1024), M, 1e-6, method=method)
-        torch.cuda.synchronize()
-        t_gpu = time.perf_counter() - t0
-        k = int(s_cpu.size)
-        ig, ic = s_gpu.idcs[:int(s_gpu.size)].cpu().numpy(), s_cpu.idcs[:k].numpy()
-        if not np.array_equal(ig, ic):
-            raise AssertionError(f"build parity ({method}): card selected {ig[:20]}..., "
-                                 f"CPU {ic[:20]}...")
-        if gs.launches - before != int(s_gpu.itr):
-            raise AssertionError(f"build parity ({method}): kernel launches != iterations")
-        np.testing.assert_allclose(s_gpu.w.cpu().numpy(), s_cpu.w.numpy(), rtol=1e-4, atol=1e-6)
-        say("build_parity", method=method, n=n, S=S, M=M, atoms=k, itr=int(s_gpu.itr),
-            idcs="identical", cuda_s=f"{t_gpu:.3f}", cpu_s=f"{t_cpu:.3f}")
+    # the same projection as int8-resident constants: quantize_chunk's rows
+    # and norms, V itself int8, carried to the card as they are
+    q, nrm, bsum = quantize_chunk(vecs, n)
+    r_cpu = snnls.make_consts_quantized(q, nrm, bsum.float())
+    for consts, mode in ((c_cpu, "int8_select"), (r_cpu, "int8_resident")):
+        c_gpu = interop.snnls_consts(type(consts)(*(t.numpy() for t in consts)), "cuda")
+        if mode == "int8_resident" and not (c_gpu.V.dtype == torch.int8 and c_gpu.Vsel is c_gpu.V):
+            raise AssertionError("build parity: the int8-resident constants did not carry over")
+        for method in ("giga", "frankwolfe"):
+            _parity_build(torch, consts, c_gpu, method, mode, n, S, M)
+
+
+def _parity_build(torch, c_cpu, c_gpu, method, mode, n, S, M):
+    """One build on the CPU (plain select) and on the card (the kernel) from
+    the same constants: the same atoms, one launch per iteration."""
+    import numpy as np
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+    from bayesian_coresets_tpu_torch.ops import snnls
+
+    t0 = time.perf_counter()
+    s_cpu = snnls.build(c_cpu, snnls.init_state(c_cpu, 1024), M, 1e-6, method=method)
+    t_cpu = time.perf_counter() - t0
+    before = gs.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_gpu = snnls.build(c_gpu, snnls.init_state(c_gpu, 1024), M, 1e-6, method=method)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    k = int(s_cpu.size)
+    ig, ic = s_gpu.idcs[:int(s_gpu.size)].cpu().numpy(), s_cpu.idcs[:k].numpy()
+    if not np.array_equal(ig, ic):
+        raise AssertionError(f"build parity ({method}, {mode}): card selected {ig[:20]}..., "
+                             f"CPU {ic[:20]}...")
+    if gs.launches - before != int(s_gpu.itr):
+        raise AssertionError(f"build parity ({method}, {mode}): kernel launches != iterations")
+    np.testing.assert_allclose(s_gpu.w.cpu().numpy(), s_cpu.w.numpy(), rtol=1e-4, atol=1e-6)
+    say("build_parity", method=method, consts=mode, n=n, S=S, M=M, atoms=k,
+        itr=int(s_gpu.itr), idcs="identical", cuda_s=f"{t_gpu:.3f}", cpu_s=f"{t_cpu:.3f}")
 
 
 def _near_map_sampler(gen, n, wts, pts):
@@ -1284,6 +1351,220 @@ def phase_poisson(torch, smi):
     return launches
 
 
+def _host_logistic(torch, n, seed):
+    """Logistic data (n, D_MAIN), drawn on the card in STREAM_CHUNK-row
+    pieces from one seeded generator and kept on the host (numpy)."""
+    import numpy as np
+    from bayesian_coresets_tpu_torch.models import logistic
+
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(seed)
+    Z = np.empty((n, D_MAIN), np.float32)
+    for lo in range(0, n, STREAM_CHUNK):
+        hi = min(n, lo + STREAM_CHUNK)
+        Z[lo:hi] = logistic.gen_synthetic(gen, hi - lo, D_MAIN).cpu().numpy()
+    return Z
+
+
+def _streamed_select(torch, consts):
+    """Kernel 1 on the N=8M int8-resident matrix itself: held against the
+    plain version (which runs in 2^20-row blocks) with random directions,
+    the winner invalid, and a tie before the winner; then its batch time of
+    direct launches beside its bound, the plain version's and the
+    ``torch._int_mm`` yardstick's.  Returns (ms, plain ms, bound ms, bound
+    by, library ms, largest score error)."""
+    from bayesian_coresets_tpu_torch.ops import _cuda_build
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+
+    V, norms, valid = consts.V, consts.norms, consts.valid
+    n, Sp = V.shape
+    gen = torch.Generator(device=V.device).manual_seed(16)
+    dirs = torch.randn((S_MAIN, 2), generator=gen, device=V.device)
+    dirs[:, 1] -= dirs[:, 0] * (dirs[:, 0] @ dirs[:, 1]) / (dirs[:, 0] @ dirs[:, 0])
+    dirs = (dirs / torch.linalg.vector_norm(dirs, dim=0)).contiguous()
+    label = f"streamed select n={n}"
+    f, err = _hold(gs.giga_select, gs.giga_select_ref, (V, dirs, norms, valid), f"{label} random")
+    ok2 = valid.clone()
+    ok2[f] = False
+    f2, e2 = _hold(gs.giga_select, gs.giga_select_ref, (V, dirs, norms, ok2),
+                   f"{label} invalid_winner")
+    if f2 == f:
+        raise AssertionError(f"{label}: the invalid row {f} was selected")
+    del ok2
+    j = f // 2 if f > 1 else n - 1            # a copy of the winner; the first wins
+    saved = V[j].clone()
+    V[j] = V[f]
+    try:
+        _, e3 = _hold(gs.giga_select, gs.giga_select_ref, (V, dirs, norms, valid), f"{label} ties",
+                      expect_idx=min(j, f))
+    finally:
+        V[j] = saved
+    lib = _cuda_build.load_library()
+    ws, stream = gs.workspace(V.device)
+    idx = torch.empty(1, dtype=torch.int32, device=V.device)
+    score = torch.empty(1, dtype=torch.float32, device=V.device)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    k_ms = _direct_ms(torch, lib.giga_select_launch, ptr(V), gs._DTYPE_CODE[torch.int8], n, Sp,
+                      ptr(dirs), S_MAIN, ptr(norms), ptr(valid), ptr(ws), ptr(idx), ptr(score),
+                      ctypes.c_void_p(stream))
+    p_ms = _median_ms(torch, lambda: gs.giga_select_ref(V, dirs, norms, valid), batches=3,
+                      per_batch=1)
+    lib_ms, lib_how = _library_ms(torch, V, dirs)
+    bound_ms, bound_by = _select_bound(torch, V, S_MAIN)
+    say("streamed_select", dtype="int8", n=n, S=S_MAIN, bytes=V.numel(),
+        kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by=bound_by, share_of_bound=f"{bound_ms / k_ms:.3f}",
+        kernel_GBps=f"{V.numel() / (k_ms * 1e-3) / 1e9:.1f}",
+        library_dots_only_ms="not_run" if lib_ms is None else f"{lib_ms:.4f}",
+        library=lib_how, max_abs_err=max(err, e2, e3), checks="random,invalid_winner,ties")
+    if not bound_ms / k_ms >= 0.5:
+        raise AssertionError(f"{label}: {k_ms} ms, under half of its bound {bound_ms} ms")
+    return k_ms, p_ms, bound_ms, bound_by, lib_ms, max(err, e2, e3)
+
+
+def phase_streamed(torch, smi):
+    """bench.py's N=8M arm through the port's entry point: the streamed
+    int8-resident construction and a GIGA build of M_MAIN, the select at
+    that shape, the N=1M quality arm, and OMP and importance sampling from
+    the N=1M int8-resident constants."""
+    import numpy as np
+    import bayesian_coresets_tpu_torch as bc
+    from bayesian_coresets_tpu_torch.models import logistic
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+    from bayesian_coresets_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    Z = _host_logistic(torch, STREAM_N, seed=100)
+    t_data = time.perf_counter() - t0
+
+    def projector():
+        return bc.BlackBoxProjector(_near_map_sampler, S_MAIN, logistic.log_likelihood,
+                                    generator=torch.Generator(device=dev).manual_seed(7))
+
+    profiling.reset()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gs.launches = 0
+    with profiling.phase("construct", sync=dev):
+        coreset = bc.HilbertCoreset(Z, projector(), stream_chunk_size=STREAM_CHUNK,
+                                    max_active=1024)
+    c8 = coreset.snnls.consts
+    if c8.V.dtype != torch.int8 or c8.Vsel is not c8.V \
+            or tuple(c8.V.shape) != (STREAM_N, -(-S_MAIN // 16) * 16):
+        raise AssertionError(f"streamed: constants {c8.V.dtype} {tuple(c8.V.shape)}")
+    bnorm = float(c8.bnorm)
+    with profiling.phase("build", sync=dev):
+        coreset.build(50)
+    err50 = coreset.error() / bnorm
+    with profiling.phase("build", sync=dev):
+        coreset.build(M_MAIN - 50)
+    peak = torch.cuda.max_memory_allocated()
+    launches, itr = gs.launches, int(coreset.snnls.state.itr)
+    err = coreset.error() / bnorm
+    wts, pts, idcs = coreset.get()
+    rep = profiling.report()
+    t_con, t_build = rep["construct"]["total_s"], rep["build"]["total_s"]
+    say("streamed", N=STREAM_N, D=D_MAIN, S=S_MAIN, M=M_MAIN, chunk=STREAM_CHUNK, itr=itr,
+        size=wts.size, done=coreset.reached_numeric_limit, launches=launches,
+        select_launches_per_itr=f"{launches / max(itr, 1):.3f}", err50=f"{err50:.6e}",
+        err=f"{err:.6e}", data_s=f"{t_data:.3f}", construct_s=f"{t_con:.4f}",
+        build_s=f"{t_build:.4f}", ms_per_itr=f"{1e3 * t_build / max(itr, 1):.4f}",
+        points_per_s=f"{M_MAIN / (t_con + t_build):.2f}", peak_mem_GB=f"{peak / 1e9:.3f}",
+        f32_matrix_GB=f"{STREAM_N * S_MAIN * 4 / 1e9:.3f}", card=repr(smi))
+    if launches != itr or itr != M_MAIN:
+        raise AssertionError(f"streamed: {launches} select launches for {itr} iterations")
+    if wts.size == 0 or not np.isfinite(wts).all() or (wts <= 0).any() \
+            or pts.shape != (wts.size, D_MAIN) or not np.array_equal(pts, Z[idcs]):
+        raise AssertionError("streamed: empty, non-finite or malformed coreset")
+    if not err < err50:
+        raise AssertionError(f"streamed: error/|b| {err} at M={itr} not below {err50} at 50")
+    if not peak < STREAM_MEM_MAX:
+        raise AssertionError(f"streamed: peak allocation {peak / 1e9:.3f} GB, not below the "
+                             f"{STREAM_MEM_MAX / 1e9} GB of an f32 (N, S) matrix")
+    _profile_build(torch, c8, "giga", "streamed_launches")
+    select = _streamed_select(torch, c8)
+    del coreset, c8, wts, pts
+    torch.cuda.empty_cache()
+
+    # the N=1M quality arm: the in-memory int8 select and the streamed
+    # int8-resident path, from the same data and projector
+    Z1 = Z[:QUALITY_N]
+    proj = projector()
+    mem = bc.HilbertCoreset(torch.as_tensor(Z1, device=dev), proj, select_dtype=torch.int8,
+                            max_active=1024)
+    gs.launches = 0
+    st = bc.HilbertCoreset(Z1, proj, stream_chunk_size=QUALITY_CHUNK, max_active=1024)
+    cm, cs = mem.snnls.consts, st.snnls.consts
+    diff = (cm.Vsel.short() - cs.V.short()).abs()
+    n_diff, max_diff = int(torch.count_nonzero(diff)), int(diff.max())
+    del diff
+    norm_rel = float(((cm.norms - cs.norms).abs() / cs.norms).max())
+    e0 = st.error() / float(cs.bnorm)
+    mem.build(M_MAIN)
+    st.build(M_MAIN)
+    q_launches = gs.launches
+    e_mem, e_st = mem.error() / float(cm.bnorm), st.error() / float(cs.bnorm)
+    say("streamed_quality", N=QUALITY_N, chunk=QUALITY_CHUNK, M=M_MAIN,
+        int8_entries_differing=n_diff, max_int8_diff=max_diff, norms_max_rel=f"{norm_rel:.3e}",
+        err0=f"{e0:.6e}", err_in_memory=f"{e_mem:.6e}", err_streamed=f"{e_st:.6e}",
+        atoms_in_memory=mem.size(), atoms_streamed=st.size(), streamed_launches=q_launches)
+    if max_diff > 1:
+        raise AssertionError(f"streamed quality: int8 rows differ by {max_diff}")
+    if not norm_rel <= 1e-5:
+        raise AssertionError(f"streamed quality: norms differ by {norm_rel} relative")
+    if not e_st < max(2.0 * e_mem, 0.05 * e0):       # tests/test_snnls.py:279's rule
+        raise AssertionError(f"streamed quality: error/|b| {e_st} against in-memory {e_mem}")
+    if q_launches != int(st.snnls.state.itr) + int(mem.snnls.state.itr):
+        raise AssertionError(f"streamed quality: {q_launches} select launches")
+    del mem, cm
+    torch.cuda.empty_cache()
+
+    # OMP and importance sampling from the N=1M int8-resident constants
+    gs.launches = 0
+    omp = bc.snnls.OrthoPursuit.from_consts(cs, max_active=STREAM_OMP_ACTIVE)
+    errs = [omp.error() / float(cs.bnorm)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STREAM_OMP_ITRS // STREAM_OMP_CHUNK):
+        omp.build(STREAM_OMP_CHUNK)
+        errs.append(omp.error() / float(cs.bnorm))
+    torch.cuda.synchronize()
+    t_omp = time.perf_counter() - t0
+    omp_launches, omp_itr = gs.launches, int(omp.state.itr)
+    say("streamed_omp", N=QUALITY_N, itr=omp_itr, max_active=STREAM_OMP_ACTIVE,
+        size=omp.size(), launches=omp_launches, errs=",".join(f"{e:.6e}" for e in errs),
+        ms_per_itr=f"{1e3 * t_omp / max(omp_itr, 1):.3f}")
+    if omp_launches != omp_itr or omp_itr != STREAM_OMP_ITRS:
+        raise AssertionError(f"streamed omp: {omp_launches} select launches for {omp_itr}")
+    if not all(np.isfinite(errs)) or any(b > a * (1.0 + 1e-6) for a, b in zip(errs, errs[1:])) \
+            or not errs[-1] < errs[0]:
+        raise AssertionError(f"streamed omp: the error did not fall: {errs}")
+    ci = bc.snnls.make_consts_quantized(cs.V, cs.norms, cs.b, valid=cs.valid,
+                                        sampling="importance")
+    if ci.V.data_ptr() != cs.V.data_ptr():
+        raise AssertionError("streamed sampling: the int8 matrix was copied")
+    gs.launches = 0
+    imp = bc.snnls.ImportanceSampling.from_consts(ci, seed=3, max_active=1024)
+    e_imp0 = imp.error() / float(ci.bnorm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    imp.build(STREAM_DRAWS)
+    torch.cuda.synchronize()
+    t_imp = time.perf_counter() - t0
+    e_imp, w_imp = imp.error() / float(ci.bnorm), imp.weights()
+    say("streamed_sampling", method="importance", N=QUALITY_N, draws=STREAM_DRAWS,
+        size=imp.size(), counts=int(imp.state.cts.sum()), err0=f"{e_imp0:.6e}",
+        err=f"{e_imp:.6e}", ms_per_draw=f"{1e3 * t_imp / STREAM_DRAWS:.4f}",
+        select_launches=gs.launches)
+    if gs.launches or int(imp.state.cts.sum()) != STREAM_DRAWS:
+        raise AssertionError(f"streamed sampling: {gs.launches} select launches, "
+                             f"{int(imp.state.cts.sum())} counts")
+    if not (np.isfinite(w_imp).all() and (w_imp >= 0).all() and e_imp < e_imp0):
+        raise AssertionError(f"streamed sampling: error {e_imp} from {e_imp0}, or bad weights")
+    return launches, q_launches, omp_launches, select
+
+
 def main() -> int:
     import torch   # noqa: F401  (fails here without PyTorch)
 
@@ -1317,11 +1598,17 @@ def main() -> int:
     del Z, projector, coreset
     torch.cuda.empty_cache()
     pois_launches = phase_poisson(torch, smi)
+    gs.launches = 0
+    st_launches, stq_launches, st_omp_launches, st_select = phase_streamed(torch, smi)
     if ps.launches:
         raise AssertionError("a solver's path launched the packed select kernel")
     say("select_launches_by_path", giga=launches, frankwolfe=fw_launches, omp=omp_launches,
-        sampling=0, poisson_giga=pois_launches)
-    launches += fw_launches + omp_launches + pois_launches
+        sampling=0, poisson_giga=pois_launches, streamed_giga_N8M=st_launches,
+        quality_arms_N1M=stq_launches, streamed_omp_N1M=st_omp_launches,
+        streamed_sampling_N1M=0)
+    launches += (fw_launches + omp_launches + pois_launches + st_launches + stq_launches
+                 + st_omp_launches)
+    max_err = max(max_err, st_select[5])
     from bayesian_coresets_tpu_torch import native
     if any(m == "jax" or m.startswith(("jax.", "bayesian_coresets_tpu."))
            or m == "bayesian_coresets_tpu" for m in sys.modules):

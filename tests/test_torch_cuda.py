@@ -596,3 +596,94 @@ def test_optimize_on_card_matches_cpu(cuda_device):
         assert g.error() <= out[-1][1] * (1 + 1e-3)
     np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(out[1][1], out[0][1], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_select_past_2_to_32_bytes(cuda_device):
+    """The int8 select over 2^23 + 5 rows of 512 bytes (4.3 GB): the winner
+    in the last rows, an invalid stronger row before it, and a tie after it
+    (the first wins).  The index must be exact against the plain version,
+    which runs block by block."""
+    n, S = (1 << 23) + 5, 512
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    V = torch.randint(-20, 21, (n, S), generator=gen, device=cuda_device, dtype=torch.int8)
+    assert V.numel() > 2**32
+    dirs = torch.randn((S, 2), generator=gen, device=cuda_device)
+    dirs[:, 1] -= dirs[:, 0] * (dirs[:, 0] @ dirs[:, 1]) / (dirs[:, 0] @ dirs[:, 0])
+    dirs /= torch.linalg.vector_norm(dirs, dim=0)
+    top = torch.round(127.0 * dirs[:, 0] / dirs[:, 0].abs().max()).to(torch.int8)
+    near = top.clone()
+    near[0] = 0
+    V[n - 4], V[n - 3], V[n - 2], V[n - 1] = top, near, near, near
+    valid = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    valid[n - 4] = False
+    norms = torch.ones(n, device=cuda_device)
+    before = gs.launches
+    ki, ks = gs.giga_select(V, dirs, norms, valid)
+    assert gs.launches == before + 1
+    pi, pscore = gs.giga_select_ref(V, dirs, norms, valid)
+    assert int(ki) == int(pi) == n - 3
+    np.testing.assert_allclose(float(ks), float(pscore), rtol=1e-6)
+    valid[n - 4] = True                       # now the strongest row is live
+    assert int(gs.giga_select(V, dirs, norms, valid)[0]) == n - 4
+
+
+@pytest.mark.cuda
+def test_streamed_build_on_card_matches_cpu(cuda_device):
+    """HilbertCoreset(stream_chunk_size=) at N=20k on the card and on the
+    CPU, from the same numpy data and θ samples, projected in f64 so that
+    both quantize the same f32 vectors: equal int8 rows, the same atoms."""
+    from bayesian_coresets_tpu_torch.coresets.projector import Projector, center_lls
+    from bayesian_coresets_tpu_torch.models import logistic
+
+    rng = np.random.default_rng(5)
+    n, d, S = 20_000, 10, 500
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    y = np.where(rng.uniform(size=n) < 1 / (1 + np.exp(-x @ np.full(d, 3.0))), 1.0, -1.0)
+    z = (y[:, None] * x).astype(np.float32)
+    th = torch.as_tensor(0.1 * rng.normal(size=(S, d)))
+
+    class F64Projector(Projector):
+        def project(self, pts, grad=False):
+            return center_lls(logistic.log_likelihood(pts.double(), th.to(pts.device))).float()
+
+        def update(self, wts, pts):
+            pass
+
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        c = bc.HilbertCoreset(z, F64Projector(), stream_chunk_size=6000, max_active=1024,
+                              device=dev)
+        assert c.snnls.consts.V.device.type == dev.type and c.snnls.consts.V.dtype == torch.int8
+        before = gs.launches
+        c.build(200)
+        if dev.type == "cuda":
+            assert gs.launches - before == int(c.snnls.state.itr)
+        out[dev.type] = (c.snnls.consts.V.cpu(), c.get())
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    (wg, _, ig), (wc, _, ic) = out["cuda"][1], out["cpu"][1]
+    np.testing.assert_array_equal(ig, ic)
+    np.testing.assert_allclose(wg, wc, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_int8_resident_matvec_forms_no_f32_matrix(cuda_device):
+    """_v_matvec on int8-resident constants gathers only the support's rows:
+    its peak allocation stays far below the n x S x 4 bytes of an f32 V."""
+    n, S, k = 1 << 20, 512, 1024
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    Vq = torch.randint(-127, 128, (n, S), generator=gen, device=cuda_device, dtype=torch.int8)
+    norms = torch.rand(n, generator=gen, device=cuda_device) + 0.5
+    c = snnls.make_consts_quantized(Vq, norms, torch.ones(S, device=cuda_device))
+    w = torch.zeros(n, device=cuda_device)
+    idx = torch.randperm(n, generator=gen, device=cuda_device)[:k]
+    w[idx] = torch.rand(k, generator=gen, device=cuda_device) + 0.1
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    xw = snnls._v_matvec(c, w, support=k)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < n * S // 8
+    rows = Vq[idx].double() * (norms[idx].double() / 127.0)[:, None]
+    np.testing.assert_allclose(xw.cpu().numpy(), (w[idx].double() @ rows).cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
