@@ -45,8 +45,24 @@
 //     scores never reach device memory;
 //   - one launch: a packed 64-bit atomicMax per block, then the block with
 //     the last ticket decodes the key and resets the workspace.
-// Rows wider than the ring can hold (past 48 KB: f32 S > 12288) take
-// giga_select_wide_kernel below, in the same one launch.
+// Rows past 48 KB (f32 S > 12288, bf16 > 24576, int8 > 49152) take
+// giga_select_wide_kernel below, in the same one launch.  It replaces the
+// same TPU kernel (_giga_select_kernel) at wide projections, and is bound by
+// bytes too (f32 n=4096, S=12289: 201 MB at two multiply-adds per 4 bytes).
+// A ring tile of whole rows holds one such row, with one warp of eight
+// working on it (24-31% of the bound at 49168-byte rows), and a kernel that
+// read such rows straight from global memory kept too few bytes in flight
+// (one block per 36 rows, 18-56%).  The wide kernel instead streams groups
+// of 8 rows in 4 KB pieces
+// (stream_rows.cuh's row_groups): every consumer lane takes one 16-byte
+// chunk of each piece for all 8 rows, and a 3-4 stage TMA ring keeps
+// 96-128 KB in flight on each SM.  Each lane quantizes its own chunks of
+// the directions, one piece ahead of use, in the block's first group and
+// keeps them in shared memory for the others.  Staging the whole array
+// first, block-wide, held the stream back (393 KB of f32 per block for
+// int8 rows of 49168 bytes: 59% of the bound, packed 43%; PERF.md).  The 8
+// rows' sums are combined in warp order, so f32 and bf16 scores are the
+// same bits on every launch.
 // The TPU kernel's sequential running accumulator has no counterpart:
 // blocks on Hopper run in parallel and in no order.  The score epilogue
 // uses the _rn intrinsics so that FMA contraction cannot change its rounding
@@ -66,6 +82,12 @@ namespace {
 constexpr float kInv127Sq = (float)(1.0 / (127.0 * 127.0));
 
 enum SelectDtype { kInt8 = 0, kBf16 = 1, kF32 = 2 };
+
+// Rows past this take the wide-row kernel (a sweep may build other limits)
+#ifndef BCT_GIGA_RING_MAX_ROW
+#define BCT_GIGA_RING_MAX_ROW (48 * 1024)
+#endif
+constexpr int kRingMaxRow = BCT_GIGA_RING_MAX_ROW;
 
 struct SelectArgs {
   const unsigned char* V;
@@ -288,53 +310,69 @@ __global__ void __launch_bounds__(kThreads) giga_select_kernel(const SelectArgs 
   finish(best, a.ws, a.idx, a.score);
 }
 
-// Chunk c (16 bytes of a row) of both directions, quantized from the f32
-// (S, 2) array as quantize_dirs does, zero past S.
+// One 16-byte chunk's columns of both directions, in Vsel's type.
 struct Dirs2 {
   int4 p, q;
 };
 
+// The same select for rows past the ring's 48 KB (stream_rows.cuh's
+// row_groups): groups of 8 rows in 4 KB pieces through a 3-4 stage TMA
+// ring, one block per SM.  Each lane quantizes its own chunks of the
+// directions from the f32 array in the block's first group, as
+// quantize_dirs does, bit for bit, and keeps them in shared memory for the
+// later groups (rows up to 65984 bytes on the H100; wider rows fetch them
+// again in every group).  The row sums are combined in warp order, so f32
+// and bf16 scores are the same bits on every launch.
 template <int DT>
-__device__ __forceinline__ Dirs2 dirs_chunk(const float* __restrict__ dirs, int S, int c) {
-  constexpr int E = DT == kInt8 ? 16 : (DT == kBf16 ? 8 : 4);   // values per chunk
-  unsigned int p[4] = {}, q[4] = {};
-#pragma unroll
-  for (int k = 0; k < E; ++k) {
-    const int s = c * E + k;
-    const float f0 = s < S ? __ldg(dirs + 2 * s) : 0.0f;
-    const float f1 = s < S ? __ldg(dirs + 2 * s + 1) : 0.0f;
-    if constexpr (DT == kInt8) {
-      p[k / 4] |= ((unsigned int)quantize_int8(f0) & 0xFFu) << (8 * (k % 4));
-      q[k / 4] |= ((unsigned int)quantize_int8(f1) & 0xFFu) << (8 * (k % 4));
-    } else if constexpr (DT == kBf16) {
-      p[k / 2] |= (unsigned int)__bfloat16_as_ushort(__float2bfloat16_rn(f0)) << (16 * (k % 2));
-      q[k / 2] |= (unsigned int)__bfloat16_as_ushort(__float2bfloat16_rn(f1)) << (16 * (k % 2));
-    } else {
-      p[k] = __float_as_uint(f0);
-      q[k] = __float_as_uint(f1);
-    }
-  }
-  return Dirs2{make_int4((int)p[0], (int)p[1], (int)p[2], (int)p[3]),
-               make_int4((int)q[0], (int)q[1], (int)q[2], (int)q[3])};
-}
-
-// The same select for rows that the ring cannot hold (stream_rows.cuh's
-// wide_rows): no shared-memory directions, each chunk's are quantized from
-// the f32 array as they are used (it stays in L2), once for the warp's
-// kWideRowsPerWarp rows.  It is simple and not fast: each lane has few loads
-// in flight, and for int8 it converts 32 direction values per 16 data bytes.
-template <int DT>
-__global__ void __launch_bounds__(kThreads) giga_select_wide_kernel(const SelectArgs a) {
+__global__ void __launch_bounds__(kThreads) giga_select_wide_kernel(const SelectArgs a,
+                                                                    const Wide w) {
   using Acc = typename std::conditional<DT == kInt8, int, float>::type;
-  const unsigned long long best = wide_rows<Acc>(
-      a.V, a.n, a.row_bytes,
-      [&](int c) { return dirs_chunk<DT>(a.dirs, a.S, c); },
+  constexpr int E = DT == kInt8 ? 16 : (DT == kBf16 ? 8 : 4);   // columns per chunk
+  extern __shared__ __align__(128) unsigned char smem[];
+  const unsigned long long best = row_groups<Acc, 2 * E>(
+      a.V, a.n, a.row_bytes, w, smem, a.dirs, 2 * (long long)a.S,
+      [](const RawDirs<2 * E>& r) {
+        unsigned int p[4] = {}, q[4] = {};
+#pragma unroll
+        for (int k = 0; k < E; ++k) {
+          const float f0 = r.v[2 * k], f1 = r.v[2 * k + 1];
+          if constexpr (DT == kInt8) {
+            p[k / 4] |= ((unsigned int)quantize_int8(f0) & 0xFFu) << (8 * (k % 4));
+            q[k / 4] |= ((unsigned int)quantize_int8(f1) & 0xFFu) << (8 * (k % 4));
+          } else if constexpr (DT == kBf16) {
+            p[k / 2] |= (unsigned int)__bfloat16_as_ushort(__float2bfloat16_rn(f0)) << (16 * (k % 2));
+            q[k / 2] |= (unsigned int)__bfloat16_as_ushort(__float2bfloat16_rn(f1)) << (16 * (k % 2));
+          } else {
+            p[k] = __float_as_uint(f0);
+            q[k] = __float_as_uint(f1);
+          }
+        }
+        return Dirs2{make_int4((int)p[0], (int)p[1], (int)p[2], (int)p[3]),
+                     make_int4((int)q[0], (int)q[1], (int)q[2], (int)q[3])};
+      },
+      [](unsigned char* dq, int chunks, int c, const Dirs2& d) {
+        int4* d4 = reinterpret_cast<int4*>(dq);
+        d4[c] = d.p;
+        d4[chunks + c] = d.q;
+      },
+      [](const unsigned char* dq, int chunks, int c) {
+        const int4* d4 = reinterpret_cast<const int4*>(dq);
+        return Dirs2{d4[c], d4[chunks + c]};
+      },
       [](int4 x, const Dirs2& d, Acc& a0, Acc& a1) { dot<DT>(x, d.p, d.q, a0, a1); },
-      [&](Acc a0, Acc a1, long long row) {
-        const float nr = DT == kInt8 ? 1.0f : a.norms[row];
-        return row_key<DT>(a0, a1, nr, a.valid[row] != 0, row);
+      [&](long long row) {
+        return make_float2(DT == kInt8 ? 1.0f : a.norms[row], a.valid[row] ? 1.0f : 0.0f);
+      },
+      [](Acc a0, Acc a1, float2 s, long long row) {
+        return row_key<DT>(a0, a1, s.x, s.y != 0.0f, row);
       });
   finish(best, a.ws, a.idx, a.score);
+}
+
+const void* wide_kernel(int dtype) {
+  return dtype == kInt8   ? reinterpret_cast<const void*>(&giga_select_wide_kernel<kInt8>)
+         : dtype == kBf16 ? reinterpret_cast<const void*>(&giga_select_wide_kernel<kBf16>)
+                          : reinterpret_cast<const void*>(&giga_select_wide_kernel<kF32>);
 }
 
 template <int DT>
@@ -370,20 +408,26 @@ extern "C" int giga_select_launch(const void* V, int dtype, long long n, long lo
                        : dtype == kBf16 ? pick<kBf16>(log_g)
                                         : pick<kF32>(log_g);
   Plan plan;
-  cudaError_t err = plan_launch(kernel, n, rb, 2 * rb, (32 >> log_g) * kRowsPerStep, &plan);
+  cudaError_t err =
+      plan_launch(kernel, n, rb, 2 * rb, (32 >> log_g) * kRowsPerStep, kRingMaxRow, &plan);
   if (err != cudaSuccess) return (int)err;
   SelectArgs a{reinterpret_cast<const unsigned char*>(V), n, rb, plan.tile_rows, plan.stages,
                reinterpret_cast<const float*>(dirs), S, reinterpret_cast<const float*>(norms),
                reinterpret_cast<const unsigned char*>(valid),
                reinterpret_cast<Workspace*>(workspace), reinterpret_cast<int*>(idx),
                reinterpret_cast<float*>(score)};
-  void* args[] = {&a};
-  if (plan.stages == 0)                               // too wide for the ring
-    kernel = dtype == kInt8 ? reinterpret_cast<const void*>(&giga_select_wide_kernel<kInt8>)
-             : dtype == kBf16 ? reinterpret_cast<const void*>(&giga_select_wide_kernel<kBf16>)
-                              : reinterpret_cast<const void*>(&giga_select_wide_kernel<kF32>);
-  err = cudaLaunchKernel(kernel, dim3(plan.grid), dim3(kThreads), args, plan.smem,
-                         reinterpret_cast<cudaStream_t>(stream));
+  if (plan.stages == 0) {                             // too wide for the ring
+    kernel = wide_kernel(dtype);
+    WidePlan wp;
+    if ((err = plan_wide(kernel, n, rb, 2, &wp)) != cudaSuccess) return (int)err;
+    void* args[] = {&a, &wp.w};
+    err = cudaLaunchKernel(kernel, dim3(wp.grid), dim3(kThreads), args, wp.smem,
+                           reinterpret_cast<cudaStream_t>(stream));
+  } else {
+    void* args[] = {&a};
+    err = cudaLaunchKernel(kernel, dim3(plan.grid), dim3(kThreads), args, plan.smem,
+                           reinterpret_cast<cudaStream_t>(stream));
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

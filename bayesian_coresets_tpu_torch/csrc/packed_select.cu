@@ -27,8 +27,16 @@
 // hi1] are quantized in the kernel, once per block, into shared memory,
 // and each lane keeps its chunk of all four in registers for the whole
 // kernel when a row fits one pass of its group (every S <= 1024).
-// Packed rows wider than the ring can hold (past 32 KB) take
-// packed_select_wide_kernel below, in the same one launch.
+// Packed rows past 32 KB take packed_select_wide_kernel below, in the same
+// one launch.  It replaces the same TPU kernel (_packed_select_kernel) at
+// wide rows and is bound by bytes too (n=4096, S=65568: 134 MB).  At those
+// widths a ring tile holds one row, which one warp of eight would compute
+// on, and a kernel reading the rows straight from global memory, each lane
+// quantizing four direction chunks for every 16 data bytes, reached 18% of
+// the bound.  So it streams groups of 8 rows in 4 KB pieces through a TMA
+// ring, each lane quantizing its own chunks of the four direction rows in
+// the block's first group and keeping them in shared memory, as kernel 1's
+// wide-row kernel (stream_rows.cuh's row_groups).
 // The nibbles are never widened: (w << 4) & 0xF0F0F0F0 and w & 0xF0F0F0F0
 // leave each signed nibble in the high half of its byte, i.e. 16x its value
 // as an int8 lane, which __dp4a takes as it is.  The int32 sums are then
@@ -48,6 +56,12 @@ namespace {
 // f32 rounding of the probe's weakly typed constant 1/(7*127)
 constexpr float kInv7x127 = (float)(1.0 / (7.0 * 127.0));
 constexpr unsigned int kHiNibbles = 0xF0F0F0F0u;
+
+// Rows past this take the wide-row kernel (a sweep may build other limits)
+#ifndef BCT_PACKED_RING_MAX_ROW
+#define BCT_PACKED_RING_MAX_ROW (32 * 1024)
+#endif
+constexpr int kRingMaxRow = BCT_PACKED_RING_MAX_ROW;
 
 struct PackedArgs {
   const unsigned char* P;
@@ -227,39 +241,44 @@ __global__ void __launch_bounds__(kThreads) packed_select_kernel(const PackedArg
   finish(best, a.ws, a.idx, a.score);
 }
 
-// Chunk c of the four direction rows, quantized from the f32 (S, 2) array as
-// quantize_dirs4 does: byte j of [lo0, lo1, hi0, hi1] is q[2j][0], q[2j][1],
-// q[2j+1][0], q[2j+1][1], four consecutive floats; zero past S.
-__device__ __forceinline__ Dirs4 dirs_chunk_global(const float* __restrict__ dirs, int S, int c) {
-  unsigned int w[4][4] = {};                          // [direction row][32-bit word]
+// The same select for packed rows past the ring's 32 KB (stream_rows.cuh's
+// row_groups, as giga_select_wide_kernel): each lane quantizes its own
+// chunks of the four direction rows in the block's first group, as
+// quantize_dirs4 does, and keeps them in shared memory for the later groups
+// (rows up to 32992 bytes on the H100; wider rows fetch them again in every
+// group).  A chunk's 16 packed bytes hold 32 columns: 64 f32 values.
+__global__ void __launch_bounds__(kThreads) packed_select_wide_kernel(const PackedArgs a,
+                                                                      const Wide w) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const unsigned long long best = row_groups<int, 64>(
+      a.P, a.n, a.row_bytes, w, smem, a.dirs, 2 * (long long)a.S,
+      [](const RawDirs<64>& r) {
+        // byte j: columns 2j, 2j + 1, values 4j .. 4j + 3 = [lo0, lo1, hi0, hi1]
+        unsigned int b[4][4] = {};
 #pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    const int j = 16 * c + k;
+        for (int j = 0; j < 16; ++j) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int s = 2 * j + (r >> 1);
-      const float f = s < S ? __ldg(dirs + 2 * s + (r & 1)) : 0.0f;
-      w[r][k / 4] |= ((unsigned int)quantize_int8(f) & 0xFFu) << (8 * (k % 4));
-    }
-  }
-  const auto row = [&](int r) {
-    return make_int4((int)w[r][0], (int)w[r][1], (int)w[r][2], (int)w[r][3]);
-  };
-  return Dirs4{row(0), row(1), row(2), row(3)};
-}
-
-// The same select for rows that the ring cannot hold (stream_rows.cuh's
-// wide_rows): each chunk's directions are quantized from the f32 array as
-// they are used, once for the warp's kWideRowsPerWarp rows.  Simple, not
-// fast: 64 direction values are converted per 16 data bytes.
-__global__ void __launch_bounds__(kThreads) packed_select_wide_kernel(const PackedArgs a) {
-  const unsigned long long best = wide_rows<int>(
-      a.P, a.n, a.row_bytes,
-      [&](int c) { return dirs_chunk_global(a.dirs, a.S, c); },
+          for (int k = 0; k < 4; ++k)
+            b[k][j / 4] |= ((unsigned int)quantize_int8(r.v[4 * j + k]) & 0xFFu) << (8 * (j % 4));
+        }
+        const auto row = [&](int k) {
+          return make_int4((int)b[k][0], (int)b[k][1], (int)b[k][2], (int)b[k][3]);
+        };
+        return Dirs4{row(0), row(1), row(2), row(3)};
+      },
+      [](unsigned char* dq, int chunks, int c, const Dirs4& d) {
+        int4* d4 = reinterpret_cast<int4*>(dq);
+        d4[c] = d.l0;
+        d4[chunks + c] = d.l1;
+        d4[2 * chunks + c] = d.h0;
+        d4[3 * chunks + c] = d.h1;
+      },
+      [](const unsigned char* dq, int chunks, int c) {
+        return dirs_chunk(reinterpret_cast<const int4*>(dq), chunks, c);
+      },
       [](int4 x, const Dirs4& d, int& a0, int& a1) { packed_chunk_dot(x, d, a0, a1); },
-      [&](int a0, int a1, long long row) {
-        return row_key(a0, a1, a.nrminv[row], a.bias[row], row);
-      });
+      [&](long long row) { return make_float2(a.nrminv[row], a.bias[row]); },
+      [](int a0, int a1, float2 s, long long row) { return row_key(a0, a1, s.x, s.y, row); });
   finish(best, a.ws, a.idx, a.score);
 }
 
@@ -294,17 +313,25 @@ extern "C" int packed_select_launch(const void* P, long long n, long long row_by
   const int log_g = group_log2(rb / 16);
   const void* kernel = pick(log_g);
   Plan plan;
-  cudaError_t err = plan_launch(kernel, n, rb, 4 * rb, (32 >> log_g) * kRowsPerStep, &plan);
+  cudaError_t err =
+      plan_launch(kernel, n, rb, 4 * rb, (32 >> log_g) * kRowsPerStep, kRingMaxRow, &plan);
   if (err != cudaSuccess) return (int)err;
   PackedArgs a{reinterpret_cast<const unsigned char*>(P), n, rb, plan.tile_rows, plan.stages,
                reinterpret_cast<const float*>(dirs), S, reinterpret_cast<const float*>(nrminv),
                reinterpret_cast<const float*>(bias), reinterpret_cast<Workspace*>(workspace),
                reinterpret_cast<int*>(idx), reinterpret_cast<float*>(score)};
-  void* args[] = {&a};
-  if (plan.stages == 0)                               // too wide for the ring
+  if (plan.stages == 0) {                             // too wide for the ring
     kernel = reinterpret_cast<const void*>(&packed_select_wide_kernel);
-  err = cudaLaunchKernel(kernel, dim3(plan.grid), dim3(kThreads), args, plan.smem,
-                         reinterpret_cast<cudaStream_t>(stream));
+    WidePlan wp;
+    if ((err = plan_wide(kernel, n, rb, 4, &wp)) != cudaSuccess) return (int)err;
+    void* args[] = {&a, &wp.w};
+    err = cudaLaunchKernel(kernel, dim3(wp.grid), dim3(kThreads), args, wp.smem,
+                           reinterpret_cast<cudaStream_t>(stream));
+  } else {
+    void* args[] = {&a};
+    err = cudaLaunchKernel(kernel, dim3(plan.grid), dim3(kThreads), args, plan.smem,
+                           reinterpret_cast<cudaStream_t>(stream));
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

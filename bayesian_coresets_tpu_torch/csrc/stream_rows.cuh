@@ -1,5 +1,6 @@
-// A persistent, TMA-fed stream of whole rows, and a one-launch argmax finish,
-// shared by the select kernels (giga_select.cu, packed_select.cu).
+// A persistent, TMA-fed stream of whole rows (stream_rows), one of groups of
+// wide rows walked piece by piece (row_groups), and a one-launch argmax
+// finish, shared by the select kernels (giga_select.cu, packed_select.cu).
 //
 // Layout of a launch:
 //   - a persistent grid: SMs x the blocks of this kernel that fit on an SM
@@ -21,9 +22,12 @@
 //     ticket decodes the key into (idx, score) and resets key and ticket to
 //     0, so the workspace is ready for the next launch on the stream.
 //
-// Rows too wide for the ring (the directions plus two one-row stages exceed
-// a block's shared memory) take wide_rows below instead of the ring, with
-// the same finish.
+// Rows past the ring's limit (48 KB; packed 32 KB: past it a tile holds one
+// row, and one warp of eight computes on it) take row_groups below instead:
+// the same persistent grid (one block per SM: the quantized directions of
+// the whole row fill up to half of its shared memory), the same finish, but
+// ring stages of one 4 KB piece of each of kGroupRows rows, so every
+// consumer lane works on every stage, and 96-128 KB in flight per SM again.
 //
 // Everything here has internal linkage: each kernel source includes its own
 // copy, so the library links without duplicate symbols.
@@ -49,12 +53,26 @@ constexpr int kMaxStages = 4;
 constexpr int kTileTarget = 8192;                      // bytes per tile
 constexpr int kBarBytes = 128;                         // 2 x kMaxStages mbarriers
 constexpr int kRowsPerStep = 4;                        // rows per lane group per step
-// Rows too wide for the ring (see plan_launch) take a kernel without one:
-// every warp of the block reads kWideRowsPerWarp rows at a time straight
-// from global memory, in a grid-stride loop.
-constexpr int kWideRowsPerWarp = 4;
-constexpr int kWideRowsPerBlock = kWideRowsPerWarp * (kThreads / 32);
-constexpr int kWideBlocksPerSM = 4;
+// The wide-row stream (row_groups): a work item is a group of kGroupRows
+// whole rows, walked in pieces of kPieceBytes (one 16-byte chunk per
+// consumer lane); a ring stage holds one piece of each row of the group.
+// Stages: as many as fit up to kWideMaxStages, and at least enough for
+// kWideInFlight bytes per block (one block per SM: the directions fill the
+// rest of its shared memory).  The macros let a sweep build variants.
+#ifndef BCT_WIDE_GROUP_ROWS
+#define BCT_WIDE_GROUP_ROWS 8
+#endif
+#ifndef BCT_WIDE_MAX_STAGES
+#define BCT_WIDE_MAX_STAGES 4
+#endif
+constexpr int kGroupRows = BCT_WIDE_GROUP_ROWS;
+constexpr int kPieceBytes = kConsumerWarps * 32 * 16;  // 4096
+constexpr int kWideMaxStages = BCT_WIDE_MAX_STAGES;
+constexpr int kWideInFlight = 96 * 1024;
+// per-warp partial sums of a group, double-buffered: [2][kConsumerWarps][2R]
+constexpr int kPartBytes = 2 * kConsumerWarps * 2 * kGroupRows * 4;
+static_assert(kWideMaxStages <= kMaxStages, "the ring has kMaxStages barrier pairs");
+static_assert(kGroupRows <= 32, "one lane of warp 0 scores each row of a group");
 
 // The per-(device, stream) state of the one-launch finish; zero between
 // launches.
@@ -190,52 +208,169 @@ __device__ __forceinline__ void stream_rows(const unsigned char* __restrict__ sr
   }
 }
 
-// The wide-row stream: rows that the ring cannot hold (plan_launch) are read
-// straight from global memory.  Every warp of the block, the ninth too,
-// takes kWideRowsPerWarp rows at a time in a grid-stride loop; its lanes
-// take the rows' 16-byte chunks c = lane, lane + 32, ..., so a warp's loads
-// are contiguous, and one set of directions serves all the warp's rows.
-// dirs_at(c) gives chunk c of the directions, dot(x, d, a0, a1) adds one
-// chunk's products to a row's two sums, and key(a0, a1, row) is the row's
-// packed key from its summed dots.  Returns this thread's best key.
-template <typename Acc, class DirsAt, class Dot, class Key>
-__device__ __forceinline__ unsigned long long wide_rows(const unsigned char* __restrict__ src,
-                                                        long long n, int row_bytes,
-                                                        DirsAt&& dirs_at, Dot&& dot, Key&& key) {
-  constexpr int U = kWideRowsPerWarp;
-  const int lane = threadIdx.x & 31;
+// The launch shape of the wide-row stream (plan_wide).
+struct Wide {
+  int stages;       // ring stages, each kGroupRows pieces of kPieceBytes
+  int dirs_bytes;   // the whole row's quantized directions in shared memory
+                    // (0: they do not fit, every group fetches them)
+};
+
+// The f32 values of one 16-byte chunk's directions, V of them, in the f32
+// (S, 2) array's order: value 2 s + d is column s, direction d.
+template <int V>
+struct RawDirs {
+  float v[V];
+};
+
+// Values [first, first + V) of the f32 directions, zero from `valid` on:
+// 16-byte loads where the array allows, else one value at a time.
+template <int V>
+__device__ __forceinline__ void fetch_dirs(const float* __restrict__ dirs, long long valid,
+                                           long long first, RawDirs<V>& r) {
+  const float* p = dirs + first;
+  if (first + V <= valid && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+    for (int k = 0; k < V / 4; ++k) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(p) + k);
+      r.v[4 * k] = f.x;
+      r.v[4 * k + 1] = f.y;
+      r.v[4 * k + 2] = f.z;
+      r.v[4 * k + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) r.v[k] = first + k < valid ? __ldg(p + k) : 0.0f;
+  }
+}
+
+// The wide-row stream.  The block owns a contiguous range of groups of
+// kGroupRows whole rows, and walks each group's rows together in pieces of
+// kPieceBytes, in order; ring stage i holds piece p of every row of the
+// group (one bulk copy per row), which the producer warp's lane 0 keeps in
+// flight as stream_rows does.  Consumer thread t takes chunk t of each
+// piece for all the group's rows, so it needs one direction chunk per
+// piece, which it keeps in registers for the kGroupRows rows:
+//   - the directions are V f32 values per chunk of `dirs` (valid values
+//     from 0 to `valid`, zero past them); in the block's first group thread
+//     t fetches its own chunks' values (fetch_dirs, one piece ahead, so the
+//     loads overlap the stream) and quantizes them, quant(raw) -> d; where
+//     the whole row's fit (dirs_bytes) it also stores them in shared
+//     memory, put(dq, chunks, c, d), and later groups read them back,
+//     get(dq, chunks, c); elsewhere every group fetches them.  Each thread
+//     reads only what it wrote: no barrier;
+//   - dot(x, d, a0, a1) adds one chunk's products to a row's two sums, which
+//     stay in registers across the group's pieces; then each warp sums them
+//     by a butterfly, and warp 0 adds the eight warps' sums in warp order
+//     (no atomics: the same inputs give the same bits on every launch);
+//   - scalars(row) loads a row's per-row inputs when its group starts, and
+//     key(a0, a1, s, row) is the row's packed key.
+// Called by every thread; returns this thread's best key (0: none).
+template <typename Acc, int V, class Quant, class Put, class Get, class Dot, class Scalars,
+          class Key>
+__device__ __forceinline__ unsigned long long row_groups(
+    const unsigned char* __restrict__ src, long long n, int row_bytes, const Wide w,
+    unsigned char* smem, const float* __restrict__ dirs, long long valid, Quant&& quant,
+    Put&& put, Get&& get, Dot&& dot, Scalars&& scalars, Key&& key) {
+  constexpr int R = kGroupRows;
+  constexpr int kChunksPerPiece = kPieceBytes / 16;
+  Acc* part = reinterpret_cast<Acc*>(smem + kBarBytes);
+  unsigned char* dq = smem + kBarBytes + kPartBytes;
+  const Ring ring = ring_setup(smem, dq + w.dirs_bytes, w.stages, R * kPieceBytes);
+  __syncthreads();
+  const Span span = block_span(n, R);
+  const int pieces = (row_bytes + kPieceBytes - 1) / kPieceBytes;
+  const int chunks = row_bytes / 16;
   const int warp = threadIdx.x >> 5;
-  const int C = row_bytes / 16;
-  const long long stride = (long long)gridDim.x * kWideRowsPerBlock;
-  unsigned long long best = 0ull;                     // below every real key
-  // r0 and C are the same on every lane, so every lane reaches the shuffles
-  for (long long r0 = ((long long)blockIdx.x * (kThreads / 32) + warp) * U; r0 < n;
-       r0 += stride) {
-    Acc v[2 * U];
-#pragma unroll
-    for (int k = 0; k < 2 * U; ++k) v[k] = 0;
-    for (int c = lane; c < C; c += 32) {
-      const auto d = dirs_at(c);
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (r0 + u < n) {
-          const int4 x = reinterpret_cast<const int4*>(src + (size_t)(r0 + u) * row_bytes)[c];
-          dot(x, d, v[2 * u], v[2 * u + 1]);
+  const int lane = threadIdx.x & 31;
+
+  if (warp == kConsumerWarps) {                       // the producer
+    if (lane == 0) {
+      long long i = 0;
+      for (long long g = span.first; g < span.first + span.count; ++g) {
+        const long long row0 = g * R;
+        const int rows = (int)(n - row0 < R ? n - row0 : R);
+        for (int p = 0; p < pieces; ++p, ++i) {
+          const int st = (int)(i % ring.stages);
+          if (i >= ring.stages)
+            mbar_wait(ring.empty + st, (unsigned int)((i / ring.stages - 1) & 1));
+          const int off = p * kPieceBytes;
+          const unsigned int bytes = (unsigned int)min(kPieceBytes, row_bytes - off);
+          unsigned char* dst = ring.buf + (size_t)st * ring.tile_bytes;
+          mbar_expect_tx(ring.full + st, rows * bytes);
+          for (int u = 0; u < rows; ++u)
+            bulk_g2s(dst + u * kPieceBytes, src + (row0 + u) * row_bytes + off, bytes,
+                     ring.full + st);
         }
       }
     }
+    return 0ull;
+  }
+
+  const int t = threadIdx.x;                          // chunk t of every piece
+  RawDirs<V> raw;
+  unsigned long long best = 0ull;                     // below every real key
+  long long i = 0;
+  for (long long g = span.first; g < span.first + span.count; ++g) {
+    const long long row0 = g * R;
+    const int rows = (int)(n - row0 < R ? n - row0 : R);
+    const bool fresh = !w.dirs_bytes || g == span.first;
+    const auto sc = scalars(row0 + (warp == 0 && lane < rows ? lane : 0));
+    if (fresh && t < chunks) fetch_dirs<V>(dirs, valid, (long long)t * V, raw);
+    Acc v[2 * R];
 #pragma unroll
-    for (int k = 0; k < 2 * U; ++k) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v[k] += __shfl_xor_sync(0xFFFFFFFFu, v[k], off);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {                     // lane u scores row r0 + u
-      if (lane == u && r0 + u < n) {
-        const unsigned long long k = key(v[2 * u], v[2 * u + 1], r0 + u);
-        best = k > best ? k : best;
+    for (int k = 0; k < 2 * R; ++k) v[k] = 0;
+    for (int p = 0; p < pieces; ++p, ++i) {
+      const int c = p * kChunksPerPiece + t;          // this thread's chunk of the row
+      decltype(quant(raw)) d;
+      if (c < chunks) {
+        if (fresh) {
+          d = quant(raw);
+          if (w.dirs_bytes) put(dq, chunks, c, d);
+          if (c + kChunksPerPiece < chunks)           // the next piece's, in flight meanwhile
+            fetch_dirs<V>(dirs, valid, (long long)(c + kChunksPerPiece) * V, raw);
+        } else {
+          d = get(dq, chunks, c);
+        }
       }
+      const int st = (int)(i % ring.stages);
+      mbar_wait(ring.full + st, (unsigned int)((i / ring.stages) & 1));
+      if (c < chunks) {
+        const unsigned char* b = ring.buf + (size_t)st * ring.tile_bytes + t * 16;
+        int4 x[R];
+#pragma unroll
+        for (int u = 0; u < R; ++u)
+          if (u < rows) x[u] = *reinterpret_cast<const int4*>(b + u * kPieceBytes);
+#pragma unroll
+        for (int u = 0; u < R; ++u)
+          if (u < rows) dot(x[u], d, v[2 * u], v[2 * u + 1]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(ring.empty + st);
     }
+#pragma unroll
+    for (int k = 0; k < 2 * R; ++k) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v[k] += __shfl_xor_sync(0xFFFFFFFFu, v[k], o);
+    }
+    Acc* pg = part + ((g - span.first) & 1) * (kConsumerWarps * 2 * R);
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < 2 * R; ++k) pg[warp * 2 * R + k] = v[k];
+    }
+    // one barrier per group: warp 0 reads this buffer before it reaches the
+    // next group's barrier, after which the other warps write the other one
+    consumer_sync();
+    if (warp == 0 && lane < rows) {                   // lane u scores row row0 + u
+      Acc a0 = pg[2 * lane], a1 = pg[2 * lane + 1];
+#pragma unroll
+      for (int ww = 1; ww < kConsumerWarps; ++ww) {
+        a0 += pg[ww * 2 * R + 2 * lane];
+        a1 += pg[ww * 2 * R + 2 * lane + 1];
+      }
+      const unsigned long long k = key(a0, a1, sc, row0 + lane);
+      best = k > best ? k : best;
+    }
+    __syncwarp();
   }
   return best;
 }
@@ -268,8 +403,7 @@ __device__ __forceinline__ void finish(unsigned long long best, Workspace* __res
 }
 
 // Host side: the launch shape of one select.  stages == 0: the rows are too
-// wide for the ring, and `grid` is the wide-row kernel's (no dynamic shared
-// memory).
+// wide for the ring; plan_wide gives the wide-row kernel's shape.
 struct Plan {
   int grid;
   int stages;
@@ -277,14 +411,26 @@ struct Plan {
   size_t smem;
 };
 
-// Rows per tile: about kTileTarget bytes, a whole number of steps of
-// `step_rows` rows when a step fits; stages: kMaxStages, fewer if the
-// device's shared memory cannot hold them (at least 2); grid: SMs x resident
-// blocks, capped at the tile count.  `kernel` is the instantiation to run.
-// Where the directions and two one-row stages do not fit the block's shared
-// memory, the plan is the wide-row kernel's (stages == 0).
-inline cudaError_t plan_launch(const void* kernel, long long n, int row_bytes, int dirs_bytes,
-                               int step_rows, Plan* out) {
+// The device's SM count and the dynamic shared memory a block may use
+// (the opt-in maximum less room for static shared memory).
+inline cudaError_t device_limits(int* dev, int* sms, size_t* budget) {
+  int optin = 0;
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, *dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev)) !=
+      cudaSuccess)
+    return err;
+  *budget = (size_t)optin - 1024;
+  return cudaSuccess;
+}
+
+// Blocks of `kernel` resident per SM at `smem` bytes of dynamic shared
+// memory (cached per kernel, device and size).  The first call for a
+// (kernel, device) allows the kernel the whole budget.
+inline cudaError_t resident_blocks(const void* kernel, int dev, size_t budget, size_t smem,
+                                   int* occ) {
   static std::mutex mu;
   struct Entry {
     const void* kernel;
@@ -296,16 +442,48 @@ inline cudaError_t plan_launch(const void* kernel, long long n, int row_bytes, i
   static int cached = 0;
   static struct { const void* kernel; int dev; } opened[64];
   static int n_opened = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  bool open = false;
+  for (int i = 0; i < n_opened; ++i)
+    open = open || (opened[i].kernel == kernel && opened[i].dev == dev);
+  if (!open) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)budget);
+    if (err != cudaSuccess) return err;
+    if (n_opened < 64) {
+      opened[n_opened].kernel = kernel;
+      opened[n_opened].dev = dev;
+      ++n_opened;
+    }
+  }
+  *occ = 0;
+  for (int i = 0; i < cached && !*occ; ++i)
+    if (cache[i].kernel == kernel && cache[i].dev == dev && cache[i].smem == smem)
+      *occ = cache[i].occ;
+  if (!*occ) {
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, kernel, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (*occ < 1) return cudaErrorInvalidConfiguration;
+    cache[cached % 64] = Entry{kernel, dev, smem, *occ};
+    if (cached < 64) ++cached;
+  }
+  return cudaSuccess;
+}
+
+// Rows per tile: about kTileTarget bytes, a whole number of steps of
+// `step_rows` rows when a step fits; stages: kMaxStages, fewer if the
+// device's shared memory cannot hold them (at least 2); grid: SMs x resident
+// blocks, capped at the tile count.  `kernel` is the instantiation to run.
+// Rows past `ring_max_row` bytes, or whose directions and two one-row
+// stages do not fit the block's shared memory, are the wide-row kernel's
+// (stages == 0).
+inline cudaError_t plan_launch(const void* kernel, long long n, int row_bytes, int dirs_bytes,
+                               int step_rows, int ring_max_row, Plan* out) {
   if (n <= 0 || row_bytes <= 0 || row_bytes % 16) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int dev = 0, sms = 0;
+  size_t budget = 0;
+  cudaError_t err = device_limits(&dev, &sms, &budget);
   if (err != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
-      cudaSuccess)
-    return err;
-  const size_t budget = (size_t)optin - 1024;          // room for static shared memory
   int tile_rows = kTileTarget / row_bytes;
   if (tile_rows < 1) tile_rows = 1;
   if (tile_rows >= step_rows) tile_rows -= tile_rows % step_rows;
@@ -315,45 +493,62 @@ inline cudaError_t plan_launch(const void* kernel, long long n, int row_bytes, i
   int stages = kMaxStages;
   while (stages > 2 && fixed + stages * tile_bytes > budget) --stages;
   const size_t smem = fixed + stages * tile_bytes;
-  if (smem > budget) {                                // rows too wide for the ring
-    const long long want = (n + kWideRowsPerBlock - 1) / kWideRowsPerBlock;
-    const long long cap = (long long)sms * kWideBlocksPerSM;
-    *out = Plan{(int)(want < cap ? want : cap), 0, 0, 0};
+  if (row_bytes > ring_max_row || smem > budget) {    // rows too wide for the ring
+    *out = Plan{0, 0, 0, 0};
     return cudaSuccess;
   }
   int occ = 0;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    bool open = false;
-    for (int i = 0; i < n_opened; ++i)
-      open = open || (opened[i].kernel == kernel && opened[i].dev == dev);
-    if (!open) {
-      // once per (kernel, device): allow the whole budget, whatever this call needs
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)budget);
-      if (err != cudaSuccess) return err;
-      if (n_opened < 64) {
-        opened[n_opened].kernel = kernel;
-        opened[n_opened].dev = dev;
-        ++n_opened;
-      }
-    }
-    for (int i = 0; i < cached && !occ; ++i)
-      if (cache[i].kernel == kernel && cache[i].dev == dev && cache[i].smem == smem)
-        occ = cache[i].occ;
-    if (!occ) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, smem);
-      if (err != cudaSuccess) return err;
-      if (occ < 1) return cudaErrorInvalidConfiguration;
-      cache[cached % 64] = Entry{kernel, dev, smem, occ};
-      if (cached < 64) ++cached;
-    }
-  }
+  if ((err = resident_blocks(kernel, dev, budget, smem, &occ)) != cudaSuccess) return err;
   const long long tiles = (n + tile_rows - 1) / tile_rows;
   const long long cap = (long long)sms * occ;
   out->grid = (int)(tiles < cap ? tiles : cap);
   out->stages = stages;
   out->tile_rows = tile_rows;
   out->smem = smem;
+  return cudaSuccess;
+}
+
+struct WidePlan {
+  int grid;
+  Wide w;
+  size_t smem;
+};
+
+// The wide-row kernel's shape for (n, row_bytes) rows whose quantized
+// directions take `dirs_per_byte` shared-memory bytes per row byte (2 for
+// GIGA's two directions, 4 for the packed kernel's four direction rows).
+// Stages: the most up to kWideMaxStages that fit beside the whole row's
+// directions, but no fewer than kWideInFlight needs; where that does not
+// fit, the directions stay out of shared memory (every group fetches them)
+// and the ring takes as many stages as fit.  grid: SMs x resident blocks,
+// capped at the group count.
+inline cudaError_t plan_wide(const void* kernel, long long n, int row_bytes, int dirs_per_byte,
+                             WidePlan* out) {
+  if (n <= 0 || row_bytes <= 0 || row_bytes % 16) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  size_t budget = 0;
+  cudaError_t err = device_limits(&dev, &sms, &budget);
+  if (err != cudaSuccess) return err;
+  const size_t stage = (size_t)kGroupRows * kPieceBytes;
+  const size_t fixed = kBarBytes + kPartBytes;
+  int least = (int)((kWideInFlight + stage - 1) / stage);
+  if (least < 2) least = 2;
+  if (least > kWideMaxStages) least = kWideMaxStages;
+  size_t dirs = ((size_t)dirs_per_byte * row_bytes + 127) / 128 * 128;
+  int stages = kWideMaxStages;
+  while (stages > least && fixed + dirs + stages * stage > budget) --stages;
+  if (fixed + dirs + stages * stage > budget) {
+    dirs = 0;
+    stages = kWideMaxStages;
+    while (stages > 2 && fixed + stages * stage > budget) --stages;
+    if (fixed + stages * stage > budget) return cudaErrorInvalidConfiguration;
+  }
+  const size_t smem = fixed + dirs + stages * stage;
+  int occ = 0;
+  if ((err = resident_blocks(kernel, dev, budget, smem, &occ)) != cudaSuccess) return err;
+  const long long groups = (n + kGroupRows - 1) / kGroupRows;
+  const long long cap = (long long)sms * occ;
+  *out = WidePlan{(int)(groups < cap ? groups : cap), Wide{stages, (int)dirs}, smem};
   return cudaSuccess;
 }
 

@@ -139,9 +139,9 @@ def packed_select(P: torch.Tensor, dirs2: torch.Tensor, nrminv: torch.Tensor,
     nrminv, bias: (n,) f32.  On a CUDA tensor this makes one kernel launch
     on the current stream, without synchronizing (padding P's columns to
     whole 16-byte chunks first if they are not): packed rows of at most
-    32 KB (the four direction rows and two one-row stages fit a block's
-    shared memory) stream through the TMA ring kernel, wider rows, up to the
-    entry point's 1 MiB, through the wide-row kernel of the same source.  On
+    32 KB stream through the TMA ring kernel in tiles of whole rows, wider
+    rows, up to the entry point's 1 MiB, through the wide-row kernel of the
+    same source, in groups of 8 rows walked in 4 KB pieces.  On
     a CPU tensor it runs :func:`packed_select_ref`.
     """
     global launches

@@ -20,9 +20,10 @@ script exits non-zero without printing the final result line):
    argmax; the port never calls it): ``torch._int_mm(Vsel, Q)`` for int8,
    ``torch.matmul(Vsel, Q)`` with TF32 off for bf16 and f32; then rows past
    the ring kernel's 48 KB through the wide-row kernel (f32 S=12289 and
-   16384, bf16 S=24584, int8 S=49168, n=4096: random directions, the winner
-   invalid, ties), each timed beside its bound and its library call, and
-   int8 dots past 2^24;
+   16384, bf16 S=24584, int8 S=49168, n=4096, and phase 17's f32 n=100k
+   S=16384: random directions, the winner invalid, ties), each timed beside
+   its bound and its library call (these matrices are far larger than L2,
+   so their batch time is their cold time), and int8 dots past 2^24;
 4. packed select: the packed-int4 select kernel against its plain version
    at the probe's size (N=2^20, S=512): random directions, the winner's
    block invalid, ties, all invalid, a row count off the tile, and
@@ -37,7 +38,10 @@ script exits non-zero without printing the final result line):
    M=200) on the card through the kernel and on the CPU through the plain
    version, from the same arrays, must select the same atoms, once with the
    int8 select copy beside an f32 V and once from int8-resident constants
-   (``make_consts_quantized``);
+   (``make_consts_quantized``); and a GIGA build through the wide-row kernel
+   (f32, N=4096, S=12289, M=50): the same atoms, or, where an f32 near-tie
+   flips a select, both rows' scores printed and the errors at M within
+   1e-3 relative;
 6. main path at full width, bench.py's flagship build (bench.py:88-109):
    logistic data N=100k, D=10 -> BlackBoxProjector(S=500 samples
    theta ~ 0.1 N(0, I)) -> HilbertCoreset(int8 select, max_active=1024)
@@ -102,13 +106,22 @@ script exits non-zero without printing the final result line):
    equal but for ±1, norms within rtol 1e-5, and the streamed error at
    M=500 below max(2x the in-memory one, 0.05 x the initial one), the JAX
    package's rule); OMP (25 iterations, max_active=128) and importance
-   sampling (200 draws) from the N=1M int8-resident constants.
+   sampling (200 draws) from the N=1M int8-resident constants;
+17. a Hilbert build through the wide-row kernel: phase 6's data ->
+   BlackBoxProjector(S=16384 samples theta ~ 0.1 N(0, I), bench.py:97's
+   rule at a user-chosen projection size) -> ``HilbertCoreset(max_active=
+   1024)`` with the default f32 select copy (V itself, 6.55 GB, rows of 64
+   KB) -> ``.build(200)`` with GIGA, then the same with
+   ``snnls=FrankWolfe``: ms per iteration, one select launch per iteration,
+   error()/|b| at M (finite, no larger than after the first iteration), the
+   peak allocation, and a profiled window as in phase 6 with the select's
+   device µs per iteration beside its bound.
 
 Phases 8-11 and 14 launch no hand-written kernel: the JAX package computes
 SparseVI, BatchPSVI, the re-solve and the sampling solvers with plain XLA
 ops.  Every path is driven with the kernels' launch counts set to 0 just
 before it and read just after; the kernels' ``launches`` are the sums over
-the paths that select through them (phases 6, 12, 13, 15, 16).  The line before
+the paths that select through them (phases 6, 12, 13, 15, 16, 17).  The line before
 the last is the kernels' JSON; the
 last line is ``{"ok": true, "device": {...}}``.  The port imports no JAX.
 """
@@ -153,8 +166,14 @@ RKL_SLACK = 1.5
 PROFILE_STEPS = 10          # Adam steps in each profiled window
 # rows past the ring kernels' shared memory (48 KB; packed 32 KB): (dtype, S)
 WIDE_N = 4096
-WIDE_SELECT = [("float32", 12289), ("float32", 16384), ("bfloat16", 24584), ("int8", 49168)]
+WIDE_SELECT = [("float32", WIDE_N, 12289), ("float32", WIDE_N, 16384),
+               ("bfloat16", WIDE_N, 24584), ("int8", WIDE_N, 49168),
+               ("float32", 100_000, 16384)]          # phase 17's select
 WIDE_PACKED_S = 65568       # a 32784-byte packed row
+# phase 5's card-against-CPU build through the wide-row kernel (f32 select)
+WIDE_PARITY_N, WIDE_PARITY_S, WIDE_PARITY_M = 4096, 12289, 50
+# phase 17: a Hilbert build at a user-chosen projection past the ring's 48 KB
+WIDE_BUILD_S, WIDE_BUILD_M = 16384, 200
 OMP_ITRS, OMP_ACTIVE, OMP_CHUNK = 100, 128, 25
 SAMPLING_DRAWS = 500
 POIS_M, POIS_CHAINS, POIS_DRAWS = 200, 256, 100
@@ -331,10 +350,13 @@ def _library_ms(torch, Vsel, dirs):
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def _hold(kernel, plain, args, label, expect_idx=None):
+def _hold(kernel, plain, args, label, expect_idx=None, scale=None):
     """A select kernel against its plain version on the same inputs: the
     index identical (and ``expect_idx`` if given), the score within
-    SELECT_TOL relative (-inf exactly).  Returns (index, score error)."""
+    SELECT_TOL relative (-inf exactly); with ``scale``, within SELECT_TOL of
+    the larger of the score and ``scale(args, index)[1]``, the size of the
+    absolute products that f32 sums in two orders round at (``_f32_scale``).
+    Returns (index, score error)."""
     ki, ks = kernel(*args)
     pi, pscore = plain(*args)
     ki, ks, pi, pscore = int(ki), float(ks), int(pi), float(pscore)
@@ -345,9 +367,26 @@ def _hold(kernel, plain, args, label, expect_idx=None):
             raise AssertionError(f"{label}: kernel score {ks}, plain -inf")
         return pi, 0.0
     err = abs(ks - pscore)
-    if err > SELECT_TOL * abs(pscore):
+    size = abs(pscore) if scale is None else max(abs(pscore), scale(args, pi)[1])
+    if err > SELECT_TOL * size:
         raise AssertionError(f"{label}: score {ks} vs {pscore}")
     return pi, err
+
+
+def _f32_scale(torch, args, f):
+    """For an f32 or bf16 select: row f's score in f64, and the same score
+    from the sums of absolute products, (sum |v q0| + sum |v q1|) / (|v|
+    sqrt(1 - d1^2)).  f32 sums of one row in two orders differ by a few
+    ulps of the latter, which is far larger than the score where the dot
+    cancels (a near-orthogonal winner among many rows)."""
+    import math
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+    V, dirs, norms = args[0], args[1], args[2]
+    q = gs.quantize_dirs(dirs, V.shape[1], V.dtype).double()
+    v, nr = V[f].double(), float(norms[f])
+    d = (q @ v) / nr
+    den = math.sqrt(max(1.0 - float(d[1]) ** 2, 1e-30))
+    return float(d[0]) / den, float((q.abs() @ v.abs()).sum()) / nr / den
 
 
 def _select_problem(torch, n, S, dtype, seed):
@@ -364,14 +403,14 @@ def _select_problem(torch, n, S, dtype, seed):
     return c, dirs
 
 
-def _hold_wide(torch, kernel, plain, args, kill, label):
+def _hold_wide(torch, kernel, plain, args, kill, label, scale=None):
     """A wide-row select against its plain version: random directions, the
     winner dead (``kill(args, f)`` returns the inputs with row f invalid),
     and copies of the winner before and after it (the first wins).  Returns
     the largest score error."""
     n = args[0].shape[0]
-    f, err = _hold(kernel, plain, args, f"{label} random")
-    f2, e2 = _hold(kernel, plain, kill(args, f), f"{label} invalid_winner")
+    f, err = _hold(kernel, plain, args, f"{label} random", scale=scale)
+    f2, e2 = _hold(kernel, plain, kill(args, f), f"{label} invalid_winner", scale=scale)
     if f2 == f:
         raise AssertionError(f"{label}: the dead row {f} was selected")
     tied = list(args)
@@ -379,7 +418,7 @@ def _hold_wide(torch, kernel, plain, args, kill, label):
     first = f // 2 if f > 1 else f
     for j in (first, n - 1):
         tied[0][j], tied[2][j] = args[0][f], args[2][f]
-    _, e3 = _hold(kernel, plain, tied, f"{label} ties", expect_idx=min(first, f))
+    _, e3 = _hold(kernel, plain, tied, f"{label} ties", expect_idx=min(first, f), scale=scale)
     return max(err, e2, e3)
 
 
@@ -394,37 +433,53 @@ def _wide_select(torch, lib):
         return [*args[:3], ok]
 
     max_err = 0.0
-    for name, S in WIDE_SELECT:
+    for name, n, S in WIDE_SELECT:
         dtype = getattr(torch, name)
-        c, dirs = _select_problem(torch, WIDE_N, S, dtype, seed=S)
+        c, dirs = _select_problem(torch, n, S, dtype, seed=S)
         args = [c.Vsel, dirs, c.norms, c.valid]
         row_bytes = c.Vsel.shape[1] * c.Vsel.element_size()
         if row_bytes <= 48 * 1024:
             raise AssertionError(f"wide select {name} S={S}: a row of {row_bytes} bytes")
+        scale = None if dtype == torch.int8 else (lambda a, f: _f32_scale(torch, a, f))
         before = gs.launches
         err = _hold_wide(torch, gs.giga_select, gs.giga_select_ref, args, kill,
-                         f"wide select {name} S={S}")
+                         f"wide select {name} n={n} S={S}", scale=scale)
         if gs.launches - before != 3:
             raise AssertionError(f"wide select {name} S={S}: {gs.launches - before} launches "
                                  "for 3 selects")
         max_err = max(max_err, err)
+        # the random case's scores against row f's f64 score: the kernel's
+        # and the plain version's rounding apart
+        ki, ks = gs.giga_select(*args)
+        pi, pscore = gs.giga_select_ref(*args)
+        s64, size = _f32_scale(torch, args, int(pi)) if scale else (float(pscore), 0.0)
+        if abs(float(ks) - s64) > SELECT_TOL * abs(s64):
+            raise AssertionError(f"wide select {name} n={n} S={S}: kernel score {float(ks)} "
+                                 f"against {s64} in f64")
+        f64 = dict(score_f64=f"{s64:.9e}", kernel_rel_err_f64=f"{abs(float(ks) - s64) / abs(s64):.3e}",
+                   plain_rel_err_f64=f"{abs(float(pscore) - s64) / abs(s64):.3e}",
+                   kernel_plain_rel=f"{abs(float(ks) - float(pscore)) / abs(float(pscore)):.3e}",
+                   abs_scale=f"{size:.4e}")
         ws, stream = gs.workspace(c.Vsel.device)
         idx = torch.empty(1, dtype=torch.int32, device="cuda")
         score = torch.empty(1, dtype=torch.float32, device="cuda")
         ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
         k_ms = _direct_ms(torch, lib.giga_select_launch, ptr(c.Vsel), gs._DTYPE_CODE[dtype],
-                          WIDE_N, row_bytes, ptr(dirs), S, ptr(c.norms), ptr(c.valid), ptr(ws),
+                          n, row_bytes, ptr(dirs), S, ptr(c.norms), ptr(c.valid), ptr(ws),
                           ptr(idx), ptr(score), ctypes.c_void_p(stream))
         p_ms = _median_ms(torch, lambda: gs.giga_select_ref(*args), batches=3, per_batch=3)
         lib_ms, lib_how = _library_ms(torch, c.Vsel, dirs)
         bound_ms, bound_by = _select_bound(torch, c.Vsel, S)
-        say("select_wide", dtype=name, n=WIDE_N, S=S, row_bytes=row_bytes,
-            kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+        # every matrix here is far larger than L2: a batch of launches is as
+        # cold as a single launch after a flush
+        say("select_wide", dtype=name, n=n, S=S, row_bytes=row_bytes,
+            kernel_ms=f"{k_ms:.4f}", cold_l2_ms="=kernel_ms(matrix>L2)",
+            plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
             bound_by=bound_by, share_of_bound=f"{bound_ms / k_ms:.3f}",
             library_dots_only_ms="not_run" if lib_ms is None else f"{lib_ms:.4f}",
             library=lib_how,
             kernel_GBps=f"{c.Vsel.numel() * c.Vsel.element_size() / (k_ms * 1e-3) / 1e9:.1f}",
-            max_abs_err=err, checks="random,invalid_winner,ties")
+            max_abs_err=err, **f64, checks="random,invalid_winner,ties")
         del c, args, dirs
         torch.cuda.empty_cache()
 
@@ -484,7 +539,7 @@ def _wide_packed(torch, lib):
     p_ms = _median_ms(torch, lambda: ps.packed_select_ref(*args), batches=3, per_batch=3)
     bound_ms, bound_by = _bound(P.numel() + 8 * n + S * 2 * 4 + 8, 4 * n * S, "int8")
     say("packed_select_wide", n=n, S=S, row_bytes=P.shape[1], kernel_ms=f"{k_ms:.4f}",
-        plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        cold_l2_ms="=kernel_ms(matrix>L2)", plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
         share_of_bound=f"{bound_ms / k_ms:.3f}",
         kernel_GBps=f"{P.numel() / (k_ms * 1e-3) / 1e9:.1f}", max_abs_err=err,
         checks="random,invalid_winner,ties")
@@ -685,6 +740,68 @@ def phase_build_parity(torch):
             raise AssertionError("build parity: the int8-resident constants did not carry over")
         for method in ("giga", "frankwolfe"):
             _parity_build(torch, consts, c_gpu, method, mode, n, S, M)
+    _wide_parity(torch)
+
+
+def _wide_parity(torch):
+    """A GIGA build through the wide-row kernel on the card against the same
+    build through the plain version on the CPU: f32 select copy (V itself),
+    rows of 49168 bytes.  The same atoms, or, where an f32 near-tie flips a
+    select, both rows' plain scores at that select printed and the errors at
+    M within 1e-3 relative."""
+    import numpy as np
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+    from bayesian_coresets_tpu_torch.ops import snnls
+    from bayesian_coresets_tpu_torch.utils import interop
+
+    n, S, M = WIDE_PARITY_N, WIDE_PARITY_S, WIDE_PARITY_M
+    rng = np.random.default_rng(9)
+    A = rng.normal(size=(S, n)).astype(np.float32)
+    c_cpu = snnls.make_consts(torch.as_tensor(A), torch.as_tensor(A[:, : n // 2].sum(axis=1)))
+    c_gpu = interop.snnls_consts(type(c_cpu)(*(t.numpy() for t in c_cpu)), "cuda")
+    row_bytes = c_gpu.Vsel.shape[1] * c_gpu.Vsel.element_size()
+    if c_gpu.Vsel.dtype != torch.float32 or row_bytes <= 48 * 1024:
+        raise AssertionError(f"wide parity: a {c_gpu.Vsel.dtype} row of {row_bytes} bytes")
+    calls = {"cpu": [], "cuda": []}         # (dirs, selected row) per select
+    select = snnls.giga_select
+
+    def recorded(Vsel, dirs, norms, valid):
+        f, sc = select(Vsel, dirs, norms, valid)
+        calls["cuda" if Vsel is c_gpu.Vsel else "cpu"].append((dirs.cpu(), int(f)))
+        return f, sc
+
+    snnls.giga_select = recorded
+    try:
+        s_cpu = snnls.build(c_cpu, snnls.init_state(c_cpu, 1024), M, 1e-6)
+        before = gs.launches
+        s_gpu = snnls.build(c_gpu, snnls.init_state(c_gpu, 1024), M, 1e-6)
+        torch.cuda.synchronize()
+        launches = gs.launches - before
+    finally:
+        snnls.giga_select = select
+    if launches != int(s_gpu.itr) or int(s_gpu.itr) != M:
+        raise AssertionError(f"wide parity: {launches} launches for {int(s_gpu.itr)} iterations")
+    picks = [f for _, f in calls["cuda"]], [f for _, f in calls["cpu"]]
+    e_gpu = float(snnls.error(c_gpu, s_gpu.w)) / float(c_gpu.bnorm)
+    e_cpu = float(snnls.error(c_cpu, s_cpu.w)) / float(c_cpu.bnorm)
+    if picks[0] == picks[1]:
+        k = int(s_cpu.size)
+        np.testing.assert_array_equal(s_gpu.idcs[:k].cpu().numpy(), s_cpu.idcs[:k].numpy())
+        np.testing.assert_allclose(s_gpu.w.cpu().numpy(), s_cpu.w.numpy(), rtol=1e-4, atol=1e-6)
+        say("build_parity", method="giga", consts="f32_wide", n=n, S=S, row_bytes=row_bytes,
+            M=M, atoms=k, idcs="identical", err_cuda=f"{e_gpu:.6e}", err_cpu=f"{e_cpu:.6e}")
+        return
+    j = next(i for i, (a, b) in enumerate(zip(*picks)) if a != b)
+    rows = [picks[0][j], picks[1][j]]
+    q = gs.quantize_dirs(calls["cpu"][j][0], c_cpu.Vsel.shape[1], torch.float32)
+    dots = (c_cpu.Vsel[rows] @ q.T) / c_cpu.norms[rows][:, None]
+    sc = gs.score_rows(dots, torch.ones(2, dtype=torch.bool))
+    say("build_parity_near_tie", consts="f32_wide", select=j, cuda_row=picks[0][j],
+        cpu_row=picks[1][j], plain_score_cuda_row=f"{float(sc[0]):.9e}",
+        plain_score_cpu_row=f"{float(sc[1]):.9e}", err_cuda=f"{e_gpu:.6e}",
+        err_cpu=f"{e_cpu:.6e}")
+    if not abs(e_gpu - e_cpu) <= 1e-3 * e_cpu:
+        raise AssertionError(f"wide parity: errors at M {e_gpu} (card) and {e_cpu} (CPU)")
 
 
 def _parity_build(torch, c_cpu, c_gpu, method, mode, n, S, M):
@@ -777,7 +894,7 @@ def phase_main(torch, smi):
     return launches, wts, pts, coreset, Z, projector
 
 
-def _profile_build(torch, consts, method, tag):
+def _profile_build(torch, consts, method, tag, select_bound_ms=None, card=None):
     """Launches per iteration of ``method`` on phase 6's problem: 65
     iterations of warm-up from a fresh state, then PROFILE_ITRS under
     torch.profiler (one refresh inside), as scripts/profile_torch_build.py
@@ -794,26 +911,41 @@ def _profile_build(torch, consts, method, tag):
     snnls.build(consts, s, PROFILE_ITRS, 1e-6, method=method)     # the window, unprofiled
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / PROFILE_ITRS
-    before = gs.launches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        s2 = snnls.build(consts, s, PROFILE_ITRS, 1e-6, method=method)
-        torch.cuda.synchronize()
-    itrs = int(s2.itr) - int(s.itr)
-    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if itrs != PROFILE_ITRS or not rows:
-        raise AssertionError(f"{tag}: {itrs} iterations, {len(rows)} kernel rows")
+    # One profiled window (phase 17's, late in a full run) came back with 61
+    # select kernels for 64 launches, at half the time CUDA events give each;
+    # the same window profiled in a fresh process had all 64 at full length.
+    # A short window is profiled again, at most twice, and the line says how
+    # many were short.
+    for short in range(3):
+        before = gs.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            s2 = snnls.build(consts, s, PROFILE_ITRS, 1e-6, method=method)
+            torch.cuda.synchronize()
+        itrs = int(s2.itr) - int(s.itr)
+        rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if itrs != PROFILE_ITRS or not rows:
+            raise AssertionError(f"{tag}: {itrs} iterations, {len(rows)} kernel rows")
+        select = sum(e.count for e in rows if "giga_select" in e.key)
+        if select == itrs or gs.launches - before != itrs:
+            break
+        print(f"[{tag}_short_window] select_kernels={select} wrapper_launches="
+              f"{gs.launches - before} itrs={itrs}", flush=True)
     total = sum(e.count for e in rows)
-    select = sum(e.count for e in rows if "giga_select" in e.key)
     busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
     select_us = sum(getattr(e, "self_device_time_total", 0.0) for e in rows
                     if "giga_select" in e.key)
-    say(tag, method=method, window_itrs=itrs, select_launches_per_itr=f"{select / itrs:.3f}",
+    say(tag, method=method, window_itrs=itrs, short_windows=short,
+        select_launches_per_itr=f"{select / itrs:.3f}",
         wrapper_launches_per_itr=f"{(gs.launches - before) / itrs:.3f}",
         launches_per_itr=f"{total / itrs:.2f}", device_busy_us_per_itr=f"{busy_us / itrs:.1f}",
         unprofiled_wall_ms_per_itr=f"{wall_ms:.4f}",
         idle_share=f"{1.0 - busy_us * 1e-3 / itrs / wall_ms:.4f}",
         select_us_per_itr=f"{select_us / itrs:.1f}",
-        select_share_of_device=f"{select_us / busy_us:.3f}" if busy_us else "not_measured")
+        select_share_of_device=f"{select_us / busy_us:.3f}" if busy_us else "not_measured",
+        **({} if select_bound_ms is None else {
+            "select_bound_us": f"{1e3 * select_bound_ms:.1f}",
+            "select_share_of_bound": f"{1e3 * select_bound_ms * itrs / select_us:.3f}"
+            if select_us else "not_measured", "card": repr(card)}))
     if select != itrs or gs.launches - before != itrs:
         raise AssertionError(f"{tag}: {select} select kernels on the card and "
                              f"{gs.launches - before} wrapper launches for {itrs} iterations")
@@ -1565,6 +1697,71 @@ def phase_streamed(torch, smi):
     return launches, q_launches, omp_launches, select
 
 
+def phase_wide_build(torch, smi):
+    """A Hilbert build whose select runs on the wide-row kernel: phase 6's
+    data, a BlackBoxProjector of WIDE_BUILD_S samples by bench.py's rule, the
+    default f32 select copy (V itself), GIGA and then Frank-Wolfe, M =
+    WIDE_BUILD_M each.  Returns the select launches of both builds."""
+    import numpy as np
+    import bayesian_coresets_tpu_torch as bc
+    from bayesian_coresets_tpu_torch.models import logistic
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+
+    dev = torch.device("cuda")
+    Z = logistic.gen_synthetic(torch.Generator(device=dev).manual_seed(0), N_MAIN, D_MAIN)
+    projector = bc.BlackBoxProjector(_near_map_sampler, WIDE_BUILD_S, logistic.log_likelihood,
+                                     generator=torch.Generator(device=dev).manual_seed(1))
+    total = 0
+    for method, cls in (("giga", bc.snnls.GIGA), ("frankwolfe", bc.snnls.FrankWolfe)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gs.launches = 0
+        t0 = time.perf_counter()
+        coreset = bc.HilbertCoreset(Z, projector, snnls=cls, max_active=1024)
+        torch.cuda.synchronize()
+        t_proj = time.perf_counter() - t0
+        c = coreset.snnls.consts
+        row_bytes = c.Vsel.shape[1] * c.Vsel.element_size()
+        if c.Vsel.dtype != torch.float32 or c.Vsel.data_ptr() != c.V.data_ptr() \
+                or row_bytes <= 48 * 1024:
+            raise AssertionError(f"wide build: a {c.Vsel.dtype} select copy of {row_bytes}-byte "
+                                 "rows, not V itself past 48 KB")
+        bnorm = float(c.bnorm)
+        coreset.build(1)
+        err1 = coreset.error() / bnorm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coreset.build(WIDE_BUILD_M - 1)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        launches, itr = gs.launches, int(coreset.snnls.state.itr)
+        err = coreset.error() / bnorm
+        peak = torch.cuda.max_memory_allocated()
+        wts, pts, _ = coreset.get()
+        say("wide_build", method=method, N=N_MAIN, S=WIDE_BUILD_S, row_bytes=row_bytes,
+            M=WIDE_BUILD_M, itr=itr, size=wts.size, done=coreset.reached_numeric_limit,
+            launches=launches, select_launches_per_itr=f"{launches / max(itr, 1):.3f}",
+            err1=f"{err1:.6e}", err=f"{err:.6e}", projection_s=f"{t_proj:.4f}",
+            ms_per_itr=f"{1e3 * t_build / (WIDE_BUILD_M - 1):.4f}",
+            peak_mem_GB=f"{peak / 1e9:.3f}", card=repr(smi))
+        if launches != itr or itr != WIDE_BUILD_M:
+            raise AssertionError(f"wide build {method}: {launches} select launches for {itr} "
+                                 "iterations")
+        if not (np.isfinite(err) and err <= err1):
+            raise AssertionError(f"wide build {method}: error/|b| {err} at M against {err1} "
+                                 "after the first iteration")
+        if wts.size == 0 or not np.isfinite(wts).all() or (wts <= 0).any() \
+                or pts.shape != (wts.size, D_MAIN):
+            raise AssertionError(f"wide build {method}: empty, non-finite or malformed coreset")
+        total += launches
+        bound_ms, _ = _select_bound(torch, c.Vsel, WIDE_BUILD_S)
+        _profile_build(torch, c, method, "wide_build_launches", select_bound_ms=bound_ms,
+                       card=smi)
+        del coreset, c
+    return total
+
+
 def main() -> int:
     import torch   # noqa: F401  (fails here without PyTorch)
 
@@ -1600,14 +1797,16 @@ def main() -> int:
     pois_launches = phase_poisson(torch, smi)
     gs.launches = 0
     st_launches, stq_launches, st_omp_launches, st_select = phase_streamed(torch, smi)
+    gs.launches = 0
+    wide_launches = phase_wide_build(torch, smi)
     if ps.launches:
         raise AssertionError("a solver's path launched the packed select kernel")
     say("select_launches_by_path", giga=launches, frankwolfe=fw_launches, omp=omp_launches,
         sampling=0, poisson_giga=pois_launches, streamed_giga_N8M=st_launches,
         quality_arms_N1M=stq_launches, streamed_omp_N1M=st_omp_launches,
-        streamed_sampling_N1M=0)
+        streamed_sampling_N1M=0, wide_giga_fw_S16384=wide_launches)
     launches += (fw_launches + omp_launches + pois_launches + st_launches + stq_launches
-                 + st_omp_launches)
+                 + st_omp_launches + wide_launches)
     max_err = max(max_err, st_select[5])
     from bayesian_coresets_tpu_torch import native
     if any(m == "jax" or m.startswith(("jax.", "bayesian_coresets_tpu."))

@@ -283,19 +283,43 @@ def test_back_to_back_calls_reuse_the_workspace(kind, cuda_device):
     assert int(dead_out[0]) == 0 and float(dead_out[1]) == -np.inf
 
 
-# Rows past the ring's shared memory (48 KB; packed 32 KB) take the wide-row
-# kernels: the first column count past the limit for each type, and f32 well
-# past it.  "packed" counts original columns: 65568 is a 32784-byte row.
-WIDE = [("float32", 12289), ("float32", 16384), ("bfloat16", 24584), ("int8", 49168),
-        ("packed", 65568)]
-WIDE_IDS = [f"{k}-{S}" for k, S in WIDE]
-# f32 and bf16 sums of up to 16384 products, taken by 32 lanes in another
-# order than the plain matmul's; int8 and packed dots are integers, exact
+# Rows past the ring kernels' 48 KB (packed 32 KB) take the wide-row kernels,
+# which walk groups of 8 rows in 4 KB pieces: (kind, S, n, rows of dirs or
+# None for S).  "packed" counts original columns: 65568 is a 32784-byte row.
+# On the H100 a block keeps the whole row's quantized directions in shared
+# memory up to 65984-byte rows (f32 S=16496; packed 32992 bytes, S=65984);
+# past that every group fetches them again.
+WIDE = [
+    # the first widths past the limit for each type, and f32 well past it;
+    # n=2051 is off every group of 8 rows
+    ("float32", 12289, 2051, None), ("float32", 16384, 2051, None),
+    ("bfloat16", 24584, 2051, None), ("int8", 49168, 2051, None), ("packed", 65568, 2051, None),
+    # fewer rows than the card has SMs
+    ("float32", 12289, 1, None), ("int8", 49168, 7, None), ("bfloat16", 24584, 131, None),
+    ("packed", 65568, 131, None),
+    # the widest rows whose directions stay in shared memory, and 16 bytes past
+    ("float32", 16496, 131, None), ("float32", 16500, 131, None),
+    ("packed", 65984, 131, None), ("packed", 66016, 131, None),
+    # rows of exactly 32 pieces (16 packed), and 16 bytes past: a last piece
+    # of one chunk
+    ("float32", 32768, 67, None), ("float32", 32772, 67, None),
+    ("packed", 131072, 67, None), ("packed", 131104, 67, None),
+    # S < Sp: zero-padded columns inside the last piece (32773 -> Sp 32776;
+    # packed 131080 -> 65552 bytes), and directions that end at column
+    # 20000, so the pieces past it see zero directions
+    ("float32", 32773, 67, None), ("packed", 131080, 67, None), ("float32", 32776, 67, 20000),
+    # the widest row the entry points take: 1 MiB, 256 pieces
+    ("float32", 262144, 64, None),
+]
+WIDE_IDS = [f"{k}-{S}-n{n}" + (f"-dirs{d}" if d else "") for k, S, n, d in WIDE]
+# f32 and bf16 sums of up to 262144 products, taken in another order than
+# the plain matmul's; int8 and packed dots are integers, exact
 WIDE_RTOL = {"float32": 1e-6, "bfloat16": 1e-6, "int8": 0.0, "packed": 0.0}
 
 
-def _wide_inputs(kind, S, dev, n=2051, seed=11):
-    """Inputs of a wide-row select, made on ``dev``; n is off every tile."""
+def _wide_inputs(kind, S, dev, n=2051, seed=11, dirs_S=None):
+    """Inputs of a wide-row select, made on ``dev``; with ``dirs_S``, only
+    the first dirs_S columns of the directions are given (the rest are zero)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     if kind == "packed":
         q = torch.randint(-7, 8, (n, S), generator=gen, device=dev, dtype=torch.int8)
@@ -306,7 +330,7 @@ def _wide_inputs(kind, S, dev, n=2051, seed=11):
     c = snnls.make_consts(V.T, V.sum(dim=0), select_dtype=getattr(torch, kind))
     dirs = torch.randn((S, 2), generator=gen, device=dev)
     dirs /= torch.linalg.vector_norm(dirs, dim=0)
-    return [c.Vsel, dirs.contiguous(), c.norms, c.valid]
+    return [c.Vsel, dirs[:dirs_S].contiguous(), c.norms, c.valid]
 
 
 def _hold_wide(kind, args, expect_idx=None):
@@ -328,12 +352,13 @@ def _hold_wide(kind, args, expect_idx=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,S", WIDE, ids=WIDE_IDS)
-def test_wide_rows_match_plain(kind, S, cuda_device):
+@pytest.mark.parametrize("kind,S,n,dirs_S", WIDE, ids=WIDE_IDS)
+def test_wide_rows_match_plain(kind, S, n, dirs_S, cuda_device):
     """Random directions, then the winner invalid, then copies of the winner
     before and after it (the first wins), then every row invalid."""
-    args = _wide_inputs(kind, S, cuda_device)
-    n = args[0].shape[0]
+    args = _wide_inputs(kind, S, cuda_device, n=n, dirs_S=dirs_S)
+    row_bytes = args[0].shape[1] * args[0].element_size()
+    assert row_bytes > (32 if kind == "packed" else 48) * 1024
     f = _hold_wide(kind, args)
     dead = list(args)
     if kind == "packed":
@@ -342,7 +367,8 @@ def test_wide_rows_match_plain(kind, S, cuda_device):
     else:
         dead[3] = args[3].clone()
         dead[3][f] = False
-    assert _hold_wide(kind, dead) != f
+    if n > 1:
+        assert _hold_wide(kind, dead) != f
     tied = list(args)
     tied[0], tied[2] = args[0].clone(), args[2].clone()
     first = f // 2 if f > 1 else f          # a copy before the winner, if there is room
@@ -352,6 +378,20 @@ def test_wide_rows_match_plain(kind, S, cuda_device):
     dead[3] = (torch.full_like(args[3], -np.inf) if kind == "packed"
                else torch.zeros_like(args[3]))
     _hold_wide(kind, dead, expect_idx=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,S,n", [("float32", 12289, 2051), ("float32", 16384, 2051),
+                                      ("bfloat16", 24584, 2051), ("float32", 32772, 67)])
+def test_wide_rows_repeat_bit_identical(kind, S, n, cuda_device):
+    """100 launches of an f32 or bf16 wide-row select give the same (index,
+    score) to the bit: the row sums are combined in a fixed order."""
+    args = _wide_inputs(kind, S, cuda_device, n=n)
+    out = [gs.giga_select(*args) for _ in range(100)]
+    torch.cuda.synchronize()
+    idx = torch.stack([o[0] for o in out]).cpu()
+    bits = torch.stack([o[1] for o in out]).view(torch.int32).cpu()
+    assert bool((idx == idx[0]).all()) and bool((bits == bits[0]).all())
 
 
 @pytest.mark.cuda
