@@ -24,7 +24,9 @@ in both its stages, and the variational coreset constructions:
   does not fit on the card, and phase timers (``utils/profiling.py``).
 
 ``ops/packed_select.py`` (``csrc/packed_select.cu``) carries the JAX
-package's packed-int4 select probe.  The entry points run on the CUDA card:
+package's packed-int4 select probe.  The experiment drivers
+(``experiments/``, with seeded generators from ``utils/prng.py``) are not
+imported here, as in the JAX package.  The entry points run on the CUDA card:
 data given as numpy arrays or lists goes to :func:`default_device`, the
 card unless ``set_default_device("cpu")`` was called (where there is no
 card and the CPU was not chosen, they raise); a tensor stays on the device

@@ -107,7 +107,7 @@ def sample_weighted_post(gen: torch.Generator, th0, Sig0inv, sigsq, z, w,
 
 
 class LowRankBasis(NamedTuple):
-    """One-time prior factorization for :func:`weighted_post_lowrank`."""
+    """One-time prior factorization for :func:`weighted_post_lowrank`, in f64."""
 
     L0inv: torch.Tensor    # (d, d) with Sig0inv = L0 L0^T
     L0invT: torch.Tensor   # (d, d)
@@ -116,6 +116,7 @@ class LowRankBasis(NamedTuple):
 
 
 def lowrank_basis(th0, Sig0inv, sigsq) -> LowRankBasis:
+    th0, Sig0inv = th0.double(), Sig0inv.double()
     d = th0.shape[0]
     L0 = torch.linalg.cholesky(Sig0inv)
     eye = torch.eye(d, dtype=L0.dtype, device=L0.device)
@@ -132,30 +133,33 @@ def weighted_post_lowrank(basis: LowRankBasis, z, w):
     Gram replaces the (m+d, d) QR on SparseVI's per-Adam-step path
     (reference sparsevi.py:70-74).
 
-    Returns ``(mu, F)`` with ``Sig = F F^T`` (a non-triangular factor, valid
-    wherever only the Gram matters: tangent features, sampling).  The Gram
-    squares W's conditioning, so for designs with lam_max/lam_min beyond
-    ~1/eps_f32 prefer the QR path (:func:`weighted_post`).
+    Returns ``(mu, F)`` in ``z``'s dtype, with ``Sig = F F^T`` (a
+    non-triangular factor, valid wherever only the Gram matters: tangent
+    features, sampling).  The Gram squares W's conditioning, so it is
+    computed in f64: in f32 the mean of a 17-row RBF design (precision
+    condition 4.3e4) came out 2.8% off (the JAX package's f32 version: 3.2%).
     """
-    x, y = _split(z)
+    x, y = _split(z.double())
+    w = w.double()
+    L0inv, L0invT, r0, sigsq = (t.double() for t in basis)
     sw = torch.sqrt(torch.clamp_min(w, 0.0))
-    W = (sw[:, None] * x) @ basis.L0invT / torch.sqrt(basis.sigsq)       # (m, d)
+    W = (sw[:, None] * x) @ L0invT / torch.sqrt(sigsq)                  # (m, d)
     G = W @ W.T
     lam, U = torch.linalg.eigh(0.5 * (G + G.T))                          # (m,), (m, m)
     lam = torch.clamp_min(lam, 0.0)
-    mask = lam > 1e-7 * torch.clamp_min(torch.max(lam), 1e-30)
+    mask = lam > 1e-12 * torch.clamp_min(torch.max(lam), 1e-300)   # f64 rounding of G
     lam_safe = torch.where(mask, lam, 1.0)
     V = (W.T @ U) / torch.sqrt(lam_safe)[None, :]                        # (d, m)
     V = torch.where(mask[None, :], V, 0.0)
     c_inv = torch.where(mask, lam / (1.0 + lam), 0.0)
     c_half = torch.where(mask, 1.0 - 1.0 / torch.sqrt(1.0 + lam), 0.0)
 
-    rhs = basis.r0 + x.T @ (w * y) / basis.sigsq
-    t = basis.L0inv @ rhs
+    rhs = r0 + x.T @ (w * y) / sigsq
+    t = L0inv @ rhs
     t = t - V @ (c_inv * (V.T @ t))                                      # (I + W^T W)^{-1}
-    mu = basis.L0invT @ t
-    F = basis.L0invT - ((basis.L0invT @ V) * c_half[None, :]) @ V.T
-    return mu, F
+    mu = L0invT @ t
+    F = L0invT - ((L0invT @ V) * c_half[None, :]) @ V.T
+    return mu.to(z.dtype), F.to(z.dtype)
 
 
 def rbf_features(x: torch.Tensor, centers: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:

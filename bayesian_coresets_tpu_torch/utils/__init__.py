@@ -1,7 +1,7 @@
-"""Utilities: tolerances, logging, errors, checkpoints, phase timing, and
-interop with the JAX package."""
+"""Utilities: tolerances, the default device, logging, errors, checkpoints,
+phase timing, seeded generators, and interop with the JAX package."""
 
-from . import checkpoint, profiling
+from . import checkpoint, profiling, prng
 from .config import (
     TOL,
     default_device,
@@ -9,6 +9,7 @@ from .config import (
     get_tolerance,
     set_default_device,
     set_tolerance,
+    using_device,
 )
 from .errors import NumericalPrecisionError
 from .log import get_logger, set_verbosity
@@ -16,12 +17,14 @@ from .log import get_logger, set_verbosity
 __all__ = [
     "checkpoint",
     "profiling",
+    "prng",
     "TOL",
     "get_tolerance",
     "set_tolerance",
     "default_dtype",
     "default_device",
     "set_default_device",
+    "using_device",
     "NumericalPrecisionError",
     "get_logger",
     "set_verbosity",

@@ -18,6 +18,8 @@ put it.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -48,6 +50,19 @@ def set_default_device(dev) -> None:
     CPU; ``None`` restores the default, the CUDA card."""
     global _default_device
     _default_device = None if dev is None else torch.device(dev)
+
+
+@contextlib.contextmanager
+def using_device(dev):
+    """:func:`set_default_device` for the block, then the setting found
+    before it (what a driver's ``--device`` does for one run)."""
+    global _default_device
+    prev = _default_device
+    set_default_device(dev)
+    try:
+        yield
+    finally:
+        _default_device = prev
 
 
 def resolve_device(dev) -> torch.device:

@@ -115,23 +115,42 @@ script exits non-zero without printing the final result line):
    ``snnls=FrankWolfe``: ms per iteration, one select launch per iteration,
    error()/|b| at M (finite, no larger than after the first iteration), the
    peak allocation, and a profiled window as in phase 6 with the select's
-   device µs per iteration beside its bound.
+   device µs per iteration beside its bound;
+18. the experiment drivers through their ``main([...])`` entry points, each
+   in a temporary working directory: ``logistic_poisson`` GIGA-OPT at the
+   reference's logistic settings (S=500, M up to 1000, 8 NUTS chains, max
+   tree depth 15, target accept 0.9) on N=100k, D=10 data made from a seed
+   and read through ``BC_DATA_DIR``, its NUTS draws and warm-up cut to
+   EXP_MCMC and its 7 sizes to EXP_SIZES, checked through the port's
+   ``load_matching`` (finite columns, rKL falling with M, nonempty
+   coresets, finite positive weights);
+   ``simple_lr`` at its defaults; ``linear_regression --alg GIGA-OPT-EXACT``
+   at its defaults on the card and with ``--device cpu``, held together;
+   ``synthetic_vectors`` at its defaults with GIGA and FW, and OMP at M=100.
+   One ``[experiments]`` line per driver (seconds, select launches,
+   iterations, metrics at M_max, the split of logistic_poisson's time,
+   ``reduced=``); one select launch per GIGA/FW/OMP iteration, none of the
+   packed kernel.
 
 Phases 8-11 and 14 launch no hand-written kernel: the JAX package computes
 SparseVI, BatchPSVI, the re-solve and the sampling solvers with plain XLA
 ops.  Every path is driven with the kernels' launch counts set to 0 just
 before it and read just after; the kernels' ``launches`` are the sums over
-the paths that select through them (phases 6, 12, 13, 15, 16, 17).  The line before
+the paths that select through them (phases 6, 12, 13, 15-18).  The line before
 the last is the kernels' JSON; the
-last line is ``{"ok": true, "device": {...}}``.  The port imports no JAX.
+last line is ``{"ok": true, "device": {...}}``.  The port imports no JAX,
+no pandas and no matplotlib.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -184,6 +203,38 @@ QUALITY_N, QUALITY_CHUNK = 1_000_000, 250_000
 STREAM_MEM_MAX = 16.0e9     # bytes of the f32 (N, S) matrix alone at N=8M
 STREAM_OMP_ITRS, STREAM_OMP_ACTIVE, STREAM_OMP_CHUNK = 25, 128, 5
 STREAM_DRAWS = 200
+# phase 18: the experiment drivers.  logistic_poisson runs the reference's
+# logistic settings (main.py:255-259; the JAX driver's defaults) on N=100k
+# rows of D=10 (bench.py:50's width) made from a seed: N(0, 1) covariates,
+# the intercept last, theta = 1, labels +-1.  Cut: the NUTS draws and
+# warm-up (10000 each by default; NUTS is 96-98% of the run) and then the
+# sizes, 7 -> 4 (1, 10, 100, 1000): at 256 draws the min ESS sat at the
+# gate of 100 and the dense retry fired at 4 of 7 sizes; OMP's sizes (each
+# iteration is 256 FISTA steps).  Everything else runs at the defaults.
+EXP_N, EXP_D, EXP_SEED = 100_000, 10, 18
+EXP_MCMC, EXP_SIZES = 400, 4
+EXP_LP_ARGV = ["--model", "lr", "--dataset", "synth_lr_N100k", "--alg", "GIGA-OPT",
+               "--proj_dim", "500", "--coreset_size_max", "1000",
+               "--coreset_num_sizes", str(EXP_SIZES),
+               "--coreset_size_spacing", "log", "--max_treedepth", "15",
+               "--target_accept", "0.9", "--mcmc_chains", "8", "--trial", "1",
+               "--mcmc_samples_full", str(EXP_MCMC), "--mcmc_samples_coreset", str(EXP_MCMC)]
+EXP_OMP_M = 100
+# linear_regression GIGA-OPT-EXACT, card against CPU: the grid points whose
+# support is below proj_dim agree within EXP_LR_RTOL (f32 features, f64
+# metrics); past it the residual is rounding noise and both are held to the
+# same bounds, 6-11x the CPU's own values there (rKL 6.6, fKL 4.6, mean
+# error 0.079, covariance error 0.036, on a CPU)
+EXP_LR_RTOL = 1e-3
+EXP_LR_TAIL = {"rklw": 50.0, "fklw": 50.0, "mu_errs": 0.5, "Sig_errs": 0.25}
+# synthetic_vectors GIGA and FW, card against CPU: below data_dim the same
+# sizes, and errors within EXP_SV_RTOL of the CPU's plus EXP_SV_ATOL of the
+# run's largest error (f32 rounding of the residual, which cancels as it
+# shrinks: the JAX package and the port on a CPU differ by up to 1.2e-4 at
+# GIGA's 90 atoms, err 1.42 of a largest 877); past it the residual is
+# rounding noise, and each run's error at M_max is held to its error at the
+# last size below data_dim
+EXP_SV_RTOL, EXP_SV_ATOL = 1e-4, 1e-6
 
 
 def say(phase: str, **kv) -> None:
@@ -1762,6 +1813,268 @@ def phase_wide_build(torch, smi):
     return total
 
 
+@contextlib.contextmanager
+def _in_temp_dir():
+    """Run a block in a fresh temporary working directory (removed after)."""
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        yield Path(tmp)
+
+
+def _exp_line(name, t, launches, itr, table, keys, reduced, **kv):
+    last = {k: f"{float(table[k][-1]):.6g}" for k in keys}
+    say("experiments", driver=name, seconds=f"{t:.3f}", select_launches=launches,
+        iterations=itr, **{f"{k}_at_Mmax": v for k, v in last.items()}, **kv,
+        reduced=reduced or "none")
+
+
+def _finite_columns(table, name):
+    import numpy as np
+    for k in table.columns:
+        col = table[k]
+        if col.dtype.kind in "fiub" and not np.isfinite(col.astype(float)).all():
+            raise AssertionError(f"{name}: column {k} is not finite: {col}")
+
+
+def _hold_driver_select(torch, coreset, label):
+    """Kernel 1 against its plain version on a driver's own select copy,
+    with GIGA's directions from the build's end state (b and xw), then with
+    the winner dead, then with copies of the winner before and after it.
+    Returns the largest score error; the launches are not counted."""
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+
+    def kill(args, f):
+        ok = args[3].clone()
+        ok[f] = False
+        return [*args[:3], ok]
+
+    c, st = coreset.snnls.consts, coreset.snnls.state
+    bn = c.b / torch.linalg.vector_norm(c.b)
+    xwn = st.xw / torch.linalg.vector_norm(st.xw)
+    cd = bn - (bn @ xwn) * xwn
+    dirs = torch.stack([cd / torch.linalg.vector_norm(cd), xwn], dim=1).contiguous()
+    return _hold_wide(torch, gs.giga_select, gs.giga_select_ref,
+                      [c.Vsel, dirs, c.norms, c.valid], kill, label,
+                      scale=lambda a, f: _f32_scale(torch, a, f))
+
+
+def _exp_logistic(gs, ps):
+    """logistic_poisson GIGA-OPT at the reference's logistic settings."""
+    import numpy as np
+    from bayesian_coresets_tpu_torch.experiments import logistic_poisson, results
+
+    with _in_temp_dir() as tmp:
+        rng = np.random.default_rng(EXP_SEED)
+        X = np.hstack([rng.normal(size=(EXP_N, EXP_D - 1)), np.ones((EXP_N, 1))])
+        y = np.where(rng.uniform(size=EXP_N) < 1.0 / (1.0 + np.exp(-X @ np.ones(EXP_D))),
+                     1.0, -1.0)
+        (tmp / "data").mkdir()
+        np.savez(tmp / "data" / "synth_lr_N100k.npz", X=X, y=y)
+        prev = os.environ.get("BC_DATA_DIR")
+        os.environ["BC_DATA_DIR"] = str(tmp / "data")
+        try:
+            gs.launches = ps.launches = 0
+            t0 = time.perf_counter()
+            info = logistic_poisson.main(["run"] + EXP_LP_ARGV)
+            t = time.perf_counter() - t0
+            launches, packed = gs.launches, ps.launches
+        finally:
+            if prev is None:
+                del os.environ["BC_DATA_DIR"]
+            else:
+                os.environ["BC_DATA_DIR"] = prev
+        table = results.load_matching({}, folder="results/")
+    coreset = info["coreset"]
+    itr = int(coreset.snnls.state.itr)
+    wts, _, _ = coreset.get()
+    _finite_columns(table, "logistic_poisson")
+    rkl = table["rklw"]
+    sec = info["seconds"]
+    _exp_line("logistic_poisson", t, launches, itr, table,
+              ("rklw", "fklw", "mu_errs", "Sig_errs", "Fs", "csizes", "rhats", "esses"),
+              f"mcmc_samples_full:10000->{EXP_MCMC},mcmc_samples_coreset:10000->{EXP_MCMC},"
+              f"coreset_num_sizes:7->{EXP_SIZES}",
+              N=EXP_N, D=EXP_D, Ms=",".join(str(int(m)) for m in table["Ms"]),
+              rklw=",".join(f"{v:.5g}" for v in rkl),
+              full_rhat=f"{float(table['full_rhat'][0]):.4f}",
+              full_ess=f"{float(table['full_ess'][0]):.1f}",
+              dense_retries=info["dense_retries"], max_weight=f"{wts.max():.6g}",
+              max_weight_over_N=f"{wts.max() / EXP_N:.4g}",
+              **{f"{k}_s": f"{v:.3f}" for k, v in sec.items()})
+    if packed:
+        raise AssertionError("logistic_poisson: the packed select kernel was launched")
+    if launches != itr or itr == 0:
+        raise AssertionError(f"logistic_poisson: {launches} select launches for {itr} "
+                             "iterations")
+    if not rkl[-1] < rkl[0]:
+        raise AssertionError(f"logistic_poisson: rKL at M_max {rkl[-1]} not below {rkl[0]}")
+    if not (table["csizes"] > 0).all():
+        raise AssertionError(f"logistic_poisson: empty coresets {table['csizes']}")
+    # GIGA-OPT on this data puts more than N on one atom in the JAX package
+    # too (tests/test_torch_experiments.py::
+    # test_logistic_giga_opt_puts_more_than_n_on_an_atom_in_both_packages,
+    # on 10k of these rows), so the weights are held to be finite and
+    # positive, and printed beside N
+    if not (np.isfinite(wts).all() and (wts > 0).all()):
+        raise AssertionError(f"logistic_poisson: weights not finite and positive: {wts}")
+    return launches
+
+
+def _exp_simple_lr(gs):
+    from bayesian_coresets_tpu_torch.experiments import simple_lr
+
+    gs.launches = 0
+    t0 = time.perf_counter()
+    kl, coreset = simple_lr.main(verbose=False)
+    t = time.perf_counter() - t0
+    launches, itr = gs.launches, int(coreset.snnls.state.itr)
+    wts, _, _ = coreset.get()
+    say("experiments", driver="simple_lr", seconds=f"{t:.3f}", select_launches=launches,
+        iterations=itr, kl=f"{kl:.6g}", size=wts.size, max_weight=f"{wts.max():.6g}",
+        N=10000, D=10, projection_dim=500, M=500, reduced="none")
+    if launches != itr or itr == 0:
+        raise AssertionError(f"simple_lr: {launches} select launches for {itr} iterations")
+    if not (kl >= 0.0 and kl < float("inf")):
+        raise AssertionError(f"simple_lr: KL {kl}")
+    return launches
+
+
+def _exp_linear_regression(gs):
+    """linear_regression GIGA-OPT-EXACT at its defaults on the card, then
+    the same run with --device cpu in this process: the same rows; then
+    kernel 1 held to its plain version on the driver's select copy.
+    Returns (select launches, the hold's score error)."""
+    import numpy as np
+    import torch
+    from bayesian_coresets_tpu_torch.experiments import linear_regression, results
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        with _in_temp_dir():
+            gs.launches = 0
+            t0 = time.perf_counter()
+            coreset = linear_regression.main(["run", "--alg", "GIGA-OPT-EXACT",
+                                              "--device", dev])
+            t = time.perf_counter() - t0
+            out[dev] = (t, gs.launches, coreset, results.load_matching({}, folder="results/"))
+    t, launches, coreset, card = out["cuda"]
+    t_cpu, cpu_launches, cpu_coreset, cpu = out["cpu"]
+    itr, cpu_itr = int(coreset.snnls.state.itr), int(cpu_coreset.snnls.state.itr)
+    Vsel = coreset.snnls.consts.Vsel
+    hold_err = _hold_driver_select(torch, coreset, "linear_regression select")
+    keys = ("rklw", "fklw", "mu_errs", "Sig_errs")
+    _finite_columns(card, "linear_regression")
+    below = cpu["csizes"] < 100          # the driver's default proj_dim
+    rel = {k: float(np.max(np.abs(card[k][below] - cpu[k][below]) / np.abs(cpu[k][below])))
+           for k in keys}
+    _exp_line("linear_regression", t, launches, itr, card, keys + ("csizes",), "none",
+              alg="GIGA-OPT-EXACT", N=10000, d=301, proj_dim=100, M=300,
+              cpu_seconds=f"{t_cpu:.3f}", cpu_iterations=cpu_itr,
+              **{f"cpu_{k}_at_Mmax": f"{float(cpu[k][-1]):.6g}" for k in keys},
+              **{f"max_rel_diff_{k}_below_proj_dim": f"{v:.3g}" for k, v in rel.items()},
+              csizes=",".join(str(int(c)) for c in card["csizes"]),
+              cpu_csizes=",".join(str(int(c)) for c in cpu["csizes"]),
+              select_held=f"{Vsel.dtype}:{tuple(Vsel.shape)}", select_max_abs_err=hold_err)
+    if launches != itr or itr == 0 or cpu_launches:
+        raise AssertionError(f"linear_regression: {launches} select launches for {itr} "
+                             f"iterations, {cpu_launches} on the CPU")
+    if not np.array_equal(card["csizes"][below], cpu["csizes"][below]):
+        raise AssertionError("linear_regression: card and CPU coreset sizes differ below "
+                             f"proj_dim: {card['csizes']} against {cpu['csizes']}")
+    if max(rel.values()) > EXP_LR_RTOL:
+        raise AssertionError(f"linear_regression: card against CPU below proj_dim {rel}")
+    for k, bound in EXP_LR_TAIL.items():
+        for name, tab in (("card", card), ("cpu", cpu)):
+            if not 0.0 <= float(tab[k][-1]) <= bound:
+                raise AssertionError(f"linear_regression: {name} {k} at M_max "
+                                     f"{float(tab[k][-1])} outside [0, {bound}]")
+    return launches, hold_err
+
+
+def _exp_synthetic_vectors(gs):
+    """synthetic_vectors at its defaults: GIGA and FW on the card and with
+    --device cpu in this process (the same sizes and errors below
+    data_dim), and kernel 1 held to its plain version on GIGA's select
+    copy; OMP on the card at M=EXP_OMP_M.  Returns (select launches, the
+    hold's score error)."""
+    import numpy as np
+    import torch
+    from bayesian_coresets_tpu_torch.experiments import results, synthetic_vectors
+
+    def run(alg, extra):
+        with _in_temp_dir():
+            gs.launches = 0
+            t0 = time.perf_counter()
+            coreset = synthetic_vectors.main(["run", "--alg", alg] + extra)
+            t = time.perf_counter() - t0
+            return t, gs.launches, coreset, results.load_matching({}, folder="results/")
+
+    total, hold_err, dim = 0, 0.0, 100          # the driver's default data_dim
+    for alg, extra in (("GIGA", []), ("FW", []),
+                       ("OMP", ["--coreset_size_max", str(EXP_OMP_M)])):
+        t, launches, coreset, table = run(alg, extra)
+        itr = int(coreset.snnls.state.itr)
+        _finite_columns(table, f"synthetic_vectors {alg}")
+        err = table["err"]
+        cpu_kv = {}
+        if alg == "GIGA":
+            Vsel = coreset.snnls.consts.Vsel
+            hold_err = _hold_driver_select(torch, coreset, "synthetic_vectors select")
+            cpu_kv.update(select_held=f"{Vsel.dtype}:{tuple(Vsel.shape)}",
+                          select_max_abs_err=hold_err)
+        if not extra:
+            t_cpu, cpu_launches, _, cpu = run(alg, ["--device", "cpu"])
+            below = cpu["csize"] < dim
+            diff = np.abs(err - cpu["err"])
+            tol = EXP_SV_RTOL * np.abs(cpu["err"]) + EXP_SV_ATOL * np.max(cpu["err"])
+            last = np.flatnonzero(below)[-1]
+            cpu_kv.update(cpu_seconds=f"{t_cpu:.3f}", cpu_err_at_Mmax=f"{cpu['err'][-1]:.6g}",
+                          sizes_below_data_dim=int(below.sum()),
+                          max_err_diff_below_data_dim=f"{np.max(diff[below]):.3g}",
+                          max_err_diff_over_tol=f"{np.max(diff[below] / tol[below]):.3g}")
+            if cpu_launches:
+                raise AssertionError(f"synthetic_vectors {alg}: {cpu_launches} select "
+                                     "launches on the CPU")
+            if not np.array_equal(table["csize"][below], cpu["csize"][below]):
+                raise AssertionError(f"synthetic_vectors {alg}: card and CPU sizes differ "
+                                     f"below data_dim: {table['csize']} against {cpu['csize']}")
+            if not (diff[below] <= tol[below]).all():
+                raise AssertionError(f"synthetic_vectors {alg}: card errors {err} against "
+                                     f"CPU {cpu['err']} below data_dim")
+            for name, e in (("card", err), ("cpu", cpu["err"])):
+                if not e[-1] <= e[last]:
+                    raise AssertionError(f"synthetic_vectors {alg}: {name} error {e[-1]} at "
+                                         f"M_max above {e[last]} at size {last}")
+        _exp_line(f"synthetic_vectors_{alg}", t, launches, itr, table, ("err", "csize"),
+                  f"coreset_size_max:1000->{EXP_OMP_M}" if extra else "none",
+                  data_num=10000, data_dim=dim, sizes=table.nrows,
+                  ms_per_itr=f"{1e3 * float(table['cput'][-1]) / max(itr, 1):.4f}", **cpu_kv)
+        if launches != itr or itr == 0:
+            raise AssertionError(f"synthetic_vectors {alg}: {launches} select launches for "
+                                 f"{itr} iterations")
+        if not err[-1] < err[0]:
+            raise AssertionError(f"synthetic_vectors {alg}: error {err[-1]} at M_max not "
+                                 f"below {err[0]}")
+        total += launches
+    return total, hold_err
+
+
+def phase_experiments(torch, smi):
+    """The experiment drivers through their ``main([...])`` entry points,
+    each in a temporary working directory; returns the select launches
+    and the largest score error of the holds on the drivers' matrices."""
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+    from bayesian_coresets_tpu_torch.ops import packed_select as ps
+
+    say("experiments", start="phase 18", card=repr(smi))
+    total = _exp_logistic(gs, ps)
+    total += _exp_simple_lr(gs)
+    lr_launches, lr_err = _exp_linear_regression(gs)
+    sv_launches, sv_err = _exp_synthetic_vectors(gs)
+    if ps.launches:
+        raise AssertionError("the experiment drivers launched the packed select kernel")
+    return total + lr_launches + sv_launches, max(lr_err, sv_err)
+
+
 def main() -> int:
     import torch   # noqa: F401  (fails here without PyTorch)
 
@@ -1799,19 +2112,23 @@ def main() -> int:
     st_launches, stq_launches, st_omp_launches, st_select = phase_streamed(torch, smi)
     gs.launches = 0
     wide_launches = phase_wide_build(torch, smi)
+    torch.cuda.empty_cache()
+    exp_launches, exp_err = phase_experiments(torch, smi)
     if ps.launches:
         raise AssertionError("a solver's path launched the packed select kernel")
     say("select_launches_by_path", giga=launches, frankwolfe=fw_launches, omp=omp_launches,
         sampling=0, poisson_giga=pois_launches, streamed_giga_N8M=st_launches,
         quality_arms_N1M=stq_launches, streamed_omp_N1M=st_omp_launches,
-        streamed_sampling_N1M=0, wide_giga_fw_S16384=wide_launches)
+        streamed_sampling_N1M=0, wide_giga_fw_S16384=wide_launches,
+        experiments=exp_launches)
     launches += (fw_launches + omp_launches + pois_launches + st_launches + stq_launches
-                 + st_omp_launches + wide_launches)
-    max_err = max(max_err, st_select[5])
+                 + st_omp_launches + wide_launches + exp_launches)
+    max_err = max(max_err, st_select[5], exp_err)
     from bayesian_coresets_tpu_torch import native
-    if any(m == "jax" or m.startswith(("jax.", "bayesian_coresets_tpu."))
-           or m == "bayesian_coresets_tpu" for m in sys.modules):
+    if any(m.split(".")[0] in ("jax", "bayesian_coresets_tpu") for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
+    if any(m.split(".")[0] in ("pandas", "matplotlib") for m in sys.modules):
+        raise AssertionError("the port imported pandas or matplotlib")
     if not native.SOURCE.resolve().is_relative_to(ROOT / "bayesian_coresets_tpu_torch"):
         raise AssertionError(f"the port builds from {native.SOURCE}, outside its package")
     print(json.dumps({"kernels": [

@@ -7,8 +7,9 @@ kernels, narrow and wide calls in turn), numpy data landing on the card,
 GIGA, Frank-Wolfe and OMP builds on the card against the same builds on the
 CPU, sampling builds that read only ``done``, a short
 NUTS run on the card, projected Adam, SparseVI and ``optimize()`` on the
-card against the CPU, and SparseVI and BatchPSVI builds that read nothing
-back from the card but SparseVI's one flag per select.
+card against the CPU, SparseVI and BatchPSVI builds that read nothing
+back from the card but SparseVI's one flag per select, and the
+synthetic_vectors experiment driver on the card against ``--device cpu``.
 
 Every test here needs a card and skips without one.  This file imports no
 JAX, so it also runs where JAX is absent; there, skip the JAX conftest:
@@ -727,3 +728,61 @@ def test_int8_resident_matvec_forms_no_f32_matrix(cuda_device):
     rows = Vq[idx].double() * (norms[idx].double() / 127.0)[:, None]
     np.testing.assert_allclose(xw.cpu().numpy(), (w[idx].double() @ rows).cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", ["GIGA", "FW"])
+def test_synthetic_vectors_driver_on_card_matches_cpu(alg, cuda_device, tmp_path, monkeypatch):
+    """The synthetic_vectors driver at a small size on the card and with
+    --device cpu: the same sizes and errors (rtol 1e-4), and one select
+    launch per solver iteration on the card."""
+    from bayesian_coresets_tpu_torch.experiments import results
+    from bayesian_coresets_tpu_torch.experiments import synthetic_vectors as sv
+
+    monkeypatch.chdir(tmp_path)
+    argv = ["run", "--alg", alg, "--data_num", "3000", "--data_dim", "64",
+            "--coreset_size_max", "60", "--coreset_num_sizes", "8", "--trial", "4"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        before = gs.launches
+        coreset = sv.main(argv + ["--device", dev, "--results_folder", f"r_{dev}/"])
+        launches = gs.launches - before
+        assert coreset.snnls.consts.V.device.type == dev
+        if dev == "cuda":
+            assert launches == int(coreset.snnls.state.itr) > 0
+        else:
+            assert launches == 0
+        out[dev] = results.load_matching({}, folder=f"r_{dev}/")
+    np.testing.assert_array_equal(out["cuda"]["csize"], out["cpu"]["csize"])
+    np.testing.assert_allclose(out["cuda"]["err"], out["cpu"]["err"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_logistic_cpu_fallback_moves_the_chains_off_the_card(cuda_device, tmp_path,
+                                                            monkeypatch):
+    """logistic_poisson with --cpu_fallback on the card: the full-data chains,
+    the coreset's and its dense retry run on the card, the last retry on
+    the CPU; without the flag nothing runs on the CPU."""
+    from bayesian_coresets_tpu_torch.experiments import datasets
+    from bayesian_coresets_tpu_torch.experiments import logistic_poisson as lp
+
+    monkeypatch.chdir(tmp_path)
+    rng = np.random.default_rng(0)
+    n, d = 120, 3
+    X = np.hstack([rng.normal(size=(n, d - 1)), np.ones((n, 1))])
+    Y = np.where(rng.uniform(size=n) < 1 / (1 + np.exp(-X @ np.ones(d))), 1.0, -1.0)
+    data = (X.astype(np.float32), Y, (Y[:, None] * X).astype(np.float32), None, d)
+    monkeypatch.setattr(datasets, "load_logistic", lambda name: data)
+    devices = []
+    run = lp.mcmc.run
+    monkeypatch.setattr(lp.mcmc, "run", lambda model, pts, *a, **kw:
+                        devices.append(pts.device.type) or run(model, pts, *a, **kw))
+    argv = ["run", "--model", "lr", "--alg", "GIGA-OPT", "--mcmc_samples_full", "32",
+            "--mcmc_samples_coreset", "32", "--mcmc_chains", "2", "--proj_dim", "32",
+            "--coreset_size_max", "16", "--coreset_num_sizes", "1", "--fs_samples", "16",
+            "--max_treedepth", "8", "--ess_gate", "10000"]
+    info = lp.main(argv + ["--results_folder", "plain/"])
+    assert devices == ["cuda", "cuda", "cuda"] and info["cpu_retries"] == 0
+    devices.clear()
+    info = lp.main(argv + ["--results_folder", "fallback/", "--cpu_fallback"])
+    assert devices == ["cuda", "cuda", "cpu"] and info["cpu_retries"] == 1
