@@ -22,7 +22,20 @@ device, is projected and quantized (:func:`..parallel.streamed.
 quantize_chunk`), and is written into one int8 buffer allocated there
 beforehand.  Only that buffer (N x S bytes) and the f32 row norms stay; the
 solvers run on the int8-resident constants (``make_consts_quantized``).
-Mesh-sharded construction is ROADMAP item 16.
+
+``mesh`` (``parallel.make_mesh``, under an initialized process group; the
+JAX package's hilbert.py:81-92, 170-253) shards the build over the ranks
+of the mesh's data axis.  Every rank passes the same data and a projector
+made alike (the same samples, from the same seed), and projects only its
+own block of rows (``parallel/coreset.py``'s layout); b is the sum of the
+ranks' partial sums, and the solver runs as one rank of the sharded build.
+With ``stream_chunk_size`` too, each rank streams its own rows into its
+own int8 buffer (:func:`..parallel.streamed.make_streamed_quantized_
+consts`).  The JAX package's sharded stream traces the projector inside
+``shard_map`` and so falls back to another route when the projector
+cannot be traced or is not shard-safe (hilbert.py:215-253 there); here
+every rank calls the projector's own ``project``, eagerly, so there is
+no such fallback and no re-route.
 """
 
 from __future__ import annotations
@@ -30,9 +43,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.giga_select import col_multiple
-from ..ops.snnls import GIGA, make_consts_quantized
-from ..parallel.streamed import quantize_chunk, round_up
+from ..ops.snnls import GIGA, make_consts, make_consts_quantized
+from ..parallel.comm import Comm
+from ..parallel.coreset import local_rows, row_block
+from ..parallel.mesh import DATA_AXIS
+from ..parallel.streamed import (make_streamed_quantized_consts, stream_quantized,
+                                 streamed_row_layout)
 from ..utils import config
 from .coreset import Coreset
 from .projector import Projector
@@ -42,20 +58,19 @@ class HilbertCoreset(Coreset):
     def __init__(self, data: torch.Tensor, ll_projector: Projector,
                  n_subsample: int | None = None, snnls=GIGA, seed: int = 0,
                  max_active: int | None = None, select_dtype=None,
-                 stream_chunk_size: int | None = None, device=None):
+                 stream_chunk_size: int | None = None, device=None, mesh=None):
         super().__init__()
         if stream_chunk_size is not None:
             if n_subsample is not None:
                 raise ValueError("stream_chunk_size and n_subsample are mutually exclusive "
                                  "(subsample the data first instead)")
             self._init_streamed(data, ll_projector, int(stream_chunk_size), snnls, seed,
-                                max_active, device)
+                                max_active, device, mesh)
             return
         data = config.as_tensor(data, device=device)
         if n_subsample is None:
             sub_idcs = np.arange(data.shape[0])
-            vecs = ll_projector.project(data)
-            valid = torch.ones(data.shape[0], dtype=torch.bool, device=vecs.device)
+            uniq = None
         else:
             # reference sampling distribution (randint-with-replacement then
             # dedup, hilbert.py:16) at a fixed shape via masking
@@ -63,24 +78,43 @@ class HilbertCoreset(Coreset):
             sub_idcs = rng.integers(0, data.shape[0], size=n_subsample)
             uniq = np.zeros(n_subsample, dtype=bool)
             uniq[np.unique(sub_idcs, return_index=True)[1]] = True
-            vecs = ll_projector.project(data[torch.as_tensor(sub_idcs, device=data.device)])
-            valid = torch.as_tensor(uniq, device=vecs.device)
+        lo, per = (0, len(sub_idcs)) if mesh is None else row_block(len(sub_idcs), mesh)
+        mine = slice(min(lo, len(sub_idcs)), lo + per)       # this rank's rows
+        if n_subsample is None:
+            pts = data[mine] if mesh is not None else data
+        else:
+            pts = data[torch.as_tensor(sub_idcs[mine], device=data.device)]
+        vecs = ll_projector.project(pts)
+        valid = (torch.ones(vecs.shape[0], dtype=torch.bool, device=vecs.device) if uniq is None
+                 else torch.as_tensor(uniq[mine], device=vecs.device))
         # mask zero vectors instead of pruning (hilbert.py:20-22)
         valid = valid & (torch.sqrt(torch.sum(vecs**2, dim=1)) > 0.0)
-        if not bool(valid.any()):
-            raise ValueError("all projected vectors are zero or masked")
         b = vecs[valid].sum(dim=0)
-        self.snnls = snnls(vecs.T, b, valid=valid, seed=seed,
-                           max_active=max_active, select_dtype=select_dtype)
+        if mesh is None:
+            if not bool(valid.any()):
+                raise ValueError("all projected vectors are zero or masked")
+            self.snnls = snnls(vecs.T, b, valid=valid, seed=seed,
+                               max_active=max_active, select_dtype=select_dtype)
+        else:
+            comm = Comm(mesh, DATA_AXIS, per)
+            b = comm.sum(b, "setup")
+            if not bool(comm.sum(torch.sum(valid).double(), "setup") > 0):
+                raise ValueError("all projected vectors are zero or masked")
+            sampling = snnls.method if snnls.method in ("importance", "uniform") else None
+            consts = make_consts(local_rows(vecs, 0, per).T, b,
+                                 valid=local_rows(valid, 0, per, False),
+                                 select_dtype=select_dtype, sampling=sampling, comm=comm)
+            self.snnls = snnls.from_consts(consts, seed=seed, max_active=max_active, mesh=mesh)
         self.sub_idcs = sub_idcs
         self.data = data
 
     def _init_streamed(self, data, ll_projector: Projector, chunk: int, snnls_cls, seed: int,
-                       max_active, device):
+                       max_active, device, mesh):
         """Chunked projection -> int8 quantization on the device -> the
         int8-resident solver constants (hilbert.py:100-168 there).  The
         device is ``device``, else a tensor's own, else the default device;
-        the data itself is never copied there whole."""
+        the data itself is never copied there whole.  With ``mesh`` each
+        rank streams its own rows (hilbert.py:170-253 there)."""
         if chunk <= 0:
             raise ValueError(f"stream_chunk_size must be positive; got {chunk}")
         if isinstance(data, torch.Tensor):
@@ -97,39 +131,30 @@ class HilbertCoreset(Coreset):
         # project() would put each chunk in another basis): the same row
         # projected twice must give the same vector
         sentinel = rows(0, 1)
-        if not torch.equal(ll_projector.project(sentinel), ll_projector.project(sentinel)):
+        probe = ll_projector.project(sentinel)
+        if not torch.equal(probe, ll_projector.project(sentinel)):
             raise ValueError(
                 "stream_chunk_size requires a projector with a fixed context across "
                 "project() calls; this one returned different vectors for the same input "
                 "(does it resample inside project()?)")
 
         n = data.shape[0]
-        buf = b = None
-        norms = []
-        for lo in range(0, n, chunk):
-            live = min(chunk, n - lo)
-            xc = rows(lo, lo + live)
-            if live < chunk:                  # the last chunk, zero-padded to the chunk size
-                xc = torch.cat([xc, xc.new_zeros((chunk - live,) + xc.shape[1:])])
-            q, nrm, bsum = quantize_chunk(ll_projector.project(xc), live)
-            if buf is None:
-                # allocated once, columns pre-padded to whole 16-byte rows, so
-                # make_consts_quantized uses it as it is
-                S = q.shape[1]
-                buf = torch.zeros((n, round_up(S, col_multiple(torch.int8))), dtype=torch.int8,
-                                  device=dev)
-                b = torch.zeros(S, dtype=torch.float64, device=dev)
-            buf[lo:lo + live, :S].copy_(q[:live])
-            b += bsum
-            norms.append(nrm[:live])
-            del q, nrm, bsum, xc
-        norms = torch.cat(norms)
-        valid = norms > 0
-        if not bool(valid.any()):
-            raise ValueError("all projected vectors are zero or masked")
         sampling = snnls_cls.method if snnls_cls.method in ("importance", "uniform") else None
-        consts = make_consts_quantized(buf, norms, b.float(), valid=valid, sampling=sampling)
-        self.snnls = snnls_cls.from_consts(consts, seed=seed, max_active=max_active)
+        if mesh is not None:
+            sl = streamed_row_layout(n, mesh)[3]
+            consts = make_streamed_quantized_consts(
+                data[sl], ll_projector.project, chunk, mesh, n, sampling=sampling,
+                S=int(probe.shape[1]), device=dev)
+            self.snnls = snnls_cls.from_consts(consts, seed=seed, max_active=max_active,
+                                               mesh=mesh)
+        else:
+            buf, norms, b = stream_quantized(rows, n, n, ll_projector.project, chunk, dev)
+            valid = norms > 0
+            if not bool(valid.any()):
+                raise ValueError("all projected vectors are zero or masked")
+            consts = make_consts_quantized(buf, norms, b.float(), valid=valid,
+                                           sampling=sampling)
+            self.snnls = snnls_cls.from_consts(consts, seed=seed, max_active=max_active)
         self.sub_idcs = np.arange(n)
         self.data = data
 

@@ -7,15 +7,23 @@ strings), so the same argv gives the same namespace and results key.  The
 ``run`` subcommand has one flag more, ``--device {cuda,cpu}`` (default
 ``cuda``): where the run computes, this package's counterpart of the JAX
 package's ``JAX_PLATFORMS``.  It is left out of the results key.
+
+``--data_mesh k`` and ``--chain_mesh`` shard a run over the ranks of a
+process group, one process per GPU: start it with ``torchrun
+--nproc-per-node k -m bayesian_coresets_tpu_torch.experiments.<driver> run
+...`` (NCCL; gloo with ``--device cpu``).  Rank 0 alone writes the results.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel import CHAIN_AXIS, DATA_AXIS, initialize, make_mesh
 from ..utils import config
 from . import plotting, results
 
@@ -111,15 +119,45 @@ def to_numpy(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def check_one_device(arguments) -> None:
-    """``--data_mesh N>0`` and ``--chain_mesh`` shard over devices, which
-    is not ported yet (ROADMAP item 16): they raise before any work.  The
-    flags stay in the parsers so that results keys equal the JAX package's."""
-    for flag in ("data_mesh", "chain_mesh"):
-        if getattr(arguments, flag, None):
-            raise NotImplementedError(
-                f"--{flag}: sharding over devices is not ported yet (ROADMAP item 16); "
-                "run on one device")
+def _group(arguments, driver: str, flag: str, k) -> None:
+    """Join the process group that ``torchrun`` started (NCCL for ``--device
+    cuda``, gloo for ``--device cpu``), or raise with the command that
+    starts one.  A group already up (e.g. ``parallel.run_local``) is used
+    as it is."""
+    if dist.is_initialized():
+        return
+    if "RANK" not in os.environ:
+        raise RuntimeError(
+            f"{flag} runs as one rank of a process group; start every rank with: torchrun "
+            f"--nproc-per-node {k} -m bayesian_coresets_tpu_torch.experiments.{driver} "
+            f"run {flag} ...")
+    initialize(backend="gloo" if arguments.device == "cpu" else "nccl")
+
+
+def data_mesh(arguments, driver: str):
+    """The data-axis mesh of ``--data_mesh k`` (None without the flag): the
+    run is one of k ranks (``torchrun --nproc-per-node k``), and the
+    Hilbert build shards its rows over them."""
+    k = int(getattr(arguments, "data_mesh", 0) or 0)
+    if not k:
+        return None
+    _group(arguments, driver, f"--data_mesh {k}", k)
+    return make_mesh({DATA_AXIS: k})
+
+
+def chain_mesh(arguments, driver: str):
+    """The chain-axis mesh of ``--chain_mesh`` over every rank of the
+    process group (None without the flag)."""
+    if not getattr(arguments, "chain_mesh", False):
+        return None
+    _group(arguments, driver, "--chain_mesh", "K")
+    return make_mesh({CHAIN_AXIS: dist.get_world_size()})
+
+
+def rank0() -> bool:
+    """Whether this process writes shared files (the results store, caches):
+    the only process, or rank 0 of a process group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def dispatch(parser, argv=None):

@@ -26,12 +26,12 @@ from .. import coresets as bc
 from ..models import gaussian
 from ..utils import config, prng, set_verbosity
 from . import results
-from .cli import (SELECT_DTYPES, check_one_device, coreset_size_grid, dispatch, make_parser,
+from .cli import (SELECT_DTYPES, coreset_size_grid, data_mesh, dispatch, make_parser, rank0,
                   step_sched, to_numpy)
 
 def run(arguments):
     """Returns the coreset built (None when the results already exist)."""
-    check_one_device(arguments)
+    mesh = data_mesh(arguments, "gaussian")
     if results.check_exists(arguments):
         print(f"Results already exist for arguments {arguments}\nQuitting.")
         return None
@@ -103,7 +103,7 @@ def run(arguments):
         sd = SELECT_DTYPES[arguments.select_dtype]
         if name == "GIGA-OPT":
             return bc.HilbertCoreset(x, projector(sampler_optimal), seed=seed,
-                                     select_dtype=sd, stream_chunk_size=stream)
+                                     select_dtype=sd, stream_chunk_size=stream, mesh=mesh)
         if name == "GIGA-OPT-EXACT":
             prj = bc.FamilyProjector(exact_family)
             prj.update(ones, x)
@@ -166,6 +166,8 @@ def run(arguments):
         mu_errs[m] = np.linalg.norm(mup - muw[m]) / np.linalg.norm(mup)
         Sig_errs[m] = np.linalg.norm(Sigp - Sigw[m]) / np.linalg.norm(Sigp)
 
+    if not rank0():
+        return alg
     results.save(arguments, csizes=csizes, Ms=Ms, cputs=cputs, rklw=rklw,
                  fklw=fklw, mu_errs=mu_errs, Sig_errs=Sig_errs)
 
@@ -200,8 +202,9 @@ def main(argv=None):
                         help="(GIGA-OPT) chunked projection with int8-resident "
                              "storage: beyond-HBM datasets on one device")
     parser.add_argument("--data_mesh", type=int, default=0,
-                        help="(GIGA-OPT) shard dataset rows over this many "
-                             "devices: not ported yet (ROADMAP item 16), raises")
+                        help="(GIGA-OPT) shard dataset rows over this many ranks, one "
+                             "per GPU: run under torchrun --nproc-per-node N -m "
+                             "bayesian_coresets_tpu_torch.experiments.gaussian run ...")
     return dispatch(parser, argv)
 
 

@@ -26,7 +26,7 @@ from ..models import linreg
 from ..models.gaussian import kl_divergence_np
 from ..utils import config, prng, set_verbosity
 from . import datasets, results
-from .cli import (SELECT_DTYPES, check_one_device, coreset_size_grid, dispatch, make_parser,
+from .cli import (SELECT_DTYPES, coreset_size_grid, data_mesh, dispatch, make_parser, rank0,
                   step_sched, to_numpy)
 
 ALGS = ["SVI", "SVI-EXACT", "GIGA-OPT", "GIGA-OPT-EXACT", "GIGA-REAL",
@@ -47,7 +47,7 @@ def _load_xy(arguments, rng):
 
 def run(arguments):
     """Returns the coreset built (None when the results already exist)."""
-    check_one_device(arguments)
+    mesh = data_mesh(arguments, "linear_regression")
     if results.check_exists(arguments):
         print(f"Results already exist for arguments {arguments}\nQuitting.")
         return None
@@ -148,14 +148,14 @@ def run(arguments):
                                       step_sched=sched, seed=seed, capacity=cap)
         if name == "GIGA-OPT":
             return bc.HilbertCoreset(Zt, projector(sampler_optimal), seed=seed,
-                                     select_dtype=sd, stream_chunk_size=stream)
+                                     select_dtype=sd, stream_chunk_size=stream, mesh=mesh)
         if name == "GIGA-OPT-EXACT":
             prj = bc.FamilyProjector(exact_family)
             prj.update(ones, Zt)
             return bc.HilbertCoreset(Zt, prj, seed=seed)
         if name == "GIGA-REAL":
             return bc.HilbertCoreset(Zt, projector(sampler_realistic), seed=seed,
-                                     select_dtype=sd, stream_chunk_size=stream)
+                                     select_dtype=sd, stream_chunk_size=stream, mesh=mesh)
         if name == "GIGA-REAL-EXACT":
             prj = bc.FamilyProjector(exact_family)
             prj.update(torch.ones(Zhat.shape[0], device=dev), Zhat)
@@ -205,8 +205,9 @@ def run(arguments):
         mu_errs[m] = np.linalg.norm(mup - muw) / np.linalg.norm(mup)
         Sig_errs[m] = np.linalg.norm(Sigp - Sigw) / np.linalg.norm(Sigp)
 
-    results.save(arguments, csizes=csizes, Ms=Ms, cputs=cputs, rklw=rklw,
-                 fklw=fklw, mu_errs=mu_errs, Sig_errs=Sig_errs)
+    if rank0():
+        results.save(arguments, csizes=csizes, Ms=Ms, cputs=cputs, rklw=rklw,
+                     fklw=fklw, mu_errs=mu_errs, Sig_errs=Sig_errs)
     return alg
 
 
@@ -228,8 +229,10 @@ def main(argv=None):
                         help="(GIGA-*) chunked projection with int8-resident "
                              "storage: beyond-HBM datasets on one device")
     parser.add_argument("--data_mesh", type=int, default=0,
-                        help="(GIGA-*) shard dataset rows over this many devices: "
-                             "not ported yet (ROADMAP item 16), raises")
+                        help="(GIGA-*) shard dataset rows over this many ranks, one per "
+                             "GPU: run under torchrun --nproc-per-node N -m "
+                             "bayesian_coresets_tpu_torch.experiments.linear_regression "
+                             "run ...")
     return dispatch(parser, argv)
 
 

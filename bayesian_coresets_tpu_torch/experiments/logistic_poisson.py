@@ -32,10 +32,11 @@ from .. import mcmc
 from ..models import logistic, poisson
 from ..models.gaussian import kl_divergence_np
 from ..models.laplace import laplace_approx, sample_laplace
+from ..parallel import CHAIN_AXIS
 from ..utils import config, prng, set_verbosity
 from . import datasets, results
-from .cli import (SELECT_DTYPES, check_one_device, coreset_size_grid, dispatch, make_parser,
-                  step_sched)
+from .cli import (SELECT_DTYPES, chain_mesh, coreset_size_grid, data_mesh, dispatch,
+                  make_parser, rank0, step_sched)
 
 ALGS = ["SVI", "GIGA-OPT", "GIGA-REAL", "US", "BPSVI"]
 
@@ -87,7 +88,8 @@ def run(arguments):
     ``dense_retries`` (grid points retried with the dense metric) and
     ``cpu_retries`` (grid points retried on the CPU, ``--cpu_fallback``
     only); None when the results already exist."""
-    check_one_device(arguments)
+    dmesh = data_mesh(arguments, "logistic_poisson")
+    cmesh = chain_mesh(arguments, "logistic_poisson")
     if results.check_exists(arguments):
         print(f"Results already exist for arguments {arguments}\nQuitting.")
         return None
@@ -120,6 +122,11 @@ def run(arguments):
     # cache key fixed to cover sample count / chains / trial, see
     # full_cache_path).  Chains are batched with pooled adaptation.
     nc = max(1, int(arguments.mcmc_chains))
+    if cmesh is not None:
+        # chains round up to a multiple of the ranks (logistic_poisson.py:99-109 there)
+        world = cmesh.axis_size(CHAIN_AXIS)
+        nc = -(-nc // world) * world
+        print(f"chain mesh: {world} ranks x {nc // world} chains/rank")
     n_full = -(-arguments.mcmc_samples_full // nc)   # kept draws per chain
     cache = full_cache_path(arguments)
     if os.path.exists(cache):
@@ -138,13 +145,14 @@ def run(arguments):
             model, Z, ones, n_full, prng.fold_seed(arguments.trial, 0, device=dev), d=dth,
             num_chains=nc, target_accept=arguments.target_accept,
             pooled_adaptation=nc > 1, num_warmup=arguments.mcmc_samples_full,
-            max_depth=arguments.max_treedepth, dense_mass=arguments.dense_mass)
+            max_depth=arguments.max_treedepth, dense_mass=arguments.dense_mass, mesh=cmesh)
         full_samples = full_samples.cpu().numpy()
         full_rhat, full_ess = chain_diagnostics(res_full)
         full_mcmc_time_per_itr = t_full / (nc * n_full * 2)
-        os.makedirs("mcmc_cache", exist_ok=True)
-        np.savez(cache, samples=full_samples, t=full_mcmc_time_per_itr,
-                 rhat=full_rhat, ess=full_ess)
+        if rank0():
+            os.makedirs("mcmc_cache", exist_ok=True)
+            np.savez(cache, samples=full_samples, t=full_mcmc_time_per_itr,
+                     rhat=full_rhat, ess=full_ess)
         secs["full_nuts"] = time.perf_counter() - t0
     if unconverged(full_rhat, full_ess, arguments.ess_gate):
         print(f"WARNING: full-data chains not converged "
@@ -224,10 +232,10 @@ def run(arguments):
                                       capacity=int(arguments.coreset_size_max))
         if name == "GIGA-OPT":
             return bc.HilbertCoreset(Z, projector(sampler_opt), seed=seed,
-                                     select_dtype=sd, stream_chunk_size=stream)
+                                     select_dtype=sd, stream_chunk_size=stream, mesh=dmesh)
         if name == "GIGA-REAL":
             return bc.HilbertCoreset(Z, projector(sampler_real), seed=seed,
-                                     select_dtype=sd, stream_chunk_size=stream)
+                                     select_dtype=sd, stream_chunk_size=stream, mesh=dmesh)
         if name == "US":
             return bc.UniformSamplingCoreset(Z, seed=seed)
         if name == "BPSVI":
@@ -265,7 +273,7 @@ def run(arguments):
         out = mcmc.run(model, pts_m, wts_m, n_cst, gen, d=dth, num_chains=nc,
                        target_accept=arguments.target_accept, pooled_adaptation=nc > 1,
                        num_warmup=arguments.mcmc_samples_coreset,
-                       max_depth=arguments.max_treedepth, dense_mass=dense)
+                       max_depth=arguments.max_treedepth, dense_mass=dense, mesh=cmesh)
         secs["coreset_nuts"] += time.perf_counter() - t0
         return out
 
@@ -359,11 +367,12 @@ def run(arguments):
               f"rhat={rhats[m]:.3f} minESS={esses[m]:.0f}")
     secs["build"] += t_alg
 
-    results.save(arguments, csizes=csizes, Ms=Ms, cputs=cputs, Fs=Fs,
-                 full_mcmc_time_per_itr=np.full(nM, full_mcmc_time_per_itr),
-                 mcmc_time_per_itr=mcmc_time_per_itr, rklw=rklw, fklw=fklw,
-                 mu_errs=mu_errs, Sig_errs=Sig_errs, rhats=rhats, esses=esses,
-                 full_rhat=np.full(nM, full_rhat), full_ess=np.full(nM, full_ess))
+    if rank0():
+        results.save(arguments, csizes=csizes, Ms=Ms, cputs=cputs, Fs=Fs,
+                     full_mcmc_time_per_itr=np.full(nM, full_mcmc_time_per_itr),
+                     mcmc_time_per_itr=mcmc_time_per_itr, rklw=rklw, fklw=fklw,
+                     mu_errs=mu_errs, Sig_errs=Sig_errs, rhats=rhats, esses=esses,
+                     full_rhat=np.full(nM, full_rhat), full_ess=np.full(nM, full_ess))
     return {"coreset": alg, "seconds": secs, "dense_retries": dense_retries,
             "cpu_retries": cpu_retries}
 
@@ -396,11 +405,14 @@ def main(argv=None):
                         help="retry still-unconverged coreset chains on the host "
                              "CPU (last resort, off by default)")
     parser.add_argument("--data_mesh", type=int, default=0,
-                        help="(GIGA-*) shard dataset rows over this many devices: "
-                             "not ported yet (ROADMAP item 16), raises")
+                        help="(GIGA-*) shard dataset rows over this many ranks, one per "
+                             "GPU: run under torchrun --nproc-per-node N -m "
+                             "bayesian_coresets_tpu_torch.experiments.logistic_poisson "
+                             "run ...")
     parser.add_argument("--chain_mesh", action="store_true",
-                        help="shard NUTS chains over all visible devices: not "
-                             "ported yet (ROADMAP item 16), raises")
+                        help="shard NUTS chains over every rank of the process group "
+                             "(under torchrun, as --data_mesh); chains round up to a "
+                             "multiple of the rank count")
     parser.add_argument("--max_treedepth", type=int, default=15,
                         help="NUTS max tree depth (reference control "
                              "max_treedepth=15, mcmc.py:58)")

@@ -169,7 +169,7 @@ def build_segments(num_warmup: int, init_buffer: int = 75, term_buffer: int = 50
 
 
 def find_reasonable_step_size(value_and_grad_fn, z, logp, grad, inv_mass, draws,
-                              init_step=1.0, target=0.8, chol=None) -> torch.Tensor:
+                              init_step=1.0, target=0.8, chol=None, comm=None) -> torch.Tensor:
     """Double or halve each chain's step until its one-step acceptance
     crosses 0.5 (Hoffman & Gelman Algorithm 4), at most 60 times.
 
@@ -178,7 +178,9 @@ def find_reasonable_step_size(value_and_grad_fn, z, logp, grad, inv_mass, draws,
     never crosses within 60 rounds keeps ``init_step``: the runaway 2^±60
     step of a pathological state (e.g. a non-finite cached gradient) would
     freeze or explode the sampler.  ``init_step``: scalar or (C,);
-    ``draws``: a draw source or a ``torch.Generator``.
+    ``draws``: a draw source or a ``torch.Generator``; ``comm``: the chain
+    axis's exchanges when the chains are this rank's block (the loop then
+    ends when every rank's chains have crossed).
     """
     r0 = sample_momentum(as_draws(draws), inv_mass, z.shape, z.dtype, chol=chol)
     s0 = IntegratorState(z, r0, logp, grad)
@@ -196,7 +198,7 @@ def find_reasonable_step_size(value_and_grad_fn, z, logp, grad, inv_mass, draws,
     iters = torch.zeros_like(step, dtype=torch.int32)
     while True:
         moving = (above_half(step) == grow) & (iters < 60)
-        if not bool(moving.any()):
+        if not (bool(moving.any()) if comm is None else comm.any(moving)):
             break
         step = torch.where(moving, step * factor, step)
         iters = iters + moving.to(torch.int32)

@@ -49,6 +49,38 @@ class Draws:
                              device=self.gen.device).to(device)
 
 
+class BlockDraws:
+    """This rank's block of chains [lo, lo + n) out of C: every draw is made
+    for all C chains from ``source`` and the block kept, so ranks whose
+    generators start alike stay in step and draw what one process drawing
+    for every chain draws (``parallel/mcmc.py``)."""
+
+    def __init__(self, source, lo: int, C: int):
+        self.source, self.lo, self.C = as_draws(source), lo, C
+
+    def _block(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        return x[self.lo:self.lo + n]
+
+    def momentum(self, shape, dtype, device) -> torch.Tensor:
+        full = self.source.momentum((self.C,) + tuple(shape[1:]), dtype, device)
+        return self._block(full, shape[0])
+
+    def direction(self, n: int, device) -> torch.Tensor:
+        return self._block(self.source.direction(self.C, device), n)
+
+    def leaf_uniform(self, n: int, device) -> torch.Tensor:
+        return self._block(self.source.leaf_uniform(self.C, device), n)
+
+    def tree_uniform(self, n: int, device) -> torch.Tensor:
+        return self._block(self.source.tree_uniform(self.C, device), n)
+
+    def accept_uniform(self, n: int, device) -> torch.Tensor:
+        return self._block(self.source.accept_uniform(self.C, device), n)
+
+    def num_steps(self, n: int, high: int, device) -> torch.Tensor:
+        return self._block(self.source.num_steps(self.C, high, device), n)
+
+
 def as_draws(source) -> Draws:
     """A ``torch.Generator`` becomes a :class:`Draws`; a draw source is kept."""
     return Draws(source) if isinstance(source, torch.Generator) else source

@@ -13,7 +13,10 @@ chains at once.  Doubling j takes 2^j leaves for every chain still building
 chain that turned or diverged is frozen by ``torch.where``: its trajectory
 ends, proposal, weight and counters stay as they were, while the others go
 on.  The loops end when no chain is left building: one host read per leaf
-and one per doubling (``host_reads`` counts them).
+and one per doubling (``host_reads`` counts them).  With chains sharded
+over ranks (``comm``, ``parallel/mcmc.py``) each read is of the flag over
+every rank's chains, so all ranks take as many leaves as one process
+taking every chain would, and their generators stay in step.
 """
 
 from __future__ import annotations
@@ -47,10 +50,10 @@ def _trailing_ones(n: int) -> int:
     return _popcount(n & ~(n + 1))
 
 
-def _any(flags: torch.Tensor) -> bool:
+def _any(flags: torch.Tensor, comm=None) -> bool:
     global host_reads
     host_reads += 1
-    return bool(flags.any())
+    return bool(flags.any()) if comm is None else comm.any(flags)
 
 
 def _is_turning(z_minus, r_minus, z_plus, r_plus, inv_mass) -> torch.Tensor:
@@ -71,7 +74,7 @@ class _Subtree(NamedTuple):
 
 
 def _build_subtree(value_and_grad_fn, start: IntegratorState, num_steps: int, step,
-                   inv_mass, joint0, max_depth: int, draws, building) -> _Subtree:
+                   inv_mass, joint0, max_depth: int, draws, building, comm=None) -> _Subtree:
     """Up to ``num_steps`` leapfrog steps from ``start`` for the chains in
     ``building``; a chain stops at its first U-turn or divergence."""
     global leaf_steps
@@ -87,7 +90,7 @@ def _build_subtree(value_and_grad_fn, start: IntegratorState, num_steps: int, st
     i = torch.zeros((C,), dtype=torch.int32, device=dev)
     run = building
     for leaf in range(num_steps):
-        if leaf and not _any(run):
+        if leaf and not _any(run, comm):
             break
         leaf_steps += 1
         new = leapfrog(value_and_grad_fn, s, step, inv_mass)
@@ -134,11 +137,12 @@ def _build_subtree(value_and_grad_fn, start: IntegratorState, num_steps: int, st
 
 def nuts_kernel(value_and_grad_fn: Callable, draws, state: IntegratorState,
                 step_size, inv_mass: torch.Tensor, max_depth: int = 10,
-                inv_mass_chol: torch.Tensor | None = None):
+                inv_mass_chol: torch.Tensor | None = None, comm=None):
     """One NUTS transition for every chain.  ``state.r`` is ignored (fresh
     momentum drawn); ``draws`` is a draw source or a ``torch.Generator``;
     ``step_size`` is a scalar or (C,); ``inv_mass_chol`` an optional
-    precomputed ``mass_chol(inv_mass)``."""
+    precomputed ``mass_chol(inv_mass)``; ``comm`` the chain axis's
+    exchanges when the chains are this rank's block."""
     draws = as_draws(draws)
     C, d = state.z.shape
     dev, f32 = state.z.device, torch.float32
@@ -156,13 +160,13 @@ def nuts_kernel(value_and_grad_fn: Callable, draws, state: IntegratorState,
     num_steps = torch.zeros((C,), dtype=torch.int32, device=dev)
     for j in range(max_depth):
         building = ~turning & ~diverging
-        if j and not _any(building):
+        if j and not _any(building, comm):
             break
         go_right = draws.direction(C, dev)
         start = where_state(go_right, right, left)
         sub = _build_subtree(value_and_grad_fn, start, 1 << j,
                              torch.where(go_right, step, -step), inv_mass, joint0,
-                             max_depth, draws, building)
+                             max_depth, draws, building, comm)
         u = draws.tree_uniform(C, dev)
 
         ok = ~sub.turning & ~sub.diverging

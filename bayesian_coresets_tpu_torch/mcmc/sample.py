@@ -6,6 +6,16 @@ chain's warmup and sampling scans; here every step is one batched NUTS
 transition of all chains.  Adaptation runs per chain by default (each
 chain its own dual averaging, Welford state and metric) or pooled across
 chains (one step size and one metric for all).
+
+With ``comm`` (the chain axis of a mesh, ``parallel/mcmc.py``) the chains
+are this rank's block of all C: every draw is made for all C chains from a
+generator that steps alike on every rank, and the block kept
+(:class:`.draws.BlockDraws`); the loops' guards read every rank's chains;
+pooled adaptation takes its statistics (the mean acceptance, the Welford
+batch merge, the median reasonable step) from the chains of every rank,
+gathered by one (C, ...) exchange each, so each rank computes what one
+process computes.  Per-chain adaptation exchanges nothing else, and the
+results are gathered once at the end.
 """
 
 from __future__ import annotations
@@ -24,7 +34,7 @@ from .adapt import (
     welford_update_batch,
     welford_variance,
 )
-from .draws import as_draws
+from .draws import BlockDraws, as_draws
 from .integrators import IntegratorState, mass_chol, value_and_grad
 from .nuts import nuts_kernel
 
@@ -49,21 +59,22 @@ def _shared(x: torch.Tensor, C: int) -> torch.Tensor:
     return x.expand((C,) + tuple(x.shape))
 
 
-def _reasonable_step(vg, state, inv_mass, chol, draws, pooled, init_step=1.0):
-    """Per-chain reasonable step sizes; pooled: their median, which one
-    outlying start cannot drag (``torch.quantile`` averages the two middle
-    values of an even count, as ``jnp.median`` does; ``torch.median`` would
-    take the lower one)."""
+def _reasonable_step(vg, state, inv_mass, chol, draws, pooled, gather, comm,
+                     init_step=1.0):
+    """Per-chain reasonable step sizes; pooled: the median over every
+    chain, which one outlying start cannot drag (``torch.quantile``
+    averages the two middle values of an even count, as ``jnp.median``
+    does; ``torch.median`` would take the lower one)."""
     steps = find_reasonable_step_size(vg, state.z, state.logp, state.grad, inv_mass,
-                                      draws, init_step=init_step, chol=chol)
-    return torch.quantile(steps, 0.5) if pooled else steps
+                                      draws, init_step=init_step, chol=chol, comm=comm)
+    return torch.quantile(gather(steps), 0.5) if pooled else steps
 
 
 def run_nuts(logdensity_fn: Callable, init_params: torch.Tensor, gen,
              num_warmup: int = 1000, num_samples: int = 1000,
              max_depth: int = 10, target_accept: float = 0.8,
              pooled_adaptation: bool = False,
-             dense_mass: bool = False) -> MCMCResult:
+             dense_mass: bool = False, comm=None) -> MCMCResult:
     """Sample with NUTS.  ``logdensity_fn``: batched, (C, d) -> (C,);
     ``init_params``: (num_chains, d); ``gen``: a ``torch.Generator`` (or a
     draw source).  Returns all chains.
@@ -74,8 +85,18 @@ def run_nuts(logdensity_fn: Callable, init_params: torch.Tensor, gen,
     Welford merges every chain's positions).  ``dense_mass=True`` adapts a
     full (d, d) covariance metric (Stan's ``dense_e``); ``inv_mass`` in the
     result then holds (num_chains, d, d) matrices.
+
+    ``comm`` (a chain-axis :class:`..parallel.comm.Comm`): ``init_params``
+    and ``logdensity_fn`` are this rank's block of ``comm.world`` equal
+    blocks of chains, ``gen`` starts alike on every rank, and every rank
+    returns the result of all chains (see the module docstring).
     """
     draws = as_draws(gen)
+    if comm is None:
+        gather = lambda x: x                                  # noqa: E731
+    else:
+        draws = BlockDraws(draws, comm.lo, comm.world * comm.n_loc)
+        gather = lambda x: comm.gather(x, "chains")           # noqa: E731
     segments = build_segments(num_warmup)
     vg = value_and_grad(logdensity_fn)
     C, d = init_params.shape
@@ -88,7 +109,7 @@ def run_nuts(logdensity_fn: Callable, init_params: torch.Tensor, gen,
               else torch.ones(d, dtype=dtype, device=dev))
     inv_mass = _shared(metric, C)
     chol = mass_chol(inv_mass)
-    da = da_init(_reasonable_step(vg, state, inv_mass, chol, draws, pooled))
+    da = da_init(_reasonable_step(vg, state, inv_mass, chol, draws, pooled, gather, comm))
     wbatch = () if pooled else (C,)
     wf = welford_init(d, dtype, dense=dense_mass, batch=wbatch, device=dev)
 
@@ -98,30 +119,31 @@ def run_nuts(logdensity_fn: Callable, init_params: torch.Tensor, gen,
     for length, slow, boundary in segments:
         for _ in range(length):
             state, info = nuts_kernel(vg, draws, state, torch.exp(da.log_step), inv_mass,
-                                      max_depth, inv_mass_chol=chol)
-            acc = info.accept_prob.mean() if pooled else info.accept_prob
+                                      max_depth, inv_mass_chol=chol, comm=comm)
+            acc = gather(info.accept_prob).mean() if pooled else info.accept_prob
             da = da_update(da, acc, target=target_accept)
             if slow:
-                wf = (welford_update_batch(wf, state.z) if pooled
+                wf = (welford_update_batch(wf, gather(state.z)) if pooled
                       else welford_update(wf, state.z))
         if boundary:
             metric = welford_variance(wf)
             inv_mass = _shared(metric, C) if pooled else metric
             chol = mass_chol(inv_mass)
-            da = da_init(_reasonable_step(vg, state, inv_mass, chol, draws, pooled,
-                                          init_step=torch.exp(da.log_step)))
+            da = da_init(_reasonable_step(vg, state, inv_mass, chol, draws, pooled, gather,
+                                          comm, init_step=torch.exp(da.log_step)))
             wf = welford_init(d, dtype, dense=dense_mass, batch=wbatch, device=dev)
 
     step_size = torch.exp(da.log_step_avg)
     zs, accepts, divs, depths = [], [], [], []
     for _ in range(num_samples):
         state, info = nuts_kernel(vg, draws, state, step_size, inv_mass, max_depth,
-                                  inv_mass_chol=chol)
+                                  inv_mass_chol=chol, comm=comm)
         zs.append(state.z)
         accepts.append(info.accept_prob)
         divs.append(info.diverging)
         depths.append(info.depth)
     mean = lambda xs: torch.stack(xs, dim=1).float().mean(dim=1)  # noqa: E731
-    return MCMCResult(torch.stack(zs, dim=1), mean(accepts),
-                      torch.stack(divs, dim=1).sum(dim=1),
-                      step_size.expand(C).clone(), inv_mass.contiguous(), mean(depths))
+    res = MCMCResult(torch.stack(zs, dim=1), mean(accepts),
+                     torch.stack(divs, dim=1).sum(dim=1),
+                     step_size.expand(C).clone(), inv_mass.contiguous(), mean(depths))
+    return res if comm is None else MCMCResult(*(gather(x) for x in res))

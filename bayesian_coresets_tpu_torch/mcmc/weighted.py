@@ -110,13 +110,22 @@ def run(model, z: torch.Tensor, wts: torch.Tensor, n_samples: int, gen: torch.Ge
 
     ``dense_mass=True`` adapts a full covariance metric (Stan's ``dense_e``).
 
-    ``mesh`` (chains sharded over devices) is not ported: it raises.
+    ``mesh`` (``parallel.make_mesh``; the JAX package's weighted.py:101-110,
+    209-229) splits the chains over the mesh's chain axis, each rank
+    sampling its block (``num_chains`` a multiple of the axis): every rank
+    makes all the chain inits from ``gen``, which must start alike on every
+    rank, and returns every chain's draws; the sampled distribution is
+    unchanged (``parallel/mcmc.py``).
     ``gen`` is a ``torch.Generator`` on the data's device.
     Returns (samples (num_chains * n_samples, d), wall seconds, MCMCResult).
     """
     if mesh is not None:
-        raise NotImplementedError("mcmc.run(mesh=...): chains sharded over a device mesh "
-                                  "are not ported yet; run on one device")
+        from ..parallel.mcmc import run_nuts_sharded
+
+        def sampler(logdensity_fn, init_params, gen, **kw):
+            return run_nuts_sharded(logdensity_fn, init_params, gen, mesh, **kw)
+    else:
+        sampler = run_nuts
     if d is None:
         d = z.shape[1]
     kw = dict(num_warmup=num_warmup or n_samples, num_samples=n_samples,
@@ -136,7 +145,7 @@ def run(model, z: torch.Tensor, wts: torch.Tensor, n_samples: int, gen: torch.Ge
                              device=gen.device).to(z.device)
         _synchronize(z)
         t0 = time.perf_counter()
-        res: MCMCResult = run_nuts(logdensity_u, init_u, gen, **kw)
+        res: MCMCResult = sampler(logdensity_u, init_u, gen, **kw)
         _synchronize(res.samples)
         t = time.perf_counter() - t0
         theta = res.samples @ A.T + mu                # (chains, draws, d)
@@ -147,7 +156,7 @@ def run(model, z: torch.Tensor, wts: torch.Tensor, n_samples: int, gen: torch.Ge
         init = laplace_init(model, z, wts, num_chains, gen, d)
     _synchronize(z)
     t0 = time.perf_counter()
-    res = run_nuts(logdensity, init, gen, **kw)
+    res = sampler(logdensity, init, gen, **kw)
     _synchronize(res.samples)
     t = time.perf_counter() - t0
     return res.samples.reshape(-1, d), t, res

@@ -110,34 +110,42 @@ def _pad_cols(x: torch.Tensor, mult: int) -> torch.Tensor:
     return x if Sp == S else F.pad(x, (0, Sp - S))
 
 
-def _sampling_ps(norms: torch.Tensor, valid: torch.Tensor, sampling: str | None) -> torch.Tensor:
+def _sampling_ps(norms: torch.Tensor, valid: torch.Tensor, sampling: str | None,
+                 comm=None) -> torch.Tensor:
     """Row-sampling probabilities of the importance and uniform solvers
     (ops/snnls.py:92-107 of the JAX package): proportional to the valid
     rows' norms (uniform over the valid rows when they sum to 0), or uniform
     over the valid rows.  The other solvers carry none (size 0), which
-    :func:`init_state` reads as "no counts either"."""
+    :func:`init_state` reads as "no counts either".  With ``comm`` (this
+    rank's rows of a row-sharded problem) the count and the sum are taken
+    over every rank's rows."""
     if sampling is None:
         return torch.zeros(0, dtype=norms.dtype, device=norms.device)
     if sampling not in ("importance", "uniform"):
         raise ValueError(f"sampling must be None, 'importance' or 'uniform'; got {sampling!r}")
-    nv = torch.clamp_min(torch.sum(valid), 1).to(norms.dtype)
+    raw = torch.where(valid, norms, 0.0)
+    sums = torch.stack([torch.sum(valid).double(), torch.sum(raw.double())])
+    if comm is not None:
+        sums = comm.sum(sums, "setup")
+    nv = torch.clamp_min(sums[0], 1).to(norms.dtype)
     uniform = torch.where(valid, torch.reciprocal(nv), 0.0)
     if sampling == "uniform":
         return uniform
-    raw = torch.where(valid, norms, 0.0)
-    tot = torch.sum(raw.double()).to(norms.dtype)
+    tot = sums[1].to(norms.dtype)
     return torch.where(tot > 0, raw / torch.where(tot > 0, tot, 1.0), uniform)
 
 
 def make_consts(A: torch.Tensor, b: torch.Tensor, valid: torch.Tensor | None = None,
                 select_dtype: torch.dtype | None = None,
-                sampling: str | None = None) -> SNNLSConsts:
+                sampling: str | None = None, comm=None) -> SNNLSConsts:
     """Precompute solver constants from A (S, n) and b (S,), on A's device.
 
     ``select_dtype`` (``torch.bfloat16`` or ``torch.int8``) stores a
     reduced-precision copy of V used only by the select; all weight and
     error arithmetic stays f32.  ``sampling`` (``"importance"`` or
-    ``"uniform"``) adds that solver's probabilities ``ps``.
+    ``"uniform"``) adds that solver's probabilities ``ps``.  With ``comm``,
+    A holds this rank's columns of a row-sharded problem and b the global
+    target (``parallel/coreset.py``).
     """
     V = A.T.contiguous()
     b = b.to(V.device)
@@ -157,12 +165,13 @@ def make_consts(A: torch.Tensor, b: torch.Tensor, valid: torch.Tensor | None = N
     else:
         raise ValueError(f"select_dtype must be None, bfloat16 or int8; got {select_dtype}")
     Vsel = _pad_cols(Vsel, col_multiple(Vsel.dtype))
-    return SNNLSConsts(V, b, norms, bnorm, valid, _sampling_ps(norms, valid, sampling), Vsel)
+    return SNNLSConsts(V, b, norms, bnorm, valid, _sampling_ps(norms, valid, sampling, comm),
+                       Vsel)
 
 
 def make_consts_quantized(Vq: torch.Tensor, norms: torch.Tensor, b: torch.Tensor,
                           valid: torch.Tensor | None = None,
-                          sampling: str | None = None) -> SNNLSConsts:
+                          sampling: str | None = None, comm=None) -> SNNLSConsts:
     """int8-resident constants (ops/snnls.py:159-198 of the JAX package),
     on ``Vq``'s device.
 
@@ -177,7 +186,9 @@ def make_consts_quantized(Vq: torch.Tensor, norms: torch.Tensor, b: torch.Tensor
     Rows: the JAX package pads them to a 1024 multiple for its Pallas tile;
     this package's kernel takes any row count, so none are added (padded
     rows that a caller brings, e.g. from the JAX package, stay: they must
-    carry ``valid=False``).  Columns: a ``Vq`` whose column count is a
+    carry ``valid=False``).  With ``comm``, ``Vq`` and ``norms`` are this
+    rank's rows of a row-sharded problem and ``b`` the global target.
+    Columns: a ``Vq`` whose column count is a
     multiple of 16 (whole 16-byte rows for the kernel) is used as it is,
     never copied; otherwise it is zero-padded to one, which copies it (the
     streamed constructor allocates its buffer pre-padded).  ``b`` is
@@ -201,7 +212,8 @@ def make_consts_quantized(Vq: torch.Tensor, norms: torch.Tensor, b: torch.Tensor
     norms = torch.where(valid, norms, 1.0)
     # accumulated in f64: the card and the CPU give the same f32 norm
     bnorm = sqrt_rn(_dot(b, b))
-    return SNNLSConsts(Vq, b, norms, bnorm, valid, _sampling_ps(norms, valid, sampling), Vq)
+    return SNNLSConsts(Vq, b, norms, bnorm, valid, _sampling_ps(norms, valid, sampling, comm),
+                       Vq)
 
 
 def _is_quantized(consts: SNNLSConsts) -> bool:
@@ -241,12 +253,59 @@ def _v_row(consts: SNNLSConsts, fl: torch.Tensor) -> torch.Tensor:
     return _rows(consts, fl)[0]
 
 
-def _gather_rows(consts: SNNLSConsts, idcs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Rows V[idcs] (K, S) in f32, zero where ``~mask``."""
-    return torch.where(mask[:, None], _rows(consts, idcs), 0.0)
+# ---------------------------------------------------------------------------
+# Reads and writes by global index.  ``comm`` (``parallel/comm.py``) is None
+# for one process.  Otherwise the constants and the (n,)-vectors are this
+# rank's contiguous block of rows, every other value is replicated, and a
+# read by global index is one owner-or-zero exchange (ops/snnls.py:205-370
+# of the JAX package, there ``psum``s inside ``shard_map``).  The exchanged
+# values are the owner's bit for bit, so every rank computes from them what
+# one process computes.  Writes touch the owner's rows only.
+# ---------------------------------------------------------------------------
 
 
-def _v_matvec(consts: SNNLSConsts, w: torch.Tensor, support: int = 1024) -> torch.Tensor:
+def _gather(consts: SNNLSConsts, idcs: torch.Tensor, comm, vecs=(), mask=None,
+            kind: str = "row", dequantize: bool = True):
+    """(Rows V[idcs] (K, S) in f32, [v[idcs] for v in vecs]), zero where
+    ``~mask``; rows dequantized in the int8-resident mode unless
+    ``dequantize=False``.  Sharded: one exchange of K x (S + len(vecs))
+    values (the JAX package's ``_v_row``, ``_get1``, ``_gather_vec`` and
+    ``_gather_rows`` in one)."""
+    j, mine = (idcs, None) if comm is None else comm.local(idcs)
+    rows = _rows(consts, j) if dequantize else consts.V.index_select(0, j).float()
+    vals = [v.index_select(0, j) for v in vecs]
+    if comm is not None:
+        S = rows.shape[1]
+        block = comm.owned(torch.cat([rows] + [v[:, None] for v in vals], dim=1), mine, kind)
+        rows, vals = block[:, :S], [block[:, S + i] for i in range(len(vals))]
+    if mask is not None:
+        rows = torch.where(mask[:, None], rows, 0.0)
+        vals = [torch.where(mask, v, 0.0) for v in vals]
+    return rows, vals
+
+
+def _set1(x: torch.Tensor, fl: torch.Tensor, val: torch.Tensor, comm) -> None:
+    """x[f] = val in place (``fl`` the (1,) global index); sharded, only the
+    owner writes."""
+    if comm is None:
+        x.index_copy_(0, fl, val.view(1))
+        return
+    j, mine = comm.local(fl)
+    x.index_copy_(0, j, torch.where(mine, val.view(1), x.index_select(0, j)))
+
+
+def _scatter(template: torch.Tensor, idcs: torch.Tensor, mask: torch.Tensor,
+             vals: torch.Tensor, comm) -> torch.Tensor:
+    """zeros_like(template) with ``vals`` added at ``idcs`` where ``mask``;
+    sharded, each rank adds the entries it owns."""
+    if comm is None:
+        return torch.zeros_like(template).index_add_(0, idcs, torch.where(mask, vals, 0.0))
+    j, mine = comm.local(idcs)
+    return torch.zeros_like(template).index_add_(0, j, torch.where(mask & mine, vals, 0.0))
+
+
+def _v_matvec(consts: SNNLSConsts, w: torch.Tensor, support: int = 1024,
+              comm=None) -> torch.Tensor:
     """V^T @ w in f32 (ops/snnls.py:372-399 there).
 
     Dense for f32 constants.  In the int8-resident mode the rows of the
@@ -254,18 +313,26 @@ def _v_matvec(consts: SNNLSConsts, w: torch.Tensor, support: int = 1024) -> torc
     (n, S): w >= 0, so while nnz(w) <= support its nonzeros are among them,
     and the build loop keeps nnz(w) <= max_active (it refuses and latches a
     step that would track one more atom), so ``support=max_active`` is exact
-    for the weights a build makes.
+    for the weights a build makes.  Sharded, for every dtype: each rank's
+    ``support`` largest weights and their rows go through one exchange
+    (world x support x (S + 1) values), and the product is taken in f64.
     """
+    if comm is not None:
+        vals, idx = torch.topk(w, min(int(support), w.shape[0]))
+        block = comm.gather(torch.cat([vals[:, None], _rows(consts, idx)], dim=1), "rows")
+        return _dot(block[:, 0], block[:, 1:])
     if not _is_quantized(consts):
         return consts.V.T @ w
     vals, idx = torch.topk(w, min(int(support), w.shape[0]))
     return _dot(vals, _rows(consts, idx))
 
 
-def error(consts: SNNLSConsts, w: torch.Tensor, support: int = 1024) -> torch.Tensor:
+def error(consts: SNNLSConsts, w: torch.Tensor, support: int = 1024,
+          comm=None) -> torch.Tensor:
     """||A w - b||_2 (snnls/snnls.py:28-29); ``support`` bounds nnz(w) for
-    int8-resident constants (:func:`_v_matvec`)."""
-    return _cached_error(consts, _v_matvec(consts, w, support=support))
+    int8-resident constants, and on each rank for sharded ones
+    (:func:`_v_matvec`)."""
+    return _cached_error(consts, _v_matvec(consts, w, support=support, comm=comm))
 
 
 def _dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -306,11 +373,13 @@ def _active_mask(idcs: torch.Tensor, size) -> tuple[torch.Tensor, torch.Tensor]:
     return mask, torch.where(mask, idcs, 0).long()
 
 
-def _support_matvec(consts: SNNLSConsts, w, idcs, size) -> torch.Tensor:
-    """Exact V^T w via the tracked support (w>0 entries all lie in idcs)."""
+def _support_matvec(consts: SNNLSConsts, w, idcs, size, comm=None) -> torch.Tensor:
+    """Exact V^T w via the tracked support (w>0 entries all lie in idcs);
+    sharded, the tracked rows and weights come in one (K, S + 1) exchange
+    and the product runs on every rank as on one process."""
     mask, safe = _active_mask(idcs, size)
-    rows = _gather_rows(consts, safe, mask)
-    return _dot(torch.where(mask, w.index_select(0, safe), 0.0), rows)
+    rows, (wv,) = _gather(consts, safe, comm, (w,), mask=mask, kind="rows")
+    return _dot(wv, rows)
 
 
 class GigaAux(NamedTuple):
@@ -352,8 +421,16 @@ class GigaStep(NamedTuple):
     aux: GigaAux           # cache after the step (wscale not yet updated)
 
 
+def _select(consts: SNNLSConsts, dirs: torch.Tensor, comm):
+    """(global index, score) of the fused select over the valid rows;
+    sharded, each rank selects over its own rows and one exchange of the
+    ranks' (score, index) pairs picks the first maximum."""
+    f, score = giga_select(consts.Vsel, dirs, consts.norms, consts.valid)
+    return (f, score) if comm is None else comm.argmax(f, score)
+
+
 def _giga_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux,
-               tol: float) -> GigaStep:
+               tol: float, comm=None) -> GigaStep:
     bnorm = torch.where(consts.bnorm == 0, 1.0, consts.bnorm)
     bn = consts.b / bnorm
     nw = sqrt_rn(torch.clamp_min(aux.nw2, 0.0))
@@ -369,12 +446,13 @@ def _giga_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux,
 
     # scores for every candidate and their argmax: one pass over Vsel
     dirs = torch.stack([cdirn, xwn], dim=1)            # (S, 2), unit columns
-    f, _ = giga_select(consts.Vsel, dirs, consts.norms, consts.valid)
+    f, _ = _select(consts, dirs, comm)
     fl = f.long().view(1)
 
-    # reweight (giga.py:40-64): one row gather + one (2,S) matvec + scalars
-    xf = _v_row(consts, fl)
-    nf = consts.norms.index_select(0, fl)[0]
+    # reweight (giga.py:40-64): one row gather (with the row's norm and raw
+    # weight) + one (2,S) matvec + scalars
+    rows, (nfv, oldv) = _gather(consts, fl, comm, (consts.norms, state.w))
+    xf, nf, old_raw = rows[0], nfv[0], oldv[0]
     xfn = xf / nf
     two = _dot(torch.stack([bn, xwn]), xfn)
     bxf, xwxf = two[0], two[1]                         # <bn,xfn>, <xwn,xfn>
@@ -395,7 +473,6 @@ def _giga_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux,
     alpha, beta = a * scale, c * scale
 
     ws = aux.wscale
-    old_raw = state.w.index_select(0, fl)[0]
     old_wf = ws * old_raw
     new_wf = torch.clamp_min(alpha * old_wf + beta, 0.0)
     delta = new_wf - alpha * old_wf
@@ -423,7 +500,7 @@ def _giga_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux,
                     ok, overflow, idcs2, size2, aux_out)
 
 
-def _carried_commit(state: SNNLSState, st: GigaStep, fold_commit: bool):
+def _carried_commit(state: SNNLSState, st: GigaStep, fold_commit: bool, comm=None):
     """Commit a scale-carried rank-1 update: the global alpha rescale folds
     into wscale, and only index f of the weights is written — in place.
     ``fold_commit`` (read on the host) says the scale would underflow and
@@ -432,11 +509,11 @@ def _carried_commit(state: SNNLSState, st: GigaStep, fold_commit: bool):
     w = state.w
     if fold_commit:
         w.mul_(st.ws2)
-        w.index_copy_(0, st.fl, st.new_wf.view(1))
+        _set1(w, st.fl, st.new_wf, comm)
     else:
         raw = torch.where(st.commit,
                           st.new_wf / torch.where(st.fold, 1.0, st.ws2), st.old_raw)
-        w.index_copy_(0, st.fl, raw.view(1))
+        _set1(w, st.fl, raw, comm)
     ws_out = torch.where(st.commit, torch.where(st.fold, 1.0, st.ws2), st.aux.wscale)
     return (w,
             torch.where(st.commit, st.xw2, state.xw),
@@ -451,27 +528,26 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
     return x / torch.where(n == 0, 1.0, n)
 
 
-def _select_residual(consts: SNNLSConsts, rn: torch.Tensor):
+def _select_residual(consts: SNNLSConsts, rn: torch.Tensor, comm=None):
     """(index, value) of the largest <V_i/||V_i||, rn> over the valid rows:
     the fused select with directions ``[rn, 0]``.  The second dot is exactly
     0 for every dtype, so the select's score is the first dot itself, for
     int8 the JAX package's ``int32 * (1/127^2)`` to the bit."""
-    dirs = torch.stack([rn, torch.zeros_like(rn)], dim=1)
-    return giga_select(consts.Vsel, dirs, consts.norms, consts.valid)
+    return _select(consts, torch.stack([rn, torch.zeros_like(rn)], dim=1), comm)
 
 
 def _fw_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux, tol: float,
-             nsum: torch.Tensor) -> GigaStep:
+             nsum: torch.Tensor, comm=None) -> GigaStep:
     """Frank-Wolfe step (ops/snnls.py:712-758 there; reference
     frankwolfe.py:5-40), scale-carried and self-committing like GIGA: the
     rescale w <- (1 - gamma) w rides ``aux.wscale`` and only the selected
     index is written.  ``nsum`` is the sum of the valid rows' norms."""
     resid = consts.b - state.xw
-    f, _ = _select_residual(consts, _normalize(resid))   # scale-invariant argmax
+    f, _ = _select_residual(consts, _normalize(resid), comm)   # scale-invariant argmax
     fl = f.long().view(1)
 
-    nf = consts.norms.index_select(0, fl)[0]
-    xf = _v_row(consts, fl)
+    rows, (nfv, oldv) = _gather(consts, fl, comm, (consts.norms, state.w))
+    xf, nf, old_raw = rows[0], nfv[0], oldv[0]
     # as in _giga_step: with support slots, size == 0 ignores that every
     # tracked weight may have fallen to 0 (ROADMAP Queue 3, defect (a), kept
     # for parity with ops/snnls.py:726-727 there)
@@ -491,7 +567,6 @@ def _fw_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux, tol: float,
     ok = ok | size_zero                                  # first-point vertex init
 
     ws = aux.wscale
-    old_raw = state.w.index_select(0, fl)[0]
     old_wf = ws * old_raw
     new_wf = torch.clamp_min(alpha * old_wf + beta, 0.0)
     delta = new_wf - alpha * old_wf
@@ -519,7 +594,22 @@ def _select_dots_rows(rows: torch.Tensor, norms: torch.Tensor, rn: torch.Tensor)
     return (rows.float() @ q.float()) / norms
 
 
-def _omp_step(consts: SNNLSConsts, state: SNNLSState, nnls_iters: int = 256):
+def _gather_sel(consts: SNNLSConsts, w: torch.Tensor, idcs: torch.Tensor, comm):
+    """Rows of the selection copy, norms and weights at ``idcs`` (OMP's
+    negative side); sharded, one (K, Sp + 2) exchange (the int8 and bf16
+    rows are exact in f32)."""
+    j, mine = (idcs, None) if comm is None else comm.local(idcs)
+    sel = consts.Vsel.index_select(0, j)
+    norms, wv = consts.norms.index_select(0, j), w.index_select(0, j)
+    if comm is None:
+        return sel, norms, wv
+    Sp = sel.shape[1]
+    block = comm.owned(torch.cat([sel.float(), norms[:, None], wv[:, None]], dim=1), mine,
+                       "rows")
+    return block[:, :Sp].to(sel.dtype), block[:, Sp], block[:, Sp + 1]
+
+
+def _omp_step(consts: SNNLSConsts, state: SNNLSState, nnls_iters: int = 256, comm=None):
     """Orthogonal matching pursuit step (ops/snnls.py:765-793 there;
     reference orthopursuit.py:7-42): the candidate ``(w, xw, idcs, size,
     overflow)``, which the loop gates and commits.
@@ -532,16 +622,18 @@ def _omp_step(consts: SNNLSConsts, state: SNNLSState, nnls_iters: int = 256):
     ``max_active`` gathered rows of the selection copy, never all of V;
     among equal values it takes the lowest row index, as an argmax over all
     rows in index order does.  Without support slots the full vector of dots
-    is formed with torch ops."""
-    n = consts.V.shape[0]
+    is formed with torch ops.  Sharded: three exchanges (the select's, the
+    active rows of the selection copy, and the NNLS system's rows), none
+    of them over n."""
+    n = consts.V.shape[0] if comm is None else comm.world * comm.n_loc
     rn = _normalize(consts.b - state.xw)    # scale-invariant: only comparisons matter
-    fpos, vpos = _select_residual(consts, rn)
+    fpos, vpos = _select_residual(consts, rn, comm)
     K = state.idcs.shape[0]
     if K:
         mask, safe = _active_mask(state.idcs, state.size)
-        active = mask & (state.w.index_select(0, safe) > 0)
-        dots = _select_dots_rows(consts.Vsel.index_select(0, safe),
-                                 consts.norms.index_select(0, safe), rn)
+        sel, norms_a, w_a = _gather_sel(consts, state.w, safe, comm)
+        active = mask & (w_a > 0)
+        dots = _select_dots_rows(sel, norms_a, rn)
         rows = safe
     else:
         active = state.w > 0
@@ -561,10 +653,9 @@ def _omp_step(consts: SNNLSConsts, state: SNNLSState, nnls_iters: int = 256):
     # NNLS on the active slots (orthopursuit.py:37-41), warm-started from
     # the current weights
     mask0, safe0 = _active_mask(idcs, size)
-    x0 = torch.where(mask0, state.w.index_select(0, safe0), 0.0)
-    Aact = _gather_rows(consts, safe0, mask0)
+    Aact, (x0,) = _gather(consts, safe0, comm, (state.w,), mask=mask0, kind="rows")
     w_act = nnls_rows(Aact, consts.b, mask0, num_iters=nnls_iters, x0=x0)
-    w = torch.zeros_like(state.w).index_add_(0, safe0, torch.where(mask0, w_act, 0.0))
+    w = _scatter(state.w, safe0, mask0, w_act, comm)
     return w, w_act @ Aact, idcs, size, overflow      # exact: support == active slots
 
 
@@ -596,21 +687,49 @@ def _sampling_weights(consts: SNNLSConsts, cts: torch.Tensor, T: torch.Tensor) -
     return torch.where(pos, (cts / T) / torch.where(pos, consts.ps, 1.0), 0.0)
 
 
+def _draw(consts: SNNLSConsts, draws, cdf: torch.Tensor, comm=None, shard_cdf=None):
+    """One categorical draw: ((1,) int64 global index f, V[f] in f32,
+    ps[f]).  ``cdf`` is the cumulative f64 sum of this rank's ``ps``.
+
+    Sharded (ops/snnls.py:817-831 there), the draw is hierarchical: one
+    uniform picks the shard by the ranks' masses (``shard_cdf``, their
+    cumulative sum), a second the row within it by that shard's ``cdf``.
+    Every rank draws both (the generators step in lockstep); the owner's
+    row, probability and index come back in one f64 exchange.  Exact in
+    distribution, and another realization than one process's draw."""
+    if comm is None:
+        fl = draws.index(cdf)
+        rows, (psf,) = _gather(consts, fl, None, (consts.ps,))
+        return fl, rows[0], psf[0]
+    k = draws.index(shard_cdf)
+    j = draws.index(cdf)
+    block = torch.cat([_rows(consts, j)[0].double(), consts.ps.index_select(0, j).double(),
+                       (j + comm.lo).double()])
+    block = comm.owned(block[None], k == comm.rank, "draw")[0]
+    S = block.shape[0] - 2
+    return block[S + 1].long().view(1), block[:S].float(), block[S].float()
+
+
 def _sampling_step(consts: SNNLSConsts, state: SNNLSState, fl: torch.Tensor,
-                   T_old: torch.Tensor):
-    """One categorical draw ``fl`` (ops/snnls.py:800-847 there): the count of
-    f rises by one, in place, and the cached image follows the weight map
+                   xf: torch.Tensor, psf: torch.Tensor, T_old: torch.Tensor, comm=None):
+    """One categorical draw ``fl`` with its row ``xf`` and probability
+    ``psf`` (ops/snnls.py:800-847 there): the count of f rises by one, in
+    place (on its owner), and the cached image follows the weight map
     w_i = (cts_i / T) / ps_i in O(S): ``xw <- (T/(T+1)) xw + V[f] / ((T+1)
     ps_f)``.  A draw that would overflow the support slots changes nothing.
     Returns ``(xw, idcs, size, overflow)``; the weights are formed from the
     counts when they are needed (:func:`_sampling_weights`)."""
     idcs, size, overflow = _track_support(state, fl[0].to(torch.int32))
     commit = ~overflow
-    state.cts.index_add_(0, fl, commit.to(state.cts.dtype).view(1))
+    if comm is None:
+        state.cts.index_add_(0, fl, commit.to(state.cts.dtype).view(1))
+    else:
+        j, mine = comm.local(fl)
+        state.cts.index_add_(0, j, (commit & mine).to(state.cts.dtype))
     T_new = T_old + 1.0
     alpha = T_old / T_new
-    beta = 1.0 / (T_new * torch.clamp_min(consts.ps.index_select(0, fl)[0], 1e-30))
-    xw = alpha * state.xw + beta * _v_row(consts, fl)
+    beta = 1.0 / (T_new * torch.clamp_min(psf, 1e-30))
+    xw = alpha * state.xw + beta * xf
     return (torch.where(commit, xw, state.xw), torch.where(commit, idcs, state.idcs),
             torch.where(commit, size, state.size), overflow)
 
@@ -619,7 +738,7 @@ METHODS = ("giga", "frankwolfe", "orthopursuit", "importance", "uniform")
 
 
 def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
-          method: str = "giga", draws=None, matvec_k: int = 1024) -> SNNLSState:
+          method: str = "giga", draws=None, matvec_k: int = 1024, comm=None) -> SNNLSState:
     """Run up to ``itrs`` iterations of ``method``, continuing from ``state``.
 
     Port of the JAX package's ``build_core``/``build``
@@ -635,9 +754,24 @@ def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
     support slots on int8-resident constants (:func:`_v_matvec`; ignored
     for f32 V).  Returns a new state with TRUE-scale weights; ``state``
     itself is left unchanged.
+
+    ``comm`` (``parallel/comm.py``) runs this rank's part of a row-sharded
+    build: ``consts``, ``state.w`` and ``state.cts`` hold this rank's rows,
+    everything else is replicated, and the steps read rows by global index
+    through the exchanges of ``comm`` (GIGA and Frank-Wolfe: two per
+    iteration, the select's argmax and the selected row's, neither over n;
+    OMP three; a draw one; a refresh one of the tracked rows).  Every rank
+    then computes what one process computes, so the weights are the
+    single-process build's bit for bit (the sampling solvers' in
+    distribution, :func:`_draw`) and ``done`` agrees on every rank without
+    another exchange.  A sharded build tracks its support: ``state`` needs
+    slots (``max_active`` > 0), which the refresh gathers.
     """
     if method not in METHODS:
         raise ValueError(f"method must be one of {METHODS}; got {method!r}")
+    if comm is not None and state.idcs.shape[0] == 0:
+        raise ValueError("a sharded build tracks its support: make the state with "
+                         "max_active > 0")
     dev = consts.V.device
     itr = int(state.itr)
     itr_end = itr + int(itrs)
@@ -651,11 +785,16 @@ def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
     s = state._replace(w=state.w.clone(), cts=state.cts.clone())
     aux = _aux_from_xw(consts, s.xw)
     if method == "frankwolfe":
-        nsum = torch.sum(torch.where(consts.valid, consts.norms, 0.0).double()).float()
+        nsum = torch.sum(torch.where(consts.valid, consts.norms, 0.0).double())
+        nsum = (nsum if comm is None else comm.sum(nsum, "setup")).float()
     if sampling:
         draws = as_draws(draws if draws is not None else torch.Generator(device=dev))
         cdf = torch.cumsum(consts.ps.double(), dim=0)
         T0 = torch.sum(s.cts)
+        shard_cdf = None
+        if comm is not None:
+            T0 = comm.sum(T0, "setup")
+            shard_cdf = torch.cumsum(comm.slots(cdf[-1], "setup"), dim=0)
         first_commit = overflow = None     # the first draw's commit flag, the last's overflow
     first = itr
     while itr < itr_end and not done:
@@ -664,24 +803,25 @@ def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
                 s = s._replace(w=_sampling_weights(consts, s.cts, T0 + float(itr - first)))
             # exact refresh of the cached matvec AND the scalar cache; with
             # support slots it gathers only the tracked rows (O(K*S))
-            exact = (_support_matvec(consts, s.w, s.idcs, s.size) if K
+            exact = (_support_matvec(consts, s.w, s.idcs, s.size, comm) if K
                      else _v_matvec(consts, s.w, support=matvec_k))
             xw = aux.wscale * exact       # state.w is raw-scale (wscale is 1
             #                               for OMP and the sampling solvers)
             aux = _aux_from_xw(consts, xw, wscale=aux.wscale)
             s = s._replace(xw=xw)
         if carried:
-            st = (_giga_step(consts, s, aux, tol) if method == "giga"
-                  else _fw_step(consts, s, aux, tol, nsum))
+            st = (_giga_step(consts, s, aux, tol, comm) if method == "giga"
+                  else _fw_step(consts, s, aux, tol, nsum, comm))
             fail = torch.where(st.ok, 0, s.fail + 1)
             # retry-once-then-latch; a support-capacity overflow latches at once
             done_t = s.done | (fail >= 2) | st.overflow
             fold_commit, done = torch.stack([st.fold & st.commit, done_t]).tolist()
-            w, xw, idcs, size, aux = _carried_commit(s, st, fold_commit)
+            w, xw, idcs, size, aux = _carried_commit(s, st, fold_commit, comm)
             s = s._replace(w=w, xw=xw, idcs=idcs, size=size, fail=fail, done=done_t)
         elif sampling:
             xw, idcs, size, overflow = _sampling_step(
-                consts, s, draws.index(cdf), T0 + float(itr - first))
+                consts, s, *_draw(consts, draws, cdf, comm, shard_cdf),
+                T0 + float(itr - first), comm)
             if first_commit is None:
                 first_commit = ~overflow
             # every draw is ok: only an overflow, which needs slots, latches
@@ -690,7 +830,7 @@ def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
             s = s._replace(xw=xw, idcs=idcs, size=size,
                            fail=torch.zeros_like(s.fail), done=done_t)
         else:
-            w2, xw2, idcs2, size2, overflow = _omp_step(consts, s)
+            w2, xw2, idcs2, size2, overflow = _omp_step(consts, s, comm=comm)
             # the loop's monotone gate (ops/snnls.py:946-954 there): fail iff
             # the error rose beyond the tolerance's slack
             size_nonzero = s.size > 0 if K else torch.any(s.w > 0)
@@ -718,20 +858,21 @@ def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
 
 
 def optimize_active(consts: SNNLSConsts, state: SNNLSState, idcs: torch.Tensor,
-                    size: int, tol: float, num_iters: int = 512):
+                    size: int, tol: float, num_iters: int = 512, comm=None):
     """Re-solve the weights on the active set (snnls/snnls.py:81-97).
 
     ``idcs`` are the active column indices, padded, covering ALL w>0
     entries; ``size`` the number of live ones.  The (K, K) solve is FISTA
     (:mod:`.nnls`).  Returns the new state and whether the cost did not
-    rise: if it rose, the weights are kept and ``done`` latches.
+    rise: if it rose, the weights are kept and ``done`` latches.  Sharded
+    (``comm``): the active rows and weights come in one (K, S + 1)
+    exchange, the solve runs on every rank, and each writes its own rows.
     """
     mask, safe = _active_mask(idcs, size)
-    Aact = _gather_rows(consts, safe, mask)
+    Aact, (prev_w_act,) = _gather(consts, safe, comm, (state.w,), mask=mask, kind="rows")
     w_act = nnls_rows(Aact, consts.b, mask, num_iters=num_iters)
-    w = torch.zeros_like(state.w).index_add_(0, safe, torch.where(mask, w_act, 0.0))
+    w = _scatter(state.w, safe, mask, w_act, comm)
     xw = w_act @ Aact
-    prev_w_act = torch.where(mask, state.w.index_select(0, safe), 0.0)
     prev_cost = _cached_error(consts, prev_w_act @ Aact)
     ok = _cached_error(consts, xw) <= prev_cost * (1.0 + tol)
     return state._replace(w=torch.where(ok, w, state.w),
@@ -739,13 +880,18 @@ def optimize_active(consts: SNNLSConsts, state: SNNLSState, idcs: torch.Tensor,
                           done=state.done | ~ok), ok
 
 
-def _active_set(state: SNNLSState):
-    """Tracked-support (indices, weights) — a small fixed-size transfer."""
+def _active_set(state: SNNLSState, comm=None):
+    """Tracked-support (indices, weights) — a small fixed-size transfer
+    (sharded: one (K,) exchange of the owners' weights)."""
     K = state.idcs.shape[0]
     mask = torch.arange(K, device=state.idcs.device) < state.size
     safe = torch.where(mask, state.idcs, 0)
-    return (torch.where(mask, safe, -1),
-            torch.where(mask, state.w.index_select(0, safe), 0.0))
+    if comm is None:
+        vals = state.w.index_select(0, safe)
+    else:
+        j, mine = comm.local(safe)
+        vals = comm.owned(state.w.index_select(0, j), mine, "gather")
+    return torch.where(mask, safe, -1), torch.where(mask, vals, 0.0)
 
 
 class SparseNNLS:
@@ -765,7 +911,15 @@ class SparseNNLS:
     exact Lawson-Hanson on the host); ``save``/``restore`` and
     ``build(checkpoint_path=...)`` checkpoint the solver state and the
     generator's.
+
+    Made by ``from_consts(consts, mesh=...)`` from one rank's block of a
+    row-sharded problem, every method is collective (all ranks call it) and
+    ``comm`` holds the rank's exchanges: ``weights()`` and ``active()``
+    return the global arrays on every rank, with one exchange each, and a
+    checkpoint is one file per rank (``<path>.rank<r>-of-<world>``).
     """
+
+    comm = None
 
     method = "giga"
 
@@ -791,20 +945,25 @@ class SparseNNLS:
         the JAX package), e.g. the int8-resident constants of
         :func:`make_consts_quantized`, without forming A again.  Zero rows
         must already be ``valid=False``; the sampling solvers need
-        constants made with their ``sampling=``.  ``mesh`` (a sharded
-        build) is not ported yet and raises."""
-        if mesh is not None:
-            raise ValueError("from_consts(mesh=...): sharded builds are not ported yet "
-                             "(ROADMAP item 16)")
+        constants made with their ``sampling=``.
+
+        ``mesh`` (``parallel.make_mesh``): ``consts`` are this rank's block
+        of a problem row-sharded over the mesh's data axis
+        (``parallel.shard_consts``, ``make_sharded_consts`` or
+        ``make_streamed_quantized_consts``), every rank holding the same
+        number of rows, rank r the rows from ``r * n_loc``; the solver then
+        runs every operation as one rank of the sharded build."""
         self = cls.__new__(cls)
         self.consts = consts
+        if mesh is not None:
+            self.comm = _data_comm(mesh, consts)
         self._setup(seed, max_active)
         return self
 
     def _setup(self, seed: int, max_active: int | None):
         if self.method == "giga" and float(self.consts.bnorm) == 0.0:
             raise NumericalPrecisionError("norm of b must be > 0")
-        n = self.consts.V.shape[0]
+        n = self.consts.V.shape[0] * (1 if self.comm is None else self.comm.world)
         self._max_active = int(max_active) if max_active is not None else min(n, 1024)
         self._seed = seed
         sampling = self.method in ("importance", "uniform")
@@ -816,24 +975,31 @@ class SparseNNLS:
             self._gen.manual_seed(self._seed)
         self.state = init_state(self.consts, self._max_active)
 
+    def _path(self, path: str) -> str:
+        c = self.comm
+        return path if c is None else f"{path}.rank{c.rank}-of-{c.world}"
+
     def save(self, path: str):
         """Checkpoint the solver state (resume with :meth:`restore`)."""
-        checkpoint.save(path, self.state, meta={"method": self.method}, generator=self._gen)
+        checkpoint.save(self._path(path), self.state, meta={"method": self.method},
+                        generator=self._gen)
 
     def restore(self, path: str):
-        self.state, _ = checkpoint.load(path, like=self.state, generator=self._gen)
+        self.state, _ = checkpoint.load(self._path(path), like=self.state, generator=self._gen)
 
     def size(self) -> int:
-        return int(torch.sum(self.state.w > 0))
+        k = torch.sum(self.state.w > 0)
+        return int(k if self.comm is None else self.comm.sum(k.double(), "gather"))
 
     def weights(self) -> np.ndarray:
-        return self.state.w.cpu().numpy()
+        w = self.state.w if self.comm is None else self.comm.gather(self.state.w)
+        return w.cpu().numpy()
 
     def active(self):
         """(indices, weights) of the active set as numpy arrays, extracted
         on the device: O(max_active) values cross to the host."""
         if self.state.idcs.shape[0]:
-            idx, vals = (t.cpu().numpy() for t in _active_set(self.state))
+            idx, vals = (t.cpu().numpy() for t in _active_set(self.state, self.comm))
         else:
             vals = self.weights()
             idx = np.arange(vals.shape[0])
@@ -841,7 +1007,8 @@ class SparseNNLS:
         return idx[keep], vals[keep]
 
     def error(self) -> float:
-        return float(error(self.consts, self.state.w, support=self._max_active))
+        return float(error(self.consts, self.state.w, support=self._max_active,
+                           comm=self.comm))
 
     @property
     def reached_numeric_limit(self) -> bool:
@@ -863,8 +1030,8 @@ class SparseNNLS:
             self.state = self._run_build(itrs)
             return
         target = int(self.state.itr) + itrs
-        if os.path.exists(checkpoint_path):
-            saved, _ = checkpoint.load(checkpoint_path, like=self.state)
+        if os.path.exists(self._path(checkpoint_path)):
+            saved, _ = checkpoint.load(self._path(checkpoint_path), like=self.state)
             if int(saved.itr) > int(self.state.itr):
                 self.restore(checkpoint_path)       # the generator's state too
         chunk = checkpoint_every or itrs
@@ -875,7 +1042,7 @@ class SparseNNLS:
 
     def _run_build(self, itrs: int) -> SNNLSState:
         return build(self.consts, self.state, itrs, config.TOL, method=self.method,
-                     draws=self._gen, matvec_k=self._max_active)
+                     draws=self._gen, matvec_k=self._max_active, comm=self.comm)
 
     def optimize(self, solver: str = "fista"):
         """Re-solve the weights on the active set (snnls/snnls.py:81-97).
@@ -892,31 +1059,53 @@ class SparseNNLS:
         act = np.sort(self.active()[0])
         if act.size == 0:
             return
-        dev = self.consts.V.device
+        dev, comm = self.consts.V.device, self.comm
         if solver == "exact":
             act_t = torch.as_tensor(act, device=dev)
-            Vact = self.consts.V.index_select(0, act_t).cpu().numpy().astype(np.float64)
+            rows, (nrm,) = _gather(self.consts, act_t, comm, (self.consts.norms,),
+                                   dequantize=False)
+            Vact = rows.cpu().numpy().astype(np.float64)
             if _is_quantized(self.consts):
-                Vact *= self.consts.norms.index_select(0, act_t).cpu().numpy()[:, None] / 127.0
+                Vact *= nrm.cpu().numpy()[:, None] / 127.0
             prev_err = self.error()
             x, _ = native.nnls(Vact.T, self.consts.b.double().cpu().numpy())
-            w = torch.zeros_like(self.state.w)
-            w[act_t] = torch.as_tensor(x, dtype=w.dtype, device=dev)
+            w = _scatter(self.state.w, act_t, torch.ones_like(act_t, dtype=torch.bool),
+                         torch.as_tensor(x, dtype=self.state.w.dtype, device=dev), comm)
             # the support bound of prev_err's, or more: the new weights may
             # have up to act.size nonzeros (ops/snnls.py:1271-1275 there)
             support = max(self._max_active, act.size)
-            if float(error(self.consts, w, support=support)) > prev_err * (1.0 + config.TOL):
+            if float(error(self.consts, w, support=support, comm=comm)) \
+                    > prev_err * (1.0 + config.TOL):
                 self.state = self.state._replace(done=torch.ones_like(self.state.done))
             else:
                 # the JAX package keeps the old xw here (ROADMAP Queue 3 (f))
-                self.state = self.state._replace(w=w, xw=_v_matvec(self.consts, w, support))
+                self.state = self.state._replace(
+                    w=w, xw=_v_matvec(self.consts, w, support, comm))
             return
         pad = 1 << max(3, int(np.ceil(np.log2(act.size))))
         idcs = np.zeros(pad, dtype=np.int32)
         idcs[: act.size] = act
         self.state, _ = optimize_active(self.consts, self.state,
                                         torch.as_tensor(idcs, device=dev), act.size,
-                                        config.TOL)
+                                        config.TOL, comm=comm)
+
+
+def _data_comm(mesh, consts: SNNLSConsts):
+    """The exchanges of one rank of a problem row-sharded over ``mesh``'s
+    data axis; checks that every rank holds as many rows as this one."""
+    from ..parallel.comm import Comm
+    from ..parallel.mesh import DATA_AXIS, Mesh
+
+    if not isinstance(mesh, Mesh):
+        raise ValueError(f"mesh must come from parallel.make_mesh; got {type(mesh).__name__}")
+    n_loc = consts.V.shape[0]
+    comm = Comm(mesh, DATA_AXIS, n_loc)
+    rows = comm.slots(torch.tensor(float(n_loc), dtype=torch.float64,
+                                   device=consts.V.device), "setup")
+    if bool(torch.any(rows != n_loc)):
+        raise ValueError(f"every rank must hold the same number of rows; got "
+                         f"{rows.long().tolist()} (pad with valid=False rows)")
+    return comm
 
 
 class GIGA(SparseNNLS):

@@ -1,5 +1,5 @@
 """Carry values from the JAX package into this one: solver state and
-constants, the Laplace fit, MCMC states and results, the probe's packed
+constants (whole, or one rank's shard), the Laplace fit, MCMC states and results, the probe's packed
 buffer, the Gaussian posterior basis, and SparseVI's slot state.
 
 Each function takes the JAX package's NamedTuple with every field already
@@ -63,6 +63,18 @@ def snnls_consts(c, device="cpu") -> SNNLSConsts:
     sel = _pad_cols(sel, col_multiple(sel.dtype)).contiguous()
     return SNNLSConsts(Vt, b, _t(c.norms, device), _t(c.bnorm, device),
                        _t(c.valid, device, torch.bool), _t(np.asarray(c.ps)[:n], device), sel)
+
+
+def sharded_consts(c, mesh, device="cpu") -> SNNLSConsts:
+    """This rank's shard (``parallel.shard_consts``) of solver constants
+    from the JAX package's ``make_sharded_consts`` or
+    ``make_consts_quantized`` output, numpy fields of the global (padded)
+    problem, as :func:`snnls_consts` carries them.  Rows the JAX package
+    padded stay rows with ``valid`` False; where its row count does not
+    divide the mesh's data axis, this package pads further alike."""
+    from ..parallel.coreset import shard_consts
+
+    return shard_consts(snnls_consts(c, device), mesh)
 
 
 def snnls_state(s, device="cpu") -> SNNLSState:

@@ -130,13 +130,29 @@ script exits non-zero without printing the final result line):
    One ``[experiments]`` line per driver (seconds, select launches,
    iterations, metrics at M_max, the split of logistic_poisson's time,
    ``reduced=``); one select launch per GIGA/FW/OMP iteration, none of the
-   packed kernel.
+   packed kernel;
+19. the sharded paths over ``torch.distributed`` on the one card, each
+   rank a process spawned by ``parallel.run_local`` (loading phase 2's
+   library): (a) a 1-rank NCCL group runs ``HilbertCoreset(mesh=)`` at
+   phase 6's config, which must give phase 6's atoms and weights bit for
+   bit with one select launch per iteration (ms, launches, exchanges and
+   bytes per iteration beside phase 6's, and a profiled window), then
+   ``build_sharded`` on the same projection; (b) two ranks over gloo (NCCL
+   refuses two ranks on one card): ``build_sharded`` bit-identical to
+   (a)'s, phase 16's N=1M stream with each rank projecting its own rows
+   (rows and norms against phase 16's, differing rows counted, the JAX
+   error rule, weights bit-identical where no row differs), the exchanges
+   per iteration equal at N=100k and N=1M, and weighted NUTS on phase 6's
+   coreset at 256 chains x (100 + 100), 128 per rank, pooled (the first 5
+   transitions within 1e-5 of one process; phase 7's R-hat, divergence and
+   importance-sampling checks).  (b)'s times measure gloo, not NCCL.
 
 Phases 8-11 and 14 launch no hand-written kernel: the JAX package computes
 SparseVI, BatchPSVI, the re-solve and the sampling solvers with plain XLA
 ops.  Every path is driven with the kernels' launch counts set to 0 just
 before it and read just after; the kernels' ``launches`` are the sums over
-the paths that select through them (phases 6, 12, 13, 15-18).  The line before
+the paths that select through them (phases 6, 12, 13, 15-19; phase 19's
+ranks count their own).  The line before
 the last is the kernels' JSON; the
 last line is ``{"ok": true, "device": {...}}``.  The port imports no JAX,
 no pandas and no matplotlib.
@@ -235,6 +251,12 @@ EXP_LR_TAIL = {"rklw": 50.0, "fklw": 50.0, "mu_errs": 0.5, "Sig_errs": 0.25}
 # rounding noise, and each run's error at M_max is held to its error at the
 # last size below data_dim
 EXP_SV_RTOL, EXP_SV_ATOL = 1e-4, 1e-6
+# phase 19: the sharded paths on the one card.  (a) a 1-rank NCCL group at
+# phase 6's config; (b) two gloo ranks: build_sharded on phase 6's
+# projection, the N=1M stream of phase 16 (its chunk), and weighted NUTS on
+# phase 6's coreset at 256 chains x (100 + 100) with pooled adaptation
+SHARD_CFG = dict(dev="cuda", backend_a="nccl", N=N_MAIN, M=M_MAIN, QN=QUALITY_N,
+                 QCHUNK=QUALITY_CHUNK, chains=256, draws=100, profile=True)
 
 
 def say(phase: str, **kv) -> None:
@@ -937,29 +959,33 @@ def phase_main(torch, smi):
     say("main", N=N_MAIN, D=D_MAIN, S=S_MAIN, M=M_MAIN, itr=itr, size=wts.size,
         done=coreset.reached_numeric_limit, launches=launches,
         err50=f"{err50:.6e}", err=f"{err:.6e}")
-    _profile_build(torch, coreset.snnls.consts, "giga", "main_launches")
+    prof = _profile_build(torch, coreset.snnls.consts, "giga", "main_launches")
+    ref6 = {"w": coreset.snnls.weights(), "itr": itr, "err": err, "idcs": idcs,
+            "ms_per_itr": 1e3 * (t_b1 + t_b2) / itr, **prof}
     say("main_time", setup_s=f"{t_setup:.4f}", projection_s=f"{t_proj:.4f}",
         build_s=f"{t_build:.4f}", ms_per_itr=f"{1e3 * t_build / itr:.4f}",
         points_per_s=f"{M_MAIN / (t_proj + t_build):.2f}",
         peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}", card=repr(smi))
-    return launches, wts, pts, coreset, Z, projector
+    return launches, wts, pts, coreset, Z, projector, ref6
 
 
-def _profile_build(torch, consts, method, tag, select_bound_ms=None, card=None):
+def _profile_build(torch, consts, method, tag, select_bound_ms=None, card=None, comm=None):
     """Launches per iteration of ``method`` on phase 6's problem: 65
     iterations of warm-up from a fresh state, then PROFILE_ITRS under
     torch.profiler (one refresh inside), as scripts/profile_torch_build.py
     counts them; and the select kernel's share of the device time.  The
-    build is functional: the coreset's own state is not touched."""
+    build is functional: the coreset's own state is not touched.  With
+    ``comm`` (one rank of a sharded build) the line also gives the NCCL
+    kernels' device time per iteration.  Returns the line's numbers."""
     from torch.profiler import ProfilerActivity, profile
 
     from bayesian_coresets_tpu_torch.ops import giga_select as gs
     from bayesian_coresets_tpu_torch.ops import snnls
 
-    s = snnls.build(consts, snnls.init_state(consts, 1024), 65, 1e-6, method=method)
+    s = snnls.build(consts, snnls.init_state(consts, 1024), 65, 1e-6, method=method, comm=comm)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    snnls.build(consts, s, PROFILE_ITRS, 1e-6, method=method)     # the window, unprofiled
+    snnls.build(consts, s, PROFILE_ITRS, 1e-6, method=method, comm=comm)   # unprofiled
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / PROFILE_ITRS
     # One profiled window (phase 17's, late in a full run) came back with 61
@@ -970,7 +996,7 @@ def _profile_build(torch, consts, method, tag, select_bound_ms=None, card=None):
     for short in range(3):
         before = gs.launches
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            s2 = snnls.build(consts, s, PROFILE_ITRS, 1e-6, method=method)
+            s2 = snnls.build(consts, s, PROFILE_ITRS, 1e-6, method=method, comm=comm)
             torch.cuda.synchronize()
         itrs = int(s2.itr) - int(s.itr)
         rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -985,6 +1011,11 @@ def _profile_build(torch, consts, method, tag, select_bound_ms=None, card=None):
     busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
     select_us = sum(getattr(e, "self_device_time_total", 0.0) for e in rows
                     if "giga_select" in e.key)
+    nccl_us = sum(getattr(e, "self_device_time_total", 0.0) for e in rows
+                  if "nccl" in e.key.lower())
+    stats = {"launches_per_itr": total / itrs, "device_busy_us_per_itr": busy_us / itrs,
+             "unprofiled_wall_ms_per_itr": wall_ms, "nccl_us_per_itr": nccl_us / itrs,
+             "select_launches_per_itr": select / itrs}
     say(tag, method=method, window_itrs=itrs, short_windows=short,
         select_launches_per_itr=f"{select / itrs:.3f}",
         wrapper_launches_per_itr=f"{(gs.launches - before) / itrs:.3f}",
@@ -992,6 +1023,7 @@ def _profile_build(torch, consts, method, tag, select_bound_ms=None, card=None):
         unprofiled_wall_ms_per_itr=f"{wall_ms:.4f}",
         idle_share=f"{1.0 - busy_us * 1e-3 / itrs / wall_ms:.4f}",
         select_us_per_itr=f"{select_us / itrs:.1f}",
+        **({} if comm is None else {"nccl_us_per_itr": f"{nccl_us / itrs:.1f}"}),
         select_share_of_device=f"{select_us / busy_us:.3f}" if busy_us else "not_measured",
         **({} if select_bound_ms is None else {
             "select_bound_us": f"{1e3 * select_bound_ms:.1f}",
@@ -1000,6 +1032,7 @@ def _profile_build(torch, consts, method, tag, select_bound_ms=None, card=None):
     if select != itrs or gs.launches - before != itrs:
         raise AssertionError(f"{tag}: {select} select kernels on the card and "
                              f"{gs.launches - before} wrapper launches for {itrs} iterations")
+    return stats
 
 
 def _importance_moments(torch, zc, wc, n=200_000, seed=6, inflate=1.3):
@@ -1534,13 +1567,13 @@ def phase_poisson(torch, smi):
     return launches
 
 
-def _host_logistic(torch, n, seed):
+def _host_logistic(torch, n, seed, dev="cuda"):
     """Logistic data (n, D_MAIN), drawn on the card in STREAM_CHUNK-row
     pieces from one seeded generator and kept on the host (numpy)."""
     import numpy as np
     from bayesian_coresets_tpu_torch.models import logistic
 
-    gen = torch.Generator(device=torch.device("cuda")).manual_seed(seed)
+    gen = torch.Generator(device=torch.device(dev)).manual_seed(seed)
     Z = np.empty((n, D_MAIN), np.float32)
     for lo in range(0, n, STREAM_CHUNK):
         hi = min(n, lo + STREAM_CHUNK)
@@ -1700,6 +1733,9 @@ def phase_streamed(torch, smi):
         raise AssertionError(f"streamed quality: error/|b| {e_st} against in-memory {e_mem}")
     if q_launches != int(st.snnls.state.itr) + int(mem.snnls.state.itr):
         raise AssertionError(f"streamed quality: {q_launches} select launches")
+    quality = {"V": cs.V.cpu().numpy(), "norms": cs.norms.cpu().numpy(),
+               "w": st.snnls.weights(), "err_in_memory": e_mem, "err0": e0, "err": e_st,
+               "itr": int(st.snnls.state.itr)}
     del mem, cm
     torch.cuda.empty_cache()
 
@@ -1745,7 +1781,7 @@ def phase_streamed(torch, smi):
                              f"{int(imp.state.cts.sum())} counts")
     if not (np.isfinite(w_imp).all() and (w_imp >= 0).all() and e_imp < e_imp0):
         raise AssertionError(f"streamed sampling: error {e_imp} from {e_imp0}, or bad weights")
-    return launches, q_launches, omp_launches, select
+    return launches, q_launches, omp_launches, select, quality
 
 
 def phase_wide_build(torch, smi):
@@ -2075,6 +2111,282 @@ def phase_experiments(torch, smi):
     return total + lr_launches + sv_launches, max(lr_err, sv_err)
 
 
+def _rank19(part: str, d: str, cfg: dict) -> dict:
+    """One rank of phase 19, spawned by ``parallel.run_local`` after phase 2
+    built the kernels (the ranks load that library).  ``part`` "a": the
+    1-rank group's flagship build; "b": the two ranks' build_sharded, N=1M
+    stream and chain-sharded NUTS.  Returns what the parent checks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import bayesian_coresets_tpu_torch as bc
+    from bayesian_coresets_tpu_torch import parallel as P
+    from bayesian_coresets_tpu_torch.mcmc import weighted
+    from bayesian_coresets_tpu_torch.models import logistic
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+
+    dev = torch.device(cfg["dev"])
+    bc.set_default_device(dev)
+    mesh = P.make_mesh()
+    led = mesh.ledger
+    out = {"rank": mesh.rank, "backend": str(dist.get_backend())}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def per_itr(itr):
+        return {k: (led.calls.get(k, 0) / itr, led.bytes.get(k, 0) / itr)
+                for k in ("argmax", "row", "rows")}
+
+    def flagship():
+        """Phase 6's data and projector, from its seeds; its projection."""
+        Z = logistic.gen_synthetic(torch.Generator(device=dev).manual_seed(0), cfg["N"], D_MAIN)
+        proj = bc.BlackBoxProjector(_near_map_sampler, S_MAIN, logistic.log_likelihood,
+                                    generator=torch.Generator(device=dev).manual_seed(1))
+        return Z, proj
+
+    def sharded_build(vecs):
+        valid = torch.sqrt(torch.sum(vecs ** 2, dim=1)) > 0.0
+        return P.build_sharded(vecs.T, vecs[valid].sum(dim=0), cfg["M"], mesh, valid=valid,
+                               select_dtype=torch.int8, max_active=1024)
+
+    if part == "a":
+        Z, proj = flagship()
+        sync()
+        gs.launches = 0
+        led.reset()
+        t0 = time.perf_counter()
+        hc = bc.HilbertCoreset(Z, proj, select_dtype=torch.int8, max_active=1024, mesh=mesh)
+        sync()
+        out["projection_s"] = time.perf_counter() - t0
+        out["setup"] = led.totals()
+        led.reset()
+        t0 = time.perf_counter()
+        hc.build(50)
+        hc.build(cfg["M"] - 50)
+        sync()
+        out["build_s"] = time.perf_counter() - t0
+        out["itr"], out["launches"] = int(hc.snnls.state.itr), gs.launches
+        out["per_itr"] = per_itr(out["itr"])
+        out["w"] = hc.snnls.weights()
+        out["err"] = hc.error() / float(hc.snnls.consts.bnorm)
+        gs.launches = 0
+        st = sharded_build(proj.project(Z))
+        out["bs_w"], out["bs_itr"], out["bs_launches"] = st.w.cpu().numpy(), int(st.itr), gs.launches
+        if cfg["profile"]:
+            out["profile"] = _profile_build(torch, hc.snnls.consts, "giga", "sharded_launches",
+                                            comm=hc.snnls.comm)
+        return out
+
+    # part b: two ranks over gloo on one card
+    Z, proj = flagship()
+    vecs = proj.project(Z)
+    del Z
+    sync()
+    gs.launches = 0
+    led.reset()
+    t0 = time.perf_counter()
+    st = sharded_build(vecs)
+    sync()
+    out["bs"] = {"s": time.perf_counter() - t0, "itr": int(st.itr), "launches": gs.launches,
+                 "per_itr": per_itr(int(st.itr)), "w": st.w.cpu().numpy()}
+    del vecs, st
+
+    Z1 = _host_logistic(torch, cfg["QN"], seed=100, dev=cfg["dev"])
+    proj = bc.BlackBoxProjector(_near_map_sampler, S_MAIN, logistic.log_likelihood,
+                                generator=torch.Generator(device=dev).manual_seed(7))
+    sync()
+    gs.launches = 0
+    led.reset()
+    t0 = time.perf_counter()
+    hc = bc.HilbertCoreset(Z1, proj, stream_chunk_size=cfg["QCHUNK"], max_active=1024, mesh=mesh)
+    sync()
+    t_con, setup = time.perf_counter() - t0, led.totals()
+    c = hc.snnls.consts
+    sl = P.streamed_row_layout(cfg["QN"], mesh)[3]
+    mine = c.V[:sl.stop - sl.start].cpu().numpy()
+    ref = np.load(os.path.join(d, "stream_V.npy"), mmap_mode="r")[sl]
+    diff = np.abs(mine.astype(np.int16) - ref.astype(np.int16))
+    ref_norms = np.load(os.path.join(d, "stream_norms.npy"))[sl]
+    bnorm = float(c.bnorm)
+    e0 = hc.error() / bnorm
+    led.reset()
+    t0 = time.perf_counter()
+    hc.build(cfg["M"])
+    sync()
+    itr = int(hc.snnls.state.itr)
+    out["stream"] = {"construct_s": t_con, "setup": setup, "build_s": time.perf_counter() - t0,
+                     "itr": itr, "launches": gs.launches, "per_itr": per_itr(itr),
+                     "rows_differing": int((diff != 0).any(axis=1).sum()),
+                     "max_int8_diff": int(diff.max()) if diff.size else 0,
+                     "norms_max_rel": float(np.max(np.abs(
+                         c.norms[:sl.stop - sl.start].cpu().numpy() - ref_norms) / ref_norms)),
+                     "err0": e0, "err": hc.error() / bnorm,
+                     "w": hc.snnls.weights()[:cfg["QN"]]}
+    del hc, c, mine, ref, diff
+    # the same stream at N=100k (phase 6's N), for its exchanges per iteration
+    small = bc.HilbertCoreset(Z1[:cfg["N"]], proj, stream_chunk_size=cfg["QCHUNK"],
+                              max_active=1024, mesh=mesh)
+    led.reset()
+    small.build(PROFILE_ITRS)
+    out["stream_small_per_itr"] = per_itr(PROFILE_ITRS)
+    del small, Z1
+
+    with np.load(os.path.join(d, "coreset.npz")) as z:
+        zc, wc = torch.as_tensor(z["pts"], device=dev), torch.as_tensor(z["wts"], device=dev)
+    kw = dict(num_chains=cfg["chains"], target_accept=0.8, pooled_adaptation=True, mesh=mesh)
+    _, _, r1 = weighted.run(logistic, zc, wc, 5, torch.Generator(device=dev).manual_seed(19),
+                            num_warmup=1, **kw)
+    led.reset()
+    _, t, r = weighted.run(logistic, zc, wc, cfg["draws"],
+                           torch.Generator(device=dev).manual_seed(19), num_warmup=cfg["draws"],
+                           **kw)
+    out["nuts"] = {"first": r1.samples.cpu().numpy(), "samples": r.samples.cpu().numpy(),
+                   "divergences": int(r.num_divergent.sum()), "seconds": t,
+                   "step": r.step_size.cpu().numpy(), "exchanges": led.totals()}
+    return out
+
+
+def phase_sharded(torch, smi, ref6, quality, wts, pts, cfg=None):
+    """Phase 19: the sharded paths over ``torch.distributed`` on the one
+    card, each rank a process spawned by ``parallel.run_local``: (a) a
+    1-rank NCCL group; (b) two ranks over gloo.  Returns the select
+    launches of its builds (every rank's)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from bayesian_coresets_tpu_torch import mcmc
+    from bayesian_coresets_tpu_torch.mcmc import weighted
+    from bayesian_coresets_tpu_torch.models import logistic
+    from bayesian_coresets_tpu_torch.parallel import run_local
+
+    cfg = dict(SHARD_CFG if cfg is None else cfg)
+    dev = torch.device(cfg["dev"])
+    nccl = dist.is_nccl_available()
+    say("sharded_backends", nccl_available=nccl, gloo_available=dist.is_gloo_available(),
+        a=f"world=1,backend={cfg['backend_a']}", b="world=2,backend=gloo", card=repr(smi))
+    if cfg["backend_a"] == "nccl" and not nccl:
+        raise AssertionError("phase 19 (a): this PyTorch build has no NCCL")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        np.save(os.path.join(d, "stream_V.npy"), quality["V"])
+        np.save(os.path.join(d, "stream_norms.npy"), quality["norms"])
+        np.savez(os.path.join(d, "coreset.npz"), wts=wts, pts=pts)
+        zc, wc = torch.as_tensor(pts, device=dev), torch.as_tensor(wts, device=dev)
+        _, _, r1 = weighted.run(logistic, zc, wc, 5, torch.Generator(device=dev).manual_seed(19),
+                                num_chains=cfg["chains"], target_accept=0.8, num_warmup=1,
+                                pooled_adaptation=True)
+        first_ref = r1.samples.cpu().numpy()
+        t0 = time.perf_counter()
+        a = run_local(_rank19, 1, cfg["backend_a"], os.path.join(d, "init_a"),
+                      args=("a", d, cfg))[0]
+        t_a = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = run_local(_rank19, 2, "gloo", os.path.join(d, "init_b"), args=("b", d, cfg))
+        t_b = time.perf_counter() - t0
+
+    # (a) the 1-rank group against phase 6, in this run
+    same = np.array_equal(a["w"], ref6["w"])
+    prof = a.get("profile", {})
+    say("sharded_a", world=1, backend=a["backend"], N=cfg["N"], S=S_MAIN, itr=a["itr"],
+        select_launches=a["launches"],
+        select_launches_per_itr=f"{a['launches'] / max(a['itr'], 1):.3f}",
+        atoms=int((a["w"] > 0).sum()), phase6_atoms=int((ref6["w"] > 0).sum()),
+        weights_bit_identical_to_phase6=same, err=f"{a['err']:.6e}",
+        phase6_err=f"{ref6['err']:.6e}", ms_per_itr=f"{1e3 * a['build_s'] / a['itr']:.4f}",
+        phase6_ms_per_itr=f"{ref6['ms_per_itr']:.4f}",
+        launches_per_itr=f"{prof.get('launches_per_itr', float('nan')):.2f}",
+        phase6_launches_per_itr=f"{ref6['launches_per_itr']:.2f}",
+        nccl_us_per_itr=f"{prof.get('nccl_us_per_itr', float('nan')):.1f}",
+        collectives_per_itr=_per_itr_text(a["per_itr"]), projection_s=f"{a['projection_s']:.4f}",
+        setup_exchanges=a["setup"], spawn_to_join_s=f"{t_a:.1f}", card=repr(smi))
+    if a["itr"] != ref6["itr"] or a["launches"] != a["itr"] or not same:
+        raise AssertionError(f"phase 19 (a): {a['itr']} iterations, {a['launches']} select "
+                             f"launches; weights equal phase 6's: {same}")
+    if a["bs_launches"] != a["bs_itr"] or a["bs_itr"] != cfg["M"]:
+        raise AssertionError(f"phase 19 (a): build_sharded {a['bs_launches']} launches "
+                             f"for {a['bs_itr']} iterations")
+
+    # (b)1 build_sharded on phase 6's projection, split over two ranks
+    bs = [r["bs"] for r in b]
+    same_b = all(np.array_equal(x["w"], a["bs_w"]) for x in bs)
+    say("sharded_b_build", world=2, backend=b[0]["backend"], N=cfg["N"], itr=bs[0]["itr"],
+        select_launches=[x["launches"] for x in bs], weights_bit_identical_to_a=same_b,
+        ms_per_itr=f"{1e3 * max(x['s'] for x in bs) / bs[0]['itr']:.4f}",
+        collectives_per_itr=_per_itr_text(bs[0]["per_itr"]), times="gloo (copies through the host)")
+    if not same_b or any(x["launches"] != x["itr"] for x in bs):
+        raise AssertionError("phase 19 (b): build_sharded differs from (a) or launches != itr")
+
+    # (b)2 the N=1M streamed-sharded build against phase 16's stream
+    ss = [r["stream"] for r in b]
+    differing = sum(x["rows_differing"] for x in ss)
+    e_rule = max(2.0 * quality["err_in_memory"], 0.05 * quality["err0"])
+    same_w = np.array_equal(ss[0]["w"], quality["w"])
+    say("sharded_b_stream", N=cfg["QN"], chunk=cfg["QCHUNK"], itr=ss[0]["itr"],
+        select_launches=[x["launches"] for x in ss], rows_differing=differing,
+        max_int8_diff=max(x["max_int8_diff"] for x in ss),
+        norms_max_rel=f"{max(x['norms_max_rel'] for x in ss):.3e}",
+        err=f"{ss[0]['err']:.6e}", phase16_err=f"{quality['err']:.6e}",
+        err_rule=f"{e_rule:.6e}", weights_bit_identical_to_phase16=same_w,
+        construct_s=f"{max(x['construct_s'] for x in ss):.4f}",
+        ms_per_itr=f"{1e3 * max(x['build_s'] for x in ss) / ss[0]['itr']:.4f}",
+        collectives_per_itr=_per_itr_text(ss[0]["per_itr"]), setup_exchanges=ss[0]["setup"],
+        times="gloo (copies through the host)")
+    if not ss[0]["err"] < e_rule:                   # tests/test_snnls.py:279's rule
+        raise AssertionError(f"phase 19 (b): streamed-sharded error/|b| {ss[0]['err']} "
+                             f"against the rule {e_rule}")
+    if differing == 0 and not same_w:
+        raise AssertionError("phase 19 (b): no int8 row differs, but the weights differ from "
+                             "phase 16's stream")
+    if any(x["launches"] != x["itr"] for x in ss):
+        raise AssertionError("phase 19 (b): streamed-sharded select launches != iterations")
+
+    # (b)4 the exchanges per GIGA iteration do not depend on n: the stream's
+    # at N=100k and at N=1M (its rows carry the int8 copy's 512 columns,
+    # build_sharded's f32 rows phase 6's 500)
+    at_100k = {k: v for k, v in b[0]["stream_small_per_itr"].items() if k != "rows"}
+    at_1m = {k: v for k, v in ss[0]["per_itr"].items() if k != "rows"}
+    say("sharded_collectives", N100k=_per_itr_text(at_100k), N1M=_per_itr_text(at_1m),
+        equal=at_100k == at_1m)
+    if at_100k != at_1m:
+        raise AssertionError(f"phase 19: exchanges per iteration {at_100k} at N=100k, "
+                             f"{at_1m} at N=1M")
+
+    # (b)3 chain-sharded NUTS, 128 + 128 chains, pooled adaptation
+    nu = b[0]["nuts"]
+    first_err = float(np.max(np.abs(nu["first"] - first_ref)))
+    samples = torch.as_tensor(nu["samples"], device=dev)
+    rhat = float(mcmc.split_rhat(samples).max())
+    flat = samples.reshape(-1, samples.shape[-1])
+    mean, sd = flat.mean(dim=0), flat.std(dim=0)
+    is_mean, is_sd, _ = _importance_moments(torch, zc, wc)
+    off_is = float((torch.abs(mean.double() - is_mean) / is_sd).max())
+    steps_equal = all(np.array_equal(r["nuts"]["step"], nu["step"]) for r in b)
+    say("sharded_b_nuts", chains=cfg["chains"], per_rank=cfg["chains"] // 2,
+        warmup=cfg["draws"], draws=cfg["draws"], first5_max_abs_diff=f"{first_err:.3e}",
+        max_rhat=f"{rhat:.4f}", divergences=nu["divergences"],
+        mean_minus_is_mean_sds=f"{off_is:.4f}", pooled_step_equal_on_ranks=steps_equal,
+        seconds=f"{max(r['nuts']['seconds'] for r in b):.3f}", exchanges=nu["exchanges"],
+        spawn_to_join_s=f"{t_b:.1f}", times="gloo (copies through the host)")
+    if not first_err <= 1e-5:
+        raise AssertionError(f"phase 19 (b): the first transitions differ by {first_err}")
+    if rhat > RHAT_MAX or nu["divergences"] > DIV_SHARE_MAX * cfg["chains"] * cfg["draws"]:
+        raise AssertionError(f"phase 19 (b): R-hat {rhat}, {nu['divergences']} divergences")
+    if not off_is <= IS_SDS_MAX or not steps_equal:
+        raise AssertionError(f"phase 19 (b): mean {off_is} sd from importance sampling; "
+                             f"pooled steps equal on the ranks: {steps_equal}")
+    return (a["launches"] + a["bs_launches"] + sum(x["launches"] for x in bs)
+            + sum(x["launches"] for x in ss))
+
+
+def _per_itr_text(per_itr: dict) -> str:
+    """kind:calls/bytes per iteration, for a say() line."""
+    return ",".join(f"{k}:{c:g}/{n:g}B" for k, (c, n) in sorted(per_itr.items()))
+
+
 def main() -> int:
     import torch   # noqa: F401  (fails here without PyTorch)
 
@@ -2090,7 +2402,7 @@ def main() -> int:
     from bayesian_coresets_tpu_torch.ops import giga_select as gs
     from bayesian_coresets_tpu_torch.ops import packed_select as ps
     gs.launches = ps.launches = 0
-    launches, wts, pts, coreset, Z, projector = phase_main(torch, smi)
+    launches, wts, pts, coreset, Z, projector, ref6 = phase_main(torch, smi)
     if ps.launches:
         raise AssertionError("main path: the packed select kernel was launched")
     gs.launches = ps.launches = 0
@@ -2109,20 +2421,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     pois_launches = phase_poisson(torch, smi)
     gs.launches = 0
-    st_launches, stq_launches, st_omp_launches, st_select = phase_streamed(torch, smi)
+    st_launches, stq_launches, st_omp_launches, st_select, quality = phase_streamed(torch, smi)
     gs.launches = 0
     wide_launches = phase_wide_build(torch, smi)
     torch.cuda.empty_cache()
     exp_launches, exp_err = phase_experiments(torch, smi)
+    gs.launches = ps.launches = 0
+    sharded_launches = phase_sharded(torch, smi, ref6, quality, wts, pts)
     if ps.launches:
         raise AssertionError("a solver's path launched the packed select kernel")
     say("select_launches_by_path", giga=launches, frankwolfe=fw_launches, omp=omp_launches,
         sampling=0, poisson_giga=pois_launches, streamed_giga_N8M=st_launches,
         quality_arms_N1M=stq_launches, streamed_omp_N1M=st_omp_launches,
         streamed_sampling_N1M=0, wide_giga_fw_S16384=wide_launches,
-        experiments=exp_launches)
+        experiments=exp_launches, sharded_ranks=sharded_launches)
     launches += (fw_launches + omp_launches + pois_launches + st_launches + stq_launches
-                 + st_omp_launches + wide_launches + exp_launches)
+                 + st_omp_launches + wide_launches + exp_launches + sharded_launches)
     max_err = max(max_err, st_select[5], exp_err)
     from bayesian_coresets_tpu_torch import native
     if any(m.split(".")[0] in ("jax", "bayesian_coresets_tpu") for m in sys.modules):

@@ -786,3 +786,32 @@ def test_logistic_cpu_fallback_moves_the_chains_off_the_card(cuda_device, tmp_pa
     devices.clear()
     info = lp.main(argv + ["--results_folder", "fallback/", "--cpu_fallback"])
     assert devices == ["cuda", "cuda", "cpu"] and info["cpu_retries"] == 1
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_build_sharded_equals_one_process(cuda_device, tmp_path):
+    """A 1-rank NCCL group (the multi-GPU backend, every exchange a real
+    all_reduce) runs build_sharded at N=20k, S=500 (int8 select, 200
+    iterations): the same weights, bit for bit, as the build in one
+    process, with one select launch and two exchanges per iteration."""
+    import torch.distributed as dist
+
+    from bayesian_coresets_tpu_torch import parallel as P
+
+    if not dist.is_nccl_available():
+        pytest.fail("this PyTorch build has no NCCL")
+    rng = np.random.default_rng(4)
+    A = torch.as_tensor(rng.normal(size=(500, 20_000)).astype(np.float32), device=cuda_device)
+    b = A.sum(dim=1)
+    c = snnls.make_consts(A, b, select_dtype=torch.int8)
+    one = snnls.build(c, snnls.init_state(c, 1024), 200, 1e-6)
+    P.initialize(f"file://{tmp_path / 'init'}", 1, 0, "nccl")
+    try:
+        mesh = P.make_mesh()
+        gs.launches = 0
+        st = P.build_sharded(A, b, 200, mesh, select_dtype=torch.int8, max_active=1024)
+        assert gs.launches == int(st.itr) == 200
+        assert mesh.ledger.calls["argmax"] == mesh.ledger.calls["row"] == 200
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(st.w, one.w) and int((st.w > 0).sum()) > 100

@@ -549,8 +549,12 @@ def test_logistic_giga_opt_puts_more_than_n_on_an_atom_in_both_packages():
 @pytest.mark.parametrize("driver,flag", [(TLP, "--data_mesh=4"), (TLP, "--chain_mesh"),
                                          (TG, "--data_mesh=2"), (TLR, "--data_mesh=4")])
 def test_sharding_flags_raise_before_any_work(driver, flag, workdir, monkeypatch):
+    """Outside a process group (no torchrun) the sharding flags raise with
+    the command that starts one, before any work; under a group they run
+    (tests/test_torch_parallel.py)."""
     monkeypatch.setattr(tdatasets, "load_logistic", lambda name: pytest.fail("work began"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node"):
         driver.main(["run", flag, "--device", "cpu"])
     assert not os.path.exists("results")
 

@@ -481,8 +481,10 @@ class TestRunWrapper:
         assert res.samples.shape == (2, 60, 2)
 
     def test_mesh_is_rejected(self):
+        """``mesh=`` takes a ``parallel.make_mesh`` mesh (chains sharded over
+        ranks, tests/test_torch_parallel.py) and refuses anything else."""
         z = tlr.gen_synthetic(torch.Generator().manual_seed(0), 10, 2)
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(ValueError, match="parallel.make_mesh"):
             tw.run(tlr, z, torch.ones(10), 5, torch.Generator(), mesh=object())
 
     def test_f64_logdensity_island(self):

@@ -223,7 +223,8 @@ def test_sampling_from_consts_replays_jax_draws(method):
 @pytest.mark.parametrize("method", list(CLASSES))
 def test_from_consts_reset_checkpoint_and_mesh(method, tmp_path):
     """``reset``, ``save``/``restore`` and the sampling generator work as
-    for the classes' own constructor; ``mesh=`` is not ported and raises."""
+    for the classes' own constructor; ``mesh=`` takes a ``parallel.make_mesh``
+    mesh (tests/test_torch_parallel.py drives it) and refuses anything else."""
     _, T = CLASSES[method]
     A, b = _problem(4, S=24, n=120)
     _, tc, _, _ = _consts(A, b, method)
@@ -243,7 +244,7 @@ def test_from_consts_reset_checkpoint_and_mesh(method, tmp_path):
     assert t.size() == 0
     t.build(30)
     np.testing.assert_array_equal(t.weights(), w30)      # reset() re-seeds
-    with pytest.raises(ValueError, match="item 16"):
+    with pytest.raises(ValueError, match="parallel.make_mesh"):
         T.from_consts(tc, mesh=object())
 
 
