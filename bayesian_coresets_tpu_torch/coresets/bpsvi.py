@@ -13,6 +13,11 @@ the weight block only (reference nn_idcs = arange(sz), bpsvi.py:58).
 The joint optimization is a Python loop of Adam steps that reads nothing
 back to the host; draws come from a ``torch.Generator`` on the data's
 device.
+
+``mesh=`` shards the data rows over the mesh's data axis, as SparseVI's
+does (:mod:`.sparsevi`): each Adam step sums the rank's own rows' feature
+vectors and exchanges the (S,) sum once, and the initial points come from
+their owners in one (sz, d) exchange per build.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from ..ops.opt import nn_opt
 from ..utils import config
 from .coreset import Coreset
 from .projector import TangentFamily
-from .sparsevi import resolve_family
+from .sparsevi import _data_vecs, _gather_pts, _vec_sum, data_block, resolve_family
 
 
 def uniform_init_idcs(n: int, sz: int, gen: torch.Generator) -> torch.Tensor:
@@ -36,21 +41,22 @@ def uniform_init_idcs(n: int, sz: int, gen: torch.Generator) -> torch.Tensor:
     return torch.randperm(int(n), generator=gen, device=gen.device)[: int(sz)]
 
 
-def _subsample(data, family, ctx, gen, n_sub):
-    n = data.shape[0]
-    if n_sub is None:
-        return family.project(ctx, data), 1.0
-    sub_idcs = torch.randint(0, n, (n_sub,), generator=gen, device=gen.device).to(data.device)
-    return family.project(ctx, data.index_select(0, sub_idcs)), n / n_sub
+def _subsample_sum(data, family, ctx, gen, n_sub, comm=None):
+    """(the sum of the (sub)sample's feature vectors over every rank's rows,
+    its scale)."""
+    vecs, scale, _, _ = _data_vecs(data, family, ctx, gen, n_sub, comm)
+    return _vec_sum(vecs, comm), scale, vecs.shape[1]
 
 
 def bpsvi_build(data, init_idcs, gen, *, family: TangentFamily, n_sub_opt,
-                opt_itrs: int, step_sched):
+                opt_itrs: int, step_sched, comm=None):
     """Optimize a size-``len(init_idcs)`` pseudocoreset initialized at the
-    given data rows (see :func:`uniform_init_idcs`); returns (wts, pts)."""
-    n, d = data.shape
+    given data rows (see :func:`uniform_init_idcs`); returns (wts, pts).
+    ``comm``: the data axis's exchanges, ``data`` this rank's block."""
+    d = data.shape[1]
+    n = data.shape[0] if comm is None else comm.n
     sz = init_idcs.shape[0]
-    pts0 = data.index_select(0, init_idcs.to(data.device))
+    pts0 = _gather_pts(data, init_idcs.to(data.device), comm)
     wts0 = torch.full((sz,), n / sz, dtype=data.dtype, device=data.device)
     x0 = torch.cat([wts0, pts0.reshape(-1)])
     nn_mask = torch.arange(sz * (1 + d), device=data.device) < sz   # clamp weights only
@@ -62,11 +68,11 @@ def bpsvi_build(data, init_idcs, gen, *, family: TangentFamily, n_sub_opt,
             ctx, carry = family.make_ctx_warm(g, w, u, carry)
         else:
             ctx = family.make_ctx(g, w, u)
-        vecs, scale = _subsample(data, family, ctx, g, n_sub_opt)
+        total, scale, S = _subsample_sum(data, family, ctx, g, n_sub_opt, comm)
         corevecs = family.project(ctx, u)                           # (sz, S)
         pgrads = family.project_grad(ctx, u)                        # (sz, S, d)
-        inv_s = -1.0 / vecs.shape[1]
-        resid = scale * torch.sum(vecs, dim=0) - w @ corevecs       # (S,)
+        inv_s = -1.0 / S
+        resid = scale * total - w @ corevecs                        # (S,)
         wgrad = (corevecs @ resid) * inv_s
         ugrad = torch.einsum("m,msd,s->md", w, pgrads, resid) * inv_s
         return torch.cat([wgrad, ugrad.reshape(-1)]), carry
@@ -79,14 +85,14 @@ def bpsvi_build(data, init_idcs, gen, *, family: TangentFamily, n_sub_opt,
     return xf[:sz], xf[sz:].reshape(sz, d)
 
 
-def bpsvi_error(data, wts, pts, gen, *, family: TangentFamily, n_sub):
+def bpsvi_error(data, wts, pts, gen, *, family: TangentFamily, n_sub, comm=None):
     """Monte Carlo estimate of the Hilbert residual norm
     ||sum_i ell_i - sum_m w_m ell_m|| / sqrt(S) under the current
     pseudocoreset posterior (the reference's error() is an unimplemented
     0, bpsvi.py:62-63)."""
     ctx = family.make_ctx(gen, wts, pts)
-    vecs, scale = _subsample(data, family, ctx, gen, n_sub)
-    resid = scale * torch.sum(vecs, dim=0) - wts @ family.project(ctx, pts)
+    total, scale, _ = _subsample_sum(data, family, ctx, gen, n_sub, comm)
+    resid = scale * total - wts @ family.project(ctx, pts)
     return torch.sqrt(torch.mean(resid * resid))
 
 
@@ -96,18 +102,25 @@ class BatchPSVICoreset(Coreset):
     As in the reference, ``build(sz)``'s argument is the pseudocoreset
     SIZE, not an iteration count, and each call re-initializes.  The data
     lives on its device (a tensor's own, else ``device``, else the default
-    device) and so does the generator, seeded with ``seed``.
+    device) and so does the generator, seeded with ``seed``.  ``mesh``
+    (``parallel.make_mesh``) shards the data rows over its data axis: every
+    rank passes the same data, keeps its block, and calls every method.
     """
 
+    comm = None
+
     def __init__(self, data, ll_projector, opt_itrs: int, n_subsample_opt=None,
-                 step_sched=lambda i: 1.0 / (1.0 + i), seed: int = 0, device=None):
+                 step_sched=lambda i: 1.0 / (1.0 + i), seed: int = 0, device=None,
+                 mesh=None):
         super().__init__()
         self.data = config.as_tensor(data, config.default_dtype(), device)
         self.family = resolve_family(ll_projector)
         if self.family.project_grad is None:
             raise ValueError("BatchPSVICoreset requires a grad_loglikelihood "
                              "(reference projector.py:23-24)")
-        n = self.data.shape[0]
+        n = self.n = self.data.shape[0]
+        if mesh is not None:
+            self.data, self.comm = data_block(self.data, mesh)
         self.opt_itrs = int(opt_itrs)
         self.n_subsample_opt = None if n_subsample_opt is None else min(n, int(n_subsample_opt))
         self.step_sched = step_sched
@@ -119,11 +132,11 @@ class BatchPSVICoreset(Coreset):
         super().reset()
 
     def _build(self, sz: int):
-        init_idcs = uniform_init_idcs(self.data.shape[0], int(sz), self._gen)
+        init_idcs = uniform_init_idcs(self.n, int(sz), self._gen)
         wts, pts = bpsvi_build(
             self.data, init_idcs, self._gen, family=self.family,
             n_sub_opt=self.n_subsample_opt, opt_itrs=self.opt_itrs,
-            step_sched=self.step_sched)
+            step_sched=self.step_sched, comm=self.comm)
         self.wts = wts.cpu().numpy()
         self.pts = pts.cpu().numpy()
         self.idcs = -1 * np.ones(int(sz), dtype=np.int64)   # synthetic points
@@ -140,4 +153,4 @@ class BatchPSVICoreset(Coreset):
         return float(bpsvi_error(
             self.data, torch.as_tensor(self.wts, dtype=dt, device=dev),
             torch.as_tensor(self.pts, dtype=dt, device=dev), self._gen,
-            family=self.family, n_sub=self.n_subsample_opt))
+            family=self.family, n_sub=self.n_subsample_opt, comm=self.comm))

@@ -25,7 +25,10 @@ solvers run on the int8-resident constants (``make_consts_quantized``).
 
 ``mesh`` (``parallel.make_mesh``, under an initialized process group; the
 JAX package's hilbert.py:81-92, 170-253) shards the build over the ranks
-of the mesh's data axis.  Every rank passes the same data and a projector
+of the mesh's data axis (on a mesh with other axes too, such as ``{"data":
+2, "proj": 2}``, every line along the others runs the same build, as the
+JAX facade shards the data axis only; a streamed build takes a 1-D data
+mesh).  Every rank passes the same data and a projector
 made alike (the same samples, from the same seed), and projects only its
 own block of rows (``parallel/coreset.py``'s layout); b is the sum of the
 ranks' partial sums, and the solver runs as one rank of the sharded build.
@@ -117,6 +120,9 @@ class HilbertCoreset(Coreset):
         rank streams its own rows (hilbert.py:170-253 there)."""
         if chunk <= 0:
             raise ValueError(f"stream_chunk_size must be positive; got {chunk}")
+        if mesh is not None and tuple(mesh.axis_names) != (DATA_AXIS,):
+            raise ValueError(f"a streamed-sharded construction takes a 1-D '{DATA_AXIS}' mesh "
+                             "(int8-resident builds are data-parallel only)")
         if isinstance(data, torch.Tensor):
             dev = config.resolve_device(device) if device is not None else data.device
         else:

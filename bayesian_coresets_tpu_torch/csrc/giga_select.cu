@@ -63,6 +63,17 @@
 // int8 rows of 49168 bytes: 59% of the bound, packed 43%; PERF.md).  The 8
 // rows' sums are combined in warp order, so f32 and bf16 scores are the
 // same bits on every launch.
+// A build whose columns are split over ranks (the proj axis of
+// parallel/coreset.py) cannot score a row from its own columns: the dots
+// are sums over every rank's columns.  For it the same source has a
+// dots-only mode of both kernels (a template flag on the epilogue,
+// giga_dots_launch: each row's raw int32 or f32 sums to an (n, 2) output,
+// no score, no argmax) and a small kernel that scores the dots once they
+// are summed over the ranks and takes the first maximum through the same
+// row_key and finish (giga_score_launch).  Together they split the Pallas
+// kernel at the point where the JAX package's sharded select psums its
+// partial dots (ops/snnls.py:458-488 there); on an unsplit matrix they give
+// giga_select_launch's result bit for bit.
 // The TPU kernel's sequential running accumulator has no counterpart:
 // blocks on Hopper run in parallel and in no order.  The score epilogue
 // uses the _rn intrinsics so that FMA contraction cannot change its rounding
@@ -102,6 +113,7 @@ struct SelectArgs {
   Workspace* ws;
   int* idx;
   float* score;
+  void* dots;               // (n, 2) raw dots of the dots-only mode, else unused
 };
 
 // Dots of one 16-byte chunk of a row against the same chunk of both
@@ -210,7 +222,21 @@ __device__ __forceinline__ void quantize_dirs(const float* __restrict__ dirs, in
   }
 }
 
-template <int DT, int LOG_G>
+// The dots-only mode's epilogue: row `row`'s two raw sums, int32 for int8
+// (exact, so a sum over column blocks is exact too), else f32 (not yet
+// divided by the norm), as one 8-byte store into the (n, 2) output.
+__device__ __forceinline__ void store_dots(void* out, long long row, int a0, int a1) {
+  reinterpret_cast<int2*>(out)[row] = make_int2(a0, a1);
+}
+
+__device__ __forceinline__ void store_dots(void* out, long long row, float a0, float a1) {
+  reinterpret_cast<float2*>(out)[row] = make_float2(a0, a1);
+}
+
+// DOTS: the dots-only mode (giga_dots_launch): the same stream, directions
+// and sums, but each row's raw (d0, d1) is written to a.dots, and there is
+// no score, no argmax and no workspace.
+template <int DT, int LOG_G, bool DOTS>
 __global__ void __launch_bounds__(kThreads) giga_select_kernel(const SelectArgs a) {
   using Acc = typename std::conditional<DT == kInt8, int, float>::type;
   constexpr int U = kRowsPerStep;
@@ -247,9 +273,10 @@ __global__ void __launch_bounds__(kThreads) giga_select_kernel(const SelectArgs 
   // of tile q / spt).  The valid bytes and norms of this lane's epilogue
   // rows are loaded one step ahead, so no global load waits in the epilogue.
   const Span span = block_span(a.n, a.tile_rows);
-  bool ok_next[R::E];
-  float nr_next[R::E];
+  bool ok_next[R::E] = {};
+  float nr_next[R::E] = {};
   const auto prefetch = [&](long long q) {
+    if constexpr (DOTS) return;                       // no per-row inputs
     const long long t = q / spt;
     const long long row0 = (span.first + t) * a.tile_rows;
 #pragma unroll
@@ -301,13 +328,17 @@ __global__ void __launch_bounds__(kThreads) giga_select_kernel(const SelectArgs 
         row_pair<LOG_G, U>(v, lane, e, a0, a1);
         const int rl = r0 + (u0 + e) * RPW + grp;
         if (rl < rows) {
-          const unsigned long long key = row_key<DT>(a0, a1, nr[e], ok[e], row0 + rl);
-          best = key > best ? key : best;
+          if constexpr (DOTS) {
+            store_dots(a.dots, row0 + rl, a0, a1);
+          } else {
+            const unsigned long long key = row_key<DT>(a0, a1, nr[e], ok[e], row0 + rl);
+            best = key > best ? key : best;
+          }
         }
       }
     }
   });
-  finish(best, a.ws, a.idx, a.score);
+  if constexpr (!DOTS) finish(best, a.ws, a.idx, a.score);
 }
 
 // One 16-byte chunk's columns of both directions, in Vsel's type.
@@ -322,8 +353,9 @@ struct Dirs2 {
 // quantize_dirs does, bit for bit, and keeps them in shared memory for the
 // later groups (rows up to 65984 bytes on the H100; wider rows fetch them
 // again in every group).  The row sums are combined in warp order, so f32
-// and bf16 scores are the same bits on every launch.
-template <int DT>
+// and bf16 scores are the same bits on every launch.  DOTS: the dots-only
+// mode, as in giga_select_kernel.
+template <int DT, bool DOTS>
 __global__ void __launch_bounds__(kThreads) giga_select_wide_kernel(const SelectArgs a,
                                                                     const Wide w) {
   using Acc = typename std::conditional<DT == kInt8, int, float>::type;
@@ -361,30 +393,93 @@ __global__ void __launch_bounds__(kThreads) giga_select_wide_kernel(const Select
       },
       [](int4 x, const Dirs2& d, Acc& a0, Acc& a1) { dot<DT>(x, d.p, d.q, a0, a1); },
       [&](long long row) {
+        if constexpr (DOTS) return make_float2(1.0f, 1.0f);   // no per-row inputs
         return make_float2(DT == kInt8 ? 1.0f : a.norms[row], a.valid[row] ? 1.0f : 0.0f);
       },
-      [](Acc a0, Acc a1, float2 s, long long row) {
-        return row_key<DT>(a0, a1, s.x, s.y != 0.0f, row);
+      [&](Acc a0, Acc a1, float2 s, long long row) -> unsigned long long {
+        if constexpr (DOTS) {
+          store_dots(a.dots, row, a0, a1);
+          return 0ull;
+        } else {
+          return row_key<DT>(a0, a1, s.x, s.y != 0.0f, row);
+        }
       });
-  finish(best, a.ws, a.idx, a.score);
+  if constexpr (!DOTS) finish(best, a.ws, a.idx, a.score);
 }
 
+template <bool DOTS>
 const void* wide_kernel(int dtype) {
-  return dtype == kInt8   ? reinterpret_cast<const void*>(&giga_select_wide_kernel<kInt8>)
-         : dtype == kBf16 ? reinterpret_cast<const void*>(&giga_select_wide_kernel<kBf16>)
-                          : reinterpret_cast<const void*>(&giga_select_wide_kernel<kF32>);
+  return dtype == kInt8   ? reinterpret_cast<const void*>(&giga_select_wide_kernel<kInt8, DOTS>)
+         : dtype == kBf16 ? reinterpret_cast<const void*>(&giga_select_wide_kernel<kBf16, DOTS>)
+                          : reinterpret_cast<const void*>(&giga_select_wide_kernel<kF32, DOTS>);
 }
 
-template <int DT>
+template <int DT, bool DOTS>
 const void* pick(int log_g) {
   switch (log_g) {
-    case 0: return reinterpret_cast<const void*>(&giga_select_kernel<DT, 0>);
-    case 1: return reinterpret_cast<const void*>(&giga_select_kernel<DT, 1>);
-    case 2: return reinterpret_cast<const void*>(&giga_select_kernel<DT, 2>);
-    case 3: return reinterpret_cast<const void*>(&giga_select_kernel<DT, 3>);
-    case 4: return reinterpret_cast<const void*>(&giga_select_kernel<DT, 4>);
-    default: return reinterpret_cast<const void*>(&giga_select_kernel<DT, 5>);
+    case 0: return reinterpret_cast<const void*>(&giga_select_kernel<DT, 0, DOTS>);
+    case 1: return reinterpret_cast<const void*>(&giga_select_kernel<DT, 1, DOTS>);
+    case 2: return reinterpret_cast<const void*>(&giga_select_kernel<DT, 2, DOTS>);
+    case 3: return reinterpret_cast<const void*>(&giga_select_kernel<DT, 3, DOTS>);
+    case 4: return reinterpret_cast<const void*>(&giga_select_kernel<DT, 4, DOTS>);
+    default: return reinterpret_cast<const void*>(&giga_select_kernel<DT, 5, DOTS>);
   }
+}
+
+// One launch of the select (DOTS false) or of its dots-only mode on
+// `stream`: the ring kernel where plan_launch can place the rows, else the
+// wide-row kernel; never synchronizes; returns cudaGetLastError().
+template <bool DOTS>
+int launch_select(SelectArgs a, int dtype, void* stream) {
+  if (dtype < kInt8 || dtype > kF32 || a.row_bytes <= 0 || a.row_bytes > (1 << 20))
+    return (int)cudaErrorInvalidValue;
+  const int rb = a.row_bytes;
+  const int log_g = group_log2(rb / 16);
+  const void* kernel = dtype == kInt8 ? pick<kInt8, DOTS>(log_g)
+                       : dtype == kBf16 ? pick<kBf16, DOTS>(log_g)
+                                        : pick<kF32, DOTS>(log_g);
+  Plan plan;
+  cudaError_t err =
+      plan_launch(kernel, a.n, rb, 2 * rb, (32 >> log_g) * kRowsPerStep, kRingMaxRow, &plan);
+  if (err != cudaSuccess) return (int)err;
+  a.tile_rows = plan.tile_rows;
+  a.stages = plan.stages;
+  if (plan.stages == 0) {                             // too wide for the ring
+    kernel = wide_kernel<DOTS>(dtype);
+    WidePlan wp;
+    if ((err = plan_wide(kernel, a.n, rb, 2, &wp)) != cudaSuccess) return (int)err;
+    void* args[] = {&a, &wp.w};
+    err = cudaLaunchKernel(kernel, dim3(wp.grid), dim3(kThreads), args, wp.smem,
+                           reinterpret_cast<cudaStream_t>(stream));
+  } else {
+    void* args[] = {&a};
+    err = cudaLaunchKernel(kernel, dim3(plan.grid), dim3(kThreads), args, plan.smem,
+                           reinterpret_cast<cudaStream_t>(stream));
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The score and first-max argmax of dots summed elsewhere (giga_score_launch):
+// rows of the (n, 2) dots, int32 (DT kInt8: scaled by 1/127^2) or f32
+// (divided by the row's norm), through row_key and finish, as the fused
+// select scores its own sums.  A grid-stride loop, one thread a row; bound
+// by bytes (12-13 per row).
+template <int DT>
+__global__ void __launch_bounds__(kThreads) giga_score_kernel(
+    const void* __restrict__ dots, long long n, const float* __restrict__ norms,
+    const unsigned char* __restrict__ valid, Workspace* __restrict__ ws, int* __restrict__ idx,
+    float* __restrict__ score) {
+  using Pair = typename std::conditional<DT == kInt8, int2, float2>::type;
+  unsigned long long best = 0ull;                     // below every real key
+  for (long long r = (long long)blockIdx.x * kThreads + threadIdx.x; r < n;
+       r += (long long)gridDim.x * kThreads) {
+    const Pair d = reinterpret_cast<const Pair*>(dots)[r];
+    const float nr = DT == kInt8 ? 1.0f : norms[r];
+    const unsigned long long key = row_key<DT>(d.x, d.y, nr, valid[r] != 0, r);
+    best = key > best ? key : best;
+  }
+  finish(best, ws, idx, score);
 }
 
 }  // namespace
@@ -401,33 +496,56 @@ const void* pick(int log_g) {
 extern "C" int giga_select_launch(const void* V, int dtype, long long n, long long row_bytes,
                                   const void* dirs, int S, const void* norms, const void* valid,
                                   void* workspace, void* idx, void* score, void* stream) {
-  if (dtype < kInt8 || dtype > kF32 || row_bytes > (1 << 20)) return (int)cudaErrorInvalidValue;
-  const int rb = (int)row_bytes;
-  const int log_g = group_log2(rb / 16);
-  const void* kernel = dtype == kInt8 ? pick<kInt8>(log_g)
-                       : dtype == kBf16 ? pick<kBf16>(log_g)
-                                        : pick<kF32>(log_g);
-  Plan plan;
-  cudaError_t err =
-      plan_launch(kernel, n, rb, 2 * rb, (32 >> log_g) * kRowsPerStep, kRingMaxRow, &plan);
-  if (err != cudaSuccess) return (int)err;
-  SelectArgs a{reinterpret_cast<const unsigned char*>(V), n, rb, plan.tile_rows, plan.stages,
+  if (row_bytes > (1 << 20)) return (int)cudaErrorInvalidValue;
+  SelectArgs a{reinterpret_cast<const unsigned char*>(V), n, (int)row_bytes, 0, 0,
                reinterpret_cast<const float*>(dirs), S, reinterpret_cast<const float*>(norms),
                reinterpret_cast<const unsigned char*>(valid),
                reinterpret_cast<Workspace*>(workspace), reinterpret_cast<int*>(idx),
-               reinterpret_cast<float*>(score)};
-  if (plan.stages == 0) {                             // too wide for the ring
-    kernel = wide_kernel(dtype);
-    WidePlan wp;
-    if ((err = plan_wide(kernel, n, rb, 2, &wp)) != cudaSuccess) return (int)err;
-    void* args[] = {&a, &wp.w};
-    err = cudaLaunchKernel(kernel, dim3(wp.grid), dim3(kThreads), args, wp.smem,
-                           reinterpret_cast<cudaStream_t>(stream));
-  } else {
-    void* args[] = {&a};
-    err = cudaLaunchKernel(kernel, dim3(plan.grid), dim3(kThreads), args, plan.smem,
-                           reinterpret_cast<cudaStream_t>(stream));
-  }
+               reinterpret_cast<float*>(score), nullptr};
+  return launch_select<false>(a, dtype, stream);
+}
+
+// The dots-only mode, for a select whose columns are split over ranks (the
+// proj axis of a sharded build): V, dtype, n, row_bytes, dirs and S as for
+// giga_select_launch (the directions quantized in the kernel, bit for bit
+// as there); out: (n, 2) row-major, int32 for int8 (the raw integer sums)
+// and f32 for bf16/f32 (the sums, not divided by the norm).  One launch of
+// the same stream (ring or wide-row kernel) on `stream`; no workspace;
+// never synchronizes; returns cudaGetLastError().
+extern "C" int giga_dots_launch(const void* V, int dtype, long long n, long long row_bytes,
+                                const void* dirs, int S, void* out, void* stream) {
+  if (row_bytes > (1 << 20)) return (int)cudaErrorInvalidValue;
+  SelectArgs a{reinterpret_cast<const unsigned char*>(V), n, (int)row_bytes, 0, 0,
+               reinterpret_cast<const float*>(dirs), S, nullptr, nullptr, nullptr, nullptr,
+               nullptr, out};
+  return launch_select<true>(a, dtype, stream);
+}
+
+// The score and global first-max argmax of (n, 2) dots summed over the
+// split (giga_dots_launch's output reduced over the ranks): dots_int32 1
+// for int32 dots (an int8 select: scaled by 1/127^2), 0 for f32 dots
+// (divided by norms[r]); norms (n,) f32, valid (n,) bool, workspace, idx
+// and score as for giga_select_launch, whose result it gives on the
+// unsplit matrix bit for bit.  One launch on `stream`; never synchronizes;
+// returns cudaGetLastError().
+extern "C" int giga_score_launch(const void* dots, int dots_int32, long long n, const void* norms,
+                                 const void* valid, void* workspace, void* idx, void* score,
+                                 void* stream) {
+  if (n <= 0 || n >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  size_t budget = 0;
+  cudaError_t err = device_limits(&dev, &sms, &budget);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  const int grid = (int)(blocks < 4ll * sms ? blocks : 4ll * sms);
+  const void* kernel = dots_int32 ? reinterpret_cast<const void*>(&giga_score_kernel<kInt8>)
+                                  : reinterpret_cast<const void*>(&giga_score_kernel<kF32>);
+  const long long nn = n;
+  void* args[] = {const_cast<void**>(&dots), const_cast<long long*>(&nn),
+                  const_cast<void**>(&norms), const_cast<void**>(&valid), &workspace, &idx,
+                  &score};
+  err = cudaLaunchKernel(kernel, dim3(grid), dim3(kThreads), args, 0,
+                         reinterpret_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

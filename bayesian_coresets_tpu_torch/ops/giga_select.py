@@ -14,6 +14,15 @@ other kernel (the kernel quantizes the directions itself and resets its
 own workspace; rows of any width up to 1 MiB), and uses the plain PyTorch version :func:`giga_select_ref`
 for CPU tensors; there is no other route and no fallback.  ``launches``
 counts kernel launches.
+
+A select whose columns are split over ranks (the proj axis of a sharded
+build, ``parallel/coreset.py``) runs in two kernels of the same source:
+:func:`giga_dots` streams the rank's columns and writes each row's raw
+(d0, d1) (int32 for int8, f32 sums not divided by the norm), the ranks sum
+them, and :func:`giga_score_select` scores the summed dots and takes the
+first maximum as the fused kernel does.  On an unsplit matrix the two give
+:func:`giga_select`'s result bit for bit.  ``dots_launches`` and
+``score_launches`` count their launches.
 """
 
 from __future__ import annotations
@@ -24,7 +33,9 @@ import torch
 
 from . import _cuda_build
 
-launches = 0   # kernel launches by giga_select (plain-version calls not counted)
+launches = 0        # kernel launches by giga_select (plain-version calls not counted)
+dots_launches = 0   # by giga_dots
+score_launches = 0  # by giga_score_select
 
 _DTYPE_CODE = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 
@@ -96,11 +107,7 @@ def giga_select_ref(Vsel: torch.Tensor, dirs: torch.Tensor, norms: torch.Tensor,
     best_f = best_s = None
     for r in range(0, Vsel.shape[0], _REF_BLOCK_ROWS):
         V, nr = Vsel[r:r + _REF_BLOCK_ROWS], norms[r:r + _REF_BLOCK_ROWS]
-        if V.dtype == torch.int8:
-            dots = (V.double() @ q.double().T).float() * (1.0 / (127.0 * 127.0))
-        else:
-            dots = (V.float() @ q.float().T) / nr[:, None]
-        score = score_rows(dots, valid[r:r + _REF_BLOCK_ROWS])
+        score = score_rows(_ref_scale(_ref_dots(V, q), nr), valid[r:r + _REF_BLOCK_ROWS])
         f = torch.argmax(score)
         s, f = score[f], (f + r).to(torch.int32)
         if best_f is None:
@@ -111,7 +118,43 @@ def giga_select_ref(Vsel: torch.Tensor, dirs: torch.Tensor, norms: torch.Tensor,
     return best_f, best_s
 
 
-def _check(Vsel, dirs, norms, valid):
+def _ref_dots(V: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Raw dots of rows ``V`` with the quantized directions ``q`` (2, Sp):
+    int8 in float64 (exact for these integer sums) returned as int32, else
+    f32."""
+    if V.dtype == torch.int8:
+        return (V.double() @ q.double().T).to(torch.int32)
+    return V.float() @ q.float().T
+
+
+def _ref_scale(dots: torch.Tensor, norms: torch.Tensor) -> torch.Tensor:
+    """Normalized dots: int32 sums times f32(1/127^2), f32 sums over the
+    row's norm."""
+    if dots.dtype == torch.int32:
+        return dots.float() * (1.0 / (127.0 * 127.0))
+    return dots / norms[:, None]
+
+
+def giga_dots_ref(Vsel: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch dots-only select: (n, 2) raw dots of every row of
+    ``Vsel`` with the directions quantized to its type, int32 for int8,
+    f32 otherwise, in blocks of ``_REF_BLOCK_ROWS`` rows as
+    :func:`giga_select_ref` takes them."""
+    q = quantize_dirs(dirs, Vsel.shape[1], Vsel.dtype)
+    return torch.cat([_ref_dots(Vsel[r:r + _REF_BLOCK_ROWS], q)
+                      for r in range(0, Vsel.shape[0], _REF_BLOCK_ROWS)])
+
+
+def giga_score_select_ref(dots: torch.Tensor, norms: torch.Tensor, valid: torch.Tensor):
+    """Plain PyTorch score and first-max argmax of (n, 2) dots (int32: an
+    int8 select's sums; f32: sums not yet divided by the norm): (int32
+    index, f32 score), 0-dim tensors."""
+    score = score_rows(_ref_scale(dots, norms), valid)
+    f = torch.argmax(score)
+    return f.to(torch.int32), score[f]
+
+
+def _check_rows(Vsel, dirs):
     if Vsel.dim() != 2 or Vsel.dtype not in _DTYPE_CODE or not Vsel.is_contiguous():
         raise ValueError("Vsel must be a contiguous 2-D int8, bfloat16 or float32 "
                          f"tensor; got {Vsel.dtype} {tuple(Vsel.shape)}")
@@ -125,13 +168,23 @@ def _check(Vsel, dirs, norms, valid):
             or dirs.shape[0] > Sp:
         raise ValueError(f"dirs must be float32 (S<= {Sp}, 2); got {dirs.dtype} "
                          f"{tuple(dirs.shape)}")
+    if dirs.device != Vsel.device:
+        raise ValueError(f"all inputs must be on {Vsel.device}; got {dirs.device}")
+
+
+def _check_per_row(n, device, norms, valid):
     if norms.dtype != torch.float32 or tuple(norms.shape) != (n,) or not norms.is_contiguous():
         raise ValueError("norms must be a contiguous float32 (n,) tensor")
     if valid.dtype != torch.bool or tuple(valid.shape) != (n,) or not valid.is_contiguous():
         raise ValueError("valid must be a contiguous bool (n,) tensor")
-    for t in (dirs, norms, valid):
-        if t.device != Vsel.device:
-            raise ValueError(f"all inputs must be on {Vsel.device}; got {t.device}")
+    for t in (norms, valid):
+        if t.device != device:
+            raise ValueError(f"all inputs must be on {device}; got {t.device}")
+
+
+def _check(Vsel, dirs, norms, valid):
+    _check_rows(Vsel, dirs)
+    _check_per_row(Vsel.shape[0], Vsel.device, norms, valid)
 
 
 def giga_select(Vsel: torch.Tensor, dirs: torch.Tensor, norms: torch.Tensor,
@@ -172,4 +225,78 @@ def giga_select(Vsel: torch.Tensor, dirs: torch.Tensor, norms: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"giga_select kernel launch failed: CUDA error {err}")
     launches += 1
+    return idx[0], score[0]
+
+
+def giga_dots(Vsel: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Dots-only select: (n, 2) raw dots of every row of ``Vsel`` with the
+    directions, int32 for an int8 copy (exact, so sums over column blocks
+    are exact), f32 for bf16/f32 (not divided by the norm).
+
+    Vsel and dirs as for :func:`giga_select` (a rank's column block of the
+    selection copy, and its slice of the globally normalized directions).
+    On a CUDA tensor this makes one launch of the select's stream in its
+    dots-only mode, on the current stream, without synchronizing; on a CPU
+    tensor it runs :func:`giga_dots_ref`.
+    """
+    global dots_launches
+    _check_rows(Vsel, dirs)
+    if Vsel.device.type == "cpu":
+        return giga_dots_ref(Vsel, dirs)
+    if Vsel.device.type != "cuda":
+        raise ValueError(f"giga_dots runs on CPU or CUDA tensors, not {Vsel.device}")
+    n, Sp = Vsel.shape
+    dirs = dirs.contiguous()
+    dev = Vsel.device
+    out = torch.empty((n, 2), dtype=torch.int32 if Vsel.dtype == torch.int8 else torch.float32,
+                      device=dev)
+    lib = _cuda_build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.giga_dots_launch(
+            ctypes.c_void_p(Vsel.data_ptr()), _DTYPE_CODE[Vsel.dtype], n,
+            Sp * Vsel.element_size(), ctypes.c_void_p(dirs.data_ptr()), dirs.shape[0],
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"giga_dots kernel launch failed: CUDA error {err}")
+    dots_launches += 1
+    return out
+
+
+def giga_score_select(dots: torch.Tensor, norms: torch.Tensor, valid: torch.Tensor):
+    """Score and first-max argmax of (n, 2) summed dots (:func:`giga_dots`'s
+    output, reduced over the ranks that hold the other columns): (int32
+    index, f32 score) as 0-dim device tensors, :func:`giga_select`'s result
+    on the unsplit matrix.  int32 dots are an int8 select's (scaled by
+    1/127^2; ``norms`` unused), f32 dots are divided by ``norms``.  On a
+    CUDA tensor one kernel launch on the current stream, through the
+    stream's select workspace; on a CPU tensor
+    :func:`giga_score_select_ref`."""
+    global score_launches
+    if dots.dim() != 2 or dots.shape[1] != 2 or dots.dtype not in (torch.int32, torch.float32) \
+            or not dots.is_contiguous():
+        raise ValueError(f"dots must be a contiguous (n, 2) int32 or float32 tensor; got "
+                         f"{dots.dtype} {tuple(dots.shape)}")
+    n = dots.shape[0]
+    if not 0 < n < 2**31:
+        raise ValueError(f"row count {n} outside (0, 2^31)")
+    _check_per_row(n, dots.device, norms, valid)
+    if dots.device.type == "cpu":
+        return giga_score_select_ref(dots, norms, valid)
+    if dots.device.type != "cuda":
+        raise ValueError(f"giga_score_select runs on CPU or CUDA tensors, not {dots.device}")
+    dev = dots.device
+    idx = torch.empty(1, dtype=torch.int32, device=dev)
+    score = torch.empty(1, dtype=torch.float32, device=dev)
+    lib = _cuda_build.load_library()
+    with torch.cuda.device(dev):
+        ws, stream = workspace(dev)
+        err = lib.giga_score_launch(
+            ctypes.c_void_p(dots.data_ptr()), int(dots.dtype == torch.int32), n,
+            ctypes.c_void_p(norms.data_ptr()), ctypes.c_void_p(valid.data_ptr()),
+            ctypes.c_void_p(ws.data_ptr()), ctypes.c_void_p(idx.data_ptr()),
+            ctypes.c_void_p(score.data_ptr()), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"giga_score_select kernel launch failed: CUDA error {err}")
+    score_launches += 1
     return idx[0], score[0]

@@ -62,7 +62,8 @@ import torch.nn.functional as F
 from .. import native
 from ..utils import checkpoint, config
 from ..utils.errors import NumericalPrecisionError
-from .giga_select import col_multiple, giga_select, quantize_dirs, sqrt_rn
+from .giga_select import (col_multiple, giga_dots, giga_score_select, giga_select,
+                          quantize_dirs, sqrt_rn)
 from .nnls import nnls_rows
 
 REFRESH_EVERY = 64      # exact xw = A@w recompute cadence (f32 drift control)
@@ -151,10 +152,21 @@ def make_consts(A: torch.Tensor, b: torch.Tensor, valid: torch.Tensor | None = N
     b = b.to(V.device)
     if valid is None:
         valid = torch.ones(V.shape[0], dtype=torch.bool, device=V.device)
+    norms, valid, Vsel = row_consts(V, valid, select_dtype)
+    bnorm = torch.sqrt(torch.sum(b * b))
+    Vsel = _pad_cols(Vsel, col_multiple(Vsel.dtype))
+    return SNNLSConsts(V, b, norms, bnorm, valid, _sampling_ps(norms, valid, sampling, comm),
+                       Vsel)
+
+
+def row_consts(V: torch.Tensor, valid: torch.Tensor, select_dtype=None):
+    """(norms, valid, Vsel) of the rows V (n, S) as :func:`make_consts`
+    makes them, Vsel not yet column-padded: the row norms (1 where a row is
+    invalid, and a zero row is), and the selection copy (V itself, bf16, or
+    int8 of the rows normalized and scaled to ±127)."""
     norms = torch.sqrt(torch.sum(V * V, dim=1))
     valid = valid.to(V.device) & (norms > 0)
     norms = torch.where(valid, norms, 1.0)
-    bnorm = torch.sqrt(torch.sum(b * b))
     if select_dtype is None or select_dtype == V.dtype:
         Vsel = V
     elif select_dtype == torch.int8:
@@ -164,9 +176,7 @@ def make_consts(A: torch.Tensor, b: torch.Tensor, valid: torch.Tensor | None = N
         Vsel = V.to(torch.bfloat16)
     else:
         raise ValueError(f"select_dtype must be None, bfloat16 or int8; got {select_dtype}")
-    Vsel = _pad_cols(Vsel, col_multiple(Vsel.dtype))
-    return SNNLSConsts(V, b, norms, bnorm, valid, _sampling_ps(norms, valid, sampling, comm),
-                       Vsel)
+    return norms, valid, Vsel
 
 
 def make_consts_quantized(Vq: torch.Tensor, norms: torch.Tensor, b: torch.Tensor,
@@ -261,7 +271,44 @@ def _v_row(consts: SNNLSConsts, fl: torch.Tensor) -> torch.Tensor:
 # of the JAX package, there ``psum``s inside ``shard_map``).  The exchanged
 # values are the owner's bit for bit, so every rank computes from them what
 # one process computes.  Writes touch the owner's rows only.
+#
+# A build that also shards the projection dimension S (``comm.proj``, the
+# proj axis's exchanges; ``build_sharded(shard_proj=True)``) holds a block
+# of V's columns and the same block of b and xw: the rows that the reads
+# above return are this block's slices of the rows (the JAX package's
+# ``_v_row`` under proj sharding), sums over S are each rank's f64 partial
+# summed over the proj axis (:func:`_sdot`, ``_psum_s`` there), and the
+# select sums the rows' partial dots over it before scoring them
+# (:func:`_select`).
 # ---------------------------------------------------------------------------
+
+
+def _proj(comm):
+    """The proj axis's exchanges of a build that shards S, else None."""
+    return None if comm is None else comm.proj
+
+
+def _sdot(x: torch.Tensor, y: torch.Tensor, comm=None) -> torch.Tensor:
+    """:func:`_dot` of operands whose last axis is S: under proj sharding
+    each rank's f64 partial, summed over the proj axis in f64 (one
+    exchange), then rounded to f32."""
+    pc = _proj(comm)
+    if pc is None:
+        return _dot(x, y)
+    p = x.double() @ y.double()
+    flat = p.reshape(-1)
+    pc.all_reduce(flat, "s_sum")
+    return flat.reshape(p.shape).float()
+
+
+def _sdots(pairs, comm=None) -> list:
+    """``[_sdot(x, y) for x, y in pairs]`` of 1-D pairs, with one exchange
+    under proj sharding."""
+    pc = _proj(comm)
+    if pc is None:
+        return [_dot(x, y) for x, y in pairs]
+    p = torch.stack([x.double() @ y.double() for x, y in pairs])
+    return list(pc.all_reduce(p, "s_sum").float())
 
 
 def _gather(consts: SNNLSConsts, idcs: torch.Tensor, comm, vecs=(), mask=None,
@@ -332,7 +379,7 @@ def error(consts: SNNLSConsts, w: torch.Tensor, support: int = 1024,
     """||A w - b||_2 (snnls/snnls.py:28-29); ``support`` bounds nnz(w) for
     int8-resident constants, and on each rank for sharded ones
     (:func:`_v_matvec`)."""
-    return _cached_error(consts, _v_matvec(consts, w, support=support, comm=comm))
+    return _cached_error(consts, _v_matvec(consts, w, support=support, comm=comm), comm)
 
 
 def _dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -340,9 +387,9 @@ def _dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (x.double() @ y.double()).float()
 
 
-def _cached_error(consts: SNNLSConsts, xw: torch.Tensor) -> torch.Tensor:
+def _cached_error(consts: SNNLSConsts, xw: torch.Tensor, comm=None) -> torch.Tensor:
     r = (xw - consts.b).double()
-    return sqrt_rn(_dot(r, r))
+    return sqrt_rn(_sdot(r, r, comm))
 
 
 def _track_support(state: SNNLSState, f: torch.Tensor):
@@ -397,9 +444,10 @@ class GigaAux(NamedTuple):
     wscale: torch.Tensor  # true w = wscale * state.w
 
 
-def _aux_from_xw(consts: SNNLSConsts, xw: torch.Tensor, wscale=1.0) -> GigaAux:
-    return GigaAux(_dot(consts.b, xw), _dot(xw, xw),
-                   _cached_error(consts, xw),
+def _aux_from_xw(consts: SNNLSConsts, xw: torch.Tensor, wscale=1.0, comm=None) -> GigaAux:
+    r = (xw - consts.b).double()
+    bxw, nw2, err2 = _sdots([(consts.b, xw), (xw, xw), (r, r)], comm)
+    return GigaAux(bxw, nw2, sqrt_rn(err2),
                    torch.as_tensor(wscale, dtype=torch.float32, device=xw.device))
 
 
@@ -424,8 +472,18 @@ class GigaStep(NamedTuple):
 def _select(consts: SNNLSConsts, dirs: torch.Tensor, comm):
     """(global index, score) of the fused select over the valid rows;
     sharded, each rank selects over its own rows and one exchange of the
-    ranks' (score, index) pairs picks the first maximum."""
-    f, score = giga_select(consts.Vsel, dirs, consts.norms, consts.valid)
+    ranks' (score, index) pairs picks the first maximum.  Under proj
+    sharding a rank holds a block of each row's columns and ``dirs`` that
+    block of the (globally normalized) directions: the rows' partial dots
+    (:func:`.giga_select.giga_dots`) are summed over the proj axis in one
+    (n_loc, 2) exchange, exact for int8, and then scored
+    (:func:`.giga_select.giga_score_select`)."""
+    pc = _proj(comm)
+    if pc is None:
+        f, score = giga_select(consts.Vsel, dirs, consts.norms, consts.valid)
+    else:
+        dots = pc.all_reduce(giga_dots(consts.Vsel, dirs), "dots")
+        f, score = giga_score_select(dots, consts.norms, consts.valid)
     return (f, score) if comm is None else comm.argmax(f, score)
 
 
@@ -454,7 +512,7 @@ def _giga_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux,
     rows, (nfv, oldv) = _gather(consts, fl, comm, (consts.norms, state.w))
     xf, nf, old_raw = rows[0], nfv[0], oldv[0]
     xfn = xf / nf
-    two = _dot(torch.stack([bn, xwn]), xfn)
+    two = _sdot(torch.stack([bn, xwn]), xfn, comm)
     bxf, xwxf = two[0], two[1]                         # <bn,xfn>, <xwn,xfn>
     gA = bxf - bxwn * xwxf
     gB = bxwn - bxf * xwxf
@@ -477,7 +535,7 @@ def _giga_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux,
     new_wf = torch.clamp_min(alpha * old_wf + beta, 0.0)
     delta = new_wf - alpha * old_wf
     xw2 = alpha * state.xw + delta * xf                # xw stays TRUE-scale
-    aux2 = _aux_from_xw(consts, xw2)
+    aux2 = _aux_from_xw(consts, xw2, comm=comm)
 
     # monotonicity check (reference snnls.py:54-61).  Kept as the JAX
     # package has it: with support slots, size > 0 also counts atoms whose
@@ -522,9 +580,9 @@ def _carried_commit(state: SNNLSState, st: GigaStep, fold_commit: bool, comm=Non
             st.aux._replace(wscale=ws_out))
 
 
-def _normalize(x: torch.Tensor) -> torch.Tensor:
+def _normalize(x: torch.Tensor, comm=None) -> torch.Tensor:
     """x / ||x||; a zero vector divides by 1 (ops/snnls.py:446-449 there)."""
-    n = sqrt_rn(_dot(x, x))
+    n = sqrt_rn(_sdot(x, x, comm))
     return x / torch.where(n == 0, 1.0, n)
 
 
@@ -543,7 +601,7 @@ def _fw_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux, tol: float,
     rescale w <- (1 - gamma) w rides ``aux.wscale`` and only the selected
     index is written.  ``nsum`` is the sum of the valid rows' norms."""
     resid = consts.b - state.xw
-    f, _ = _select_residual(consts, _normalize(resid), comm)   # scale-invariant argmax
+    f, _ = _select_residual(consts, _normalize(resid, comm), comm)   # scale-invariant argmax
     fl = f.long().view(1)
 
     rows, (nfv, oldv) = _gather(consts, fl, comm, (consts.norms, state.w))
@@ -558,8 +616,7 @@ def _fw_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux, tol: float,
 
     # line search (frankwolfe.py:26-37)
     dvec = nsum / nf * xf - state.xw
-    gammanum = _dot(dvec, resid)
-    gammadenom = _dot(dvec, dvec)
+    gammanum, gammadenom = _sdots([(dvec, resid), (dvec, dvec)], comm)
     ok = (gammanum >= 0.0) & (gammadenom > 0.0) & (gammanum <= gammadenom)
     gamma = gammanum / torch.where(gammadenom == 0, 1.0, gammadenom)
     alpha = torch.where(size_zero, 0.0, 1.0 - gamma)
@@ -574,8 +631,9 @@ def _fw_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux, tol: float,
 
     # the monotone gate in the step (reference snnls.py:54-61), so that the
     # commit gates the single-index write; FW carries no scalar error cache
-    new_err = _cached_error(consts, xw2)
-    ok = ok & (size_zero | (new_err <= _cached_error(consts, state.xw) * (1.0 + tol)))
+    r_new, r_old = (xw2 - consts.b).double(), (state.xw - consts.b).double()
+    new_err, prev_err = (sqrt_rn(e) for e in _sdots([(r_new, r_new), (r_old, r_old)], comm))
+    ok = ok & (size_zero | (new_err <= prev_err * (1.0 + tol)))
     ok = ok & torch.isfinite(new_err)
     idcs2, size2, overflow = _track_support(state, f)
     ws2 = alpha * ws
@@ -769,6 +827,9 @@ def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
     """
     if method not in METHODS:
         raise ValueError(f"method must be one of {METHODS}; got {method!r}")
+    if method == "orthopursuit" and _proj(comm) is not None:
+        raise ValueError("orthopursuit's active-set NNLS needs full-S rows; shard the data "
+                         "axis only (shard_proj=False)")
     if comm is not None and state.idcs.shape[0] == 0:
         raise ValueError("a sharded build tracks its support: make the state with "
                          "max_active > 0")
@@ -783,7 +844,7 @@ def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
         raise ValueError(f"method {method!r} needs constants made with sampling= and a "
                          "state made from them (ps and cts of n entries)")
     s = state._replace(w=state.w.clone(), cts=state.cts.clone())
-    aux = _aux_from_xw(consts, s.xw)
+    aux = _aux_from_xw(consts, s.xw, comm=comm)
     if method == "frankwolfe":
         nsum = torch.sum(torch.where(consts.valid, consts.norms, 0.0).double())
         nsum = (nsum if comm is None else comm.sum(nsum, "setup")).float()
@@ -807,7 +868,7 @@ def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
                      else _v_matvec(consts, s.w, support=matvec_k))
             xw = aux.wscale * exact       # state.w is raw-scale (wscale is 1
             #                               for OMP and the sampling solvers)
-            aux = _aux_from_xw(consts, xw, wscale=aux.wscale)
+            aux = _aux_from_xw(consts, xw, wscale=aux.wscale, comm=comm)
             s = s._replace(xw=xw)
         if carried:
             st = (_giga_step(consts, s, aux, tol, comm) if method == "giga"

@@ -1,17 +1,19 @@
 """Parallel and streamed construction: meshes over ``torch.distributed``
-ranks, row-sharded Hilbert builds (in memory and streamed int8-resident),
-chains sharded over ranks, and the streamed int8-resident quantization.
+ranks (one or several axes), Hilbert builds sharded by rows (in memory and
+streamed int8-resident) and by projection columns, chains sharded over
+ranks, and the streamed int8-resident quantization.  SparseVI and
+BatchPSVI shard their data rows through ``mesh=`` on their facades.
 
 Port of ``bayesian_coresets_tpu/parallel/`` (the reference is
 single-process, SURVEY.md §2.5).  JAX's collectives are inserted by XLA
 from sharding annotations; here one process drives one GPU and every
-exchange is an explicit ``all_reduce`` (:mod:`.comm`).  Sharding the
-projection axis is ROADMAP item 16b.
+exchange is an explicit ``all_reduce`` (:mod:`.comm`) over one axis's
+process group.
 """
 
 from .comm import Comm, Ledger
 from .coreset import (build_sharded, build_sharded_quantized, make_sharded_consts,
-                      shard_consts, shard_state)
+                      shard_consts, shard_state, sharded_comm)
 from .distributed import initialize, local_data_shard
 from .launch import run_local
 from .mcmc import run_nuts_sharded
@@ -32,6 +34,7 @@ __all__ = [
     "make_sharded_consts",
     "shard_consts",
     "shard_state",
+    "sharded_comm",
     "run_nuts_sharded",
     "initialize",
     "local_data_shard",

@@ -14,10 +14,11 @@ included), so the reduced payload holds the owner's values bit for bit,
 and every rank then computes from the same values what one process
 computes from its own.
 
-:class:`Ledger` counts the calls and bytes of every exchange by kind: the
-port's counterpart of the JAX package's audit of compiled collectives
-(``utils/hlo.py::collective_stats``, ``tests/test_sharding_hlo.py``), which
-shows that a build's collective volume does not depend on n.
+:class:`Ledger` counts the calls and bytes of every exchange by kind, and
+by axis and kind: the port's counterpart of the JAX package's audit of
+compiled collectives (``utils/hlo.py::collective_stats``,
+``tests/test_sharding_hlo.py``), which shows that a build's collective
+volume does not depend on n.
 """
 
 from __future__ import annotations
@@ -29,19 +30,26 @@ from .mesh import Mesh
 
 
 class Ledger:
-    """Calls and bytes (one rank's payload) of the exchanges, by kind."""
+    """Calls and bytes (one rank's payload) of the exchanges, by kind
+    (``calls``, ``bytes``, over every axis) and by axis and kind
+    (``by_axis[axis][kind] = [calls, bytes]``)."""
 
     def __init__(self):
         self.calls: dict[str, int] = {}
         self.bytes: dict[str, int] = {}
+        self.by_axis: dict[str, dict[str, list[int]]] = {}
 
     def reset(self):
         self.calls.clear()
         self.bytes.clear()
+        self.by_axis.clear()
 
-    def add(self, kind: str, nbytes: int):
+    def add(self, kind: str, nbytes: int, axis: str = ""):
         self.calls[kind] = self.calls.get(kind, 0) + 1
         self.bytes[kind] = self.bytes.get(kind, 0) + nbytes
+        entry = self.by_axis.setdefault(axis, {}).setdefault(kind, [0, 0])
+        entry[0] += 1
+        entry[1] += nbytes
 
     def totals(self, kinds=None) -> tuple[int, int]:
         """(calls, bytes) summed over ``kinds`` (default: all)."""
@@ -51,36 +59,48 @@ class Ledger:
 
 
 class Comm:
-    """This rank's exchanges along one axis of ``mesh``.
+    """This rank's exchanges along one axis of ``mesh``, over the line of
+    ranks that differ in that axis's coordinate only (``world`` of them;
+    ``rank`` is this one's place on the line).
 
     For a row-sharded problem, the rank owns the contiguous global rows
     ``[lo, lo + n_loc)`` with ``lo = rank * n_loc`` (every rank holds the
-    same ``n_loc``).  An axis of size 1 under a larger group exchanges
-    nothing; a group of one rank still goes through ``torch.distributed``.
+    same ``n_loc``) of ``n`` rows (default ``world * n_loc``, padding
+    included).  An axis of size 1 under a larger group exchanges nothing;
+    a group of one rank still goes through ``torch.distributed``.
+    ``proj`` is the proj axis's :class:`Comm` of a build that also shards
+    the projection dimension (None where it does not).
     """
 
-    def __init__(self, mesh: Mesh, axis: str, n_loc: int = 0):
+    proj = None
+
+    def __init__(self, mesh: Mesh, axis: str, n_loc: int = 0, n: int | None = None):
         self.mesh = mesh
         self.ledger = mesh.ledger
+        self.axis = axis
         self.world = mesh.axis_size(axis)
         self.rank = mesh.axis_index(axis)
-        self._live = self.world == mesh.size
+        self._live = self.world > 1 or mesh.size == 1
+        self._group = mesh.axis_group(axis) if self.world > 1 else mesh.group
         self.n_loc = int(n_loc)
+        self.n = self.world * self.n_loc if n is None else int(n)
         self.lo = self.rank * self.n_loc
 
     def all_reduce(self, t: torch.Tensor, kind: str) -> torch.Tensor:
         """Sum ``t`` over the axis, in place; recorded under ``kind``."""
         if self._live:
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.mesh.group)
-            self.ledger.add(kind, t.numel() * t.element_size())
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self._group)
+            self.ledger.add(kind, t.numel() * t.element_size(), self.axis)
         return t
 
-    def local(self, idcs: torch.Tensor):
-        """(local row, owned here) for global row indices; the local row is
+    def local(self, idcs: torch.Tensor, rows: int | None = None):
+        """(local row, owned here) for global row indices, of this rank's
+        ``rows`` rows from ``lo`` (default ``n_loc``); the local row is
         clamped into range where another rank owns the row."""
+        rows = self.n_loc if rows is None else rows
         j = idcs.long() - self.lo
-        mine = (j >= 0) & (j < self.n_loc)
-        return j.clamp(0, self.n_loc - 1), mine
+        mine = (j >= 0) & (j < rows)
+        return j.clamp(0, rows - 1), mine
 
     def owned(self, block: torch.Tensor, mine: torch.Tensor, kind: str) -> torch.Tensor:
         """``block`` (K, ...) computed at this rank's local rows, reduced so
@@ -102,15 +122,22 @@ class Comm:
 
     def argmax(self, f_loc: torch.Tensor, score: torch.Tensor, kind: str = "argmax"):
         """Global (index, score) of the first maximum from each rank's local
-        first maximum: (score, global index) pairs, exact in float64, go
-        through one (world, 2) exchange, and the first maximal slot in rank
-        order wins, which with contiguous row blocks is the first-occurrence
-        tie-break of one process.  An all-invalid shard scores -inf.
-        Returns (int32 index, f32 score), 0-dim on the data's device."""
-        pair = torch.stack([score.double(), f_loc.double() + float(self.lo)])
-        allp = self.slots(pair, kind)
-        best = allp.index_select(0, torch.argmax(allp[:, 0]).view(1))[0]
-        return best[1].to(torch.int32), best[0].float()
+        first maximum (:meth:`first_max` of the global indices ``lo +
+        f_loc``: with contiguous row blocks, the first-occurrence tie-break
+        of one process).  An all-invalid shard scores -inf.  Returns (int32
+        index, f32 score), 0-dim on the data's device."""
+        f, s = self.first_max(f_loc.double() + float(self.lo), score, kind)
+        return f.to(torch.int32), s.float()
+
+    def first_max(self, index: torch.Tensor, score: torch.Tensor, kind: str = "argmax"):
+        """(index, score) of the largest of the ranks' scores, ties to the
+        lowest index: each rank passes its own best (0-dim ``score`` and
+        global ``index``, exact in float64), one (world, 2) exchange.
+        Returns (int64 index, score in ``score``'s dtype), 0-dim."""
+        allp = self.slots(torch.stack([score.double(), index.double()]), kind)
+        top = torch.max(allp[:, 0])
+        k = torch.argmin(torch.where(allp[:, 0] == top, allp[:, 1], float("inf")))
+        return allp[k, 1].long(), allp[k, 0].to(score.dtype)
 
     def sum(self, x: torch.Tensor, kind: str = "sum") -> torch.Tensor:
         """The axis-wide sum of ``x`` (a copy)."""

@@ -6,14 +6,19 @@ collectives.  Here one process drives one GPU (SPMD, as ``torchrun``
 starts them), and a mesh names how the ranks of an initialized process
 group split the work:
 
-- ``DATA_AXIS`` shards the dataset rows (N) of a Hilbert build;
-- ``CHAIN_AXIS`` shards the chains of weighted NUTS;
-- ``PROJ_AXIS`` (the projection dimension S) with more than one rank is
-  ROADMAP item 16b and raises ``NotImplementedError``.
+- ``DATA_AXIS`` shards the dataset rows (N) of a Hilbert build, SparseVI
+  and BatchPSVI;
+- ``PROJ_AXIS`` shards the projection dimension S of a Hilbert build
+  (``build_sharded(shard_proj=True)``);
+- ``CHAIN_AXIS`` shards the chains of weighted NUTS.
 
-A mesh shards along one axis: the others have size 1 (two-axis meshes are
-item 16b too).  The mesh also owns the collective ledger
-(:class:`.comm.Ledger`) that every exchange made over it records into.
+A mesh may split several axes, ``make_mesh({"data": 2, "proj": 2})``: the
+ranks lie in JAX's row-major order, and an exchange along one axis runs
+over the line of ranks that differ only in that axis's coordinate, a
+``torch.distributed`` subgroup that the mesh makes (:meth:`Mesh.axis_group`).
+Values are repeated over the axes that a computation does not shard.  The
+mesh also owns the collective ledger (:class:`.comm.Ledger`) that every
+exchange made over it records into.
 """
 
 from __future__ import annotations
@@ -23,14 +28,15 @@ import math
 import torch.distributed as dist
 
 DATA_AXIS = "data"     # shards dataset rows (N)
-PROJ_AXIS = "proj"     # shards the projection dimension (S): ROADMAP item 16b
+PROJ_AXIS = "proj"     # shards the projection dimension (S)
 CHAIN_AXIS = "chains"  # shards MCMC chains
 
 
 class Mesh:
     """Axis names and sizes over ``group`` (None: the default group), and
     this rank's coordinates, in row-major order as ``jax.sharding.Mesh``
-    lays out its devices."""
+    lays out its devices.  Made by :func:`make_mesh`, which also makes the
+    subgroups of the axes that split the group only in part."""
 
     def __init__(self, axes: dict[str, int], group=None):
         from .comm import Ledger
@@ -41,9 +47,26 @@ class Mesh:
         self.rank = dist.get_rank(group)
         self.size = math.prod(axes.values())
         self.ledger = Ledger()
+        self._groups = {}
 
     def axis_size(self, name: str) -> int:
         return self.shape.get(name, 1)
+
+    def axis_group(self, name: str):
+        """The process group of this rank's line along ``name``: the mesh's
+        own group where the axis spans every rank, else the subgroup that
+        :func:`make_mesh` made (None for an axis of size 1)."""
+        if self.axis_size(name) == self.size:
+            return self.group
+        return self._groups.get(name)
+
+    def lines(self, name: str) -> list[list[int]]:
+        """The lines of group ranks along axis ``name``, in the mesh's
+        order: each is the ranks whose other coordinates agree."""
+        stride = math.prod(self.shape[a] for a in self.axis_names[self.axis_names.index(name) + 1:])
+        k = self.shape[name]
+        starts = [r for r in range(self.size) if (r // stride) % k == 0]
+        return [[s + i * stride for i in range(k)] for s in starts]
 
     @property
     def coords(self) -> dict[str, int]:
@@ -64,11 +87,19 @@ def make_mesh(axes: dict[str, int] | None = None, group=None) -> Mesh:
     """A mesh over the ranks of ``group`` (default: the whole default
     group); default axes: every rank on the data axis.
 
-    ``make_mesh({"data": 4})`` under a group of 4 ranks.  The group must be
-    initialized (:func:`.distributed.initialize`, or ``torchrun``).  Asking
-    for more ranks than the group has raises ``ValueError``, as the JAX
-    package does for devices; asking for fewer raises too (make a group of
-    exactly that many with ``torch.distributed.new_group``).
+    ``make_mesh({"data": 4})`` under a group of 4 ranks, ``make_mesh({"data":
+    2, "proj": 2})`` or ``{"data": 2, "chains": 2}`` under 4.  The group must
+    be initialized (:func:`.distributed.initialize`, or ``torchrun``).
+    Asking for more ranks than the group has raises ``ValueError``, as the
+    JAX package does for devices; asking for fewer raises too (make a group
+    of exactly that many with ``torch.distributed.new_group``).
+
+    Collective: for an axis that splits the group only in part, every rank
+    makes one ``torch.distributed.new_group`` per line of ranks along it, in
+    the same order (axes in the mesh's order, lines in row-major order),
+    including the lines it is not in, as ``new_group`` requires of every
+    rank of the default group.  So such a mesh is made over the whole
+    default group, by all its ranks.
     """
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized process group: call "
@@ -82,10 +113,16 @@ def make_mesh(axes: dict[str, int] | None = None, group=None) -> Mesh:
     if n < world:
         raise ValueError(f"mesh uses {n} of the group's {world} ranks; pass a group of "
                          f"exactly {n} ranks (torch.distributed.new_group)")
-    if axes.get(PROJ_AXIS, 1) > 1:
-        raise NotImplementedError("sharding the projection axis (proj > 1) is ROADMAP "
-                                  "item 16b; shard the data axis only")
-    if sum(k > 1 for k in axes.values()) > 1:
-        raise NotImplementedError("a mesh shards along one axis here; two-axis meshes "
-                                  "are ROADMAP item 16b")
-    return Mesh(axes, group)
+    mesh = Mesh(axes, group)
+    split = [a for a in mesh.axis_names if 1 < mesh.shape[a] < n]
+    if split and world != dist.get_world_size():
+        raise ValueError(f"a mesh that splits {split} in part makes subgroups, which every "
+                         "rank of the default group must make: build it over the whole "
+                         "default group")
+    for name in split:
+        for line in mesh.lines(name):
+            g = dist.new_group(line if group is None
+                               else [dist.get_global_rank(group, r) for r in line])
+            if mesh.rank in line:
+                mesh._groups[name] = g
+    return mesh

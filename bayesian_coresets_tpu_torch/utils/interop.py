@@ -65,16 +65,19 @@ def snnls_consts(c, device="cpu") -> SNNLSConsts:
                        _t(c.valid, device, torch.bool), _t(np.asarray(c.ps)[:n], device), sel)
 
 
-def sharded_consts(c, mesh, device="cpu") -> SNNLSConsts:
+def sharded_consts(c, mesh, device="cpu", shard_proj: bool = False) -> SNNLSConsts:
     """This rank's shard (``parallel.shard_consts``) of solver constants
     from the JAX package's ``make_sharded_consts`` or
     ``make_consts_quantized`` output, numpy fields of the global (padded)
     problem, as :func:`snnls_consts` carries them.  Rows the JAX package
     padded stay rows with ``valid`` False; where its row count does not
-    divide the mesh's data axis, this package pads further alike."""
+    divide the mesh's data axis, this package pads further alike.  With
+    ``shard_proj`` (the JAX package's ``make_sharded_consts(...,
+    shard_proj=True)``, whose S is padded to ``lcm(proj, 128)`` for int8
+    and to ``proj`` otherwise), the rank's column block of that padded S."""
     from ..parallel.coreset import shard_consts
 
-    return shard_consts(snnls_consts(c, device), mesh)
+    return shard_consts(snnls_consts(c, device), mesh, shard_proj)
 
 
 def snnls_state(s, device="cpu") -> SNNLSState:

@@ -143,16 +143,40 @@ script exits non-zero without printing the final result line):
    (rows and norms against phase 16's, differing rows counted, the JAX
    error rule, weights bit-identical where no row differs), the exchanges
    per iteration equal at N=100k and N=1M, and weighted NUTS on phase 6's
-   coreset at 256 chains x (100 + 100), 128 per rank, pooled (the first 5
+   coreset at 256 chains x (50 + 50), 128 per rank, pooled (the first 5
    transitions within 1e-5 of one process; phase 7's R-hat, divergence and
-   importance-sampling checks).  (b)'s times measure gloo, not NCCL.
+   importance-sampling checks).  (b)'s times measure gloo, not NCCL;
+20. the proj axis, two-axis meshes and row-sharded SparseVI and BatchPSVI,
+   ranks spawned as in phase 19, over gloo.  First the proj axis's two
+   kernels alone at (c)'s and (d)'s local shapes: the select's dots-only
+   mode (``giga_dots``: int32 dots equal to the plain version's, f32 within
+   1e-5) and the score of summed dots (``giga_score_select``: the index
+   identical, random, ties, all invalid, and the fused select's result bit
+   for bit on unsplit dots), each timed in a batch and cold beside its
+   bound and, for the dots, ``torch._int_mm`` or ``torch.matmul`` (TF32
+   off).  (c) two ranks: ``{"proj": 2}`` GIGA and Frank-Wolfe at phase 6's
+   config (local blocks (100000, 256) int8) against phases 6 and 12 (the
+   first slot where their atoms part, if any; the same atoms need the
+   weights within rtol 1e-4, atol 1e-5 of the largest), then ``{"data":
+   2}`` SparseVI at phase 9's canonical exact arm and its N=100k sub-1024
+   arm, and BatchPSVI at phase 11's config with 100 Adam steps, each
+   against the single-process run of the same seed in this phase (the same
+   indices, weights within rtol 1e-3); (d) four ranks: ``{"data": 2,
+   "proj": 2}`` GIGA at phase 17's config (f32, S=16384; local blocks
+   (50000, 8192)) against phase 17, then weighted NUTS on ``{"data": 2,
+   "chains": 2}`` at phase 19's 256 chains x (50 + 50), held as phase 19
+   holds it.  Each build prints ms per iteration, dots and score launches
+   per iteration (one each), a profiled window's launches (GIGA), the
+   exchanges and bytes per iteration by axis (one (n_loc, 2) block of
+   dots per select on the proj axis) and each rank's peak allocation.
 
 Phases 8-11 and 14 launch no hand-written kernel: the JAX package computes
 SparseVI, BatchPSVI, the re-solve and the sampling solvers with plain XLA
 ops.  Every path is driven with the kernels' launch counts set to 0 just
 before it and read just after; the kernels' ``launches`` are the sums over
-the paths that select through them (phases 6, 12, 13, 15-19; phase 19's
-ranks count their own).  The line before
+the paths that select through them (phases 6, 12, 13, 15-19, and phase
+20's proj-sharded builds for ``giga_dots`` and ``giga_score_select``;
+phases 19 and 20's ranks count their own).  The line before
 the last is the kernels' JSON; the
 last line is ``{"ok": true, "device": {...}}``.  The port imports no JAX,
 no pandas and no matplotlib.
@@ -254,9 +278,32 @@ EXP_SV_RTOL, EXP_SV_ATOL = 1e-4, 1e-6
 # phase 19: the sharded paths on the one card.  (a) a 1-rank NCCL group at
 # phase 6's config; (b) two gloo ranks: build_sharded on phase 6's
 # projection, the N=1M stream of phase 16 (its chunk), and weighted NUTS on
-# phase 6's coreset at 256 chains x (100 + 100) with pooled adaptation
+# phase 6's coreset at 256 chains x (50 + 50) with pooled adaptation (cut
+# from 100 + 100 when phase 20 came: the script's time)
 SHARD_CFG = dict(dev="cuda", backend_a="nccl", N=N_MAIN, M=M_MAIN, QN=QUALITY_N,
-                 QCHUNK=QUALITY_CHUNK, chains=256, draws=100, profile=True)
+                 QCHUNK=QUALITY_CHUNK, chains=256, draws=50, profile=True)
+# phase 20: the proj axis, two-axis meshes and row-sharded SparseVI and
+# BatchPSVI on the one card, ranks over gloo.  (c) two ranks: {"proj": 2}
+# GIGA and Frank-Wolfe at phase 6's config (int8 select; local blocks
+# (100000, 256)), then {"data": 2} SparseVI at phase 9's canonical exact arm
+# and its N=100k sub-1024 arm, and BatchPSVI at phase 11's config with its
+# Adam steps cut from 500 to 100; (d) four ranks: {"data": 2, "proj": 2}
+# GIGA at phase 17's config (f32 select, S=16384, M=200; local blocks
+# (50000, 8192), 1.64 GB), then weighted NUTS on {"data": 2, "chains": 2}
+# at phase 19's 256 chains x (50 + 50) on phase 6's coreset
+PROJ_CFG = dict(dev="cuda", N=N_MAIN, M=M_MAIN, WS=WIDE_BUILD_S, WM=WIDE_BUILD_M,
+                svi_n=SVI_N, svi_n_scaled=SVI_N_SCALED, bp_n=BP_N, bp_sub=BP_SUB, bp_steps=100,
+                chains=256, draws=50, profile=True, kernels=True)
+# the proj axis's kernels alone, at (c)'s and (d)'s local shapes: (dtype, n, S)
+PROJ_KERNEL_SHAPES = [("int8", N_MAIN, 250), ("float32", N_MAIN // 2, WIDE_BUILD_S // 2)]
+# a proj-sharded build against its single-process run: the same atoms, the
+# weights within rtol 1e-4, atol 1e-5 of the largest (f32 partial dots
+# summed in another order; the JAX package's bar, tests/test_parallel.py:37-
+# 44); where the atoms part, the errors at M within PROJ_ERR_RTOL
+PROJ_ERR_RTOL = 1e-2
+# row-sharded SparseVI and BatchPSVI against one process on the card: phase
+# 10's bar for sums taken in another order (the same indices, rtol 1e-3)
+SVI_SHARD_RTOL = 1e-3
 
 
 def say(phase: str, **kv) -> None:
@@ -961,12 +1008,19 @@ def phase_main(torch, smi):
         err50=f"{err50:.6e}", err=f"{err:.6e}")
     prof = _profile_build(torch, coreset.snnls.consts, "giga", "main_launches")
     ref6 = {"w": coreset.snnls.weights(), "itr": itr, "err": err, "idcs": idcs,
-            "ms_per_itr": 1e3 * (t_b1 + t_b2) / itr, **prof}
+            "slots": _slots(coreset.snnls.state), "ms_per_itr": 1e3 * (t_b1 + t_b2) / itr,
+            **prof}
     say("main_time", setup_s=f"{t_setup:.4f}", projection_s=f"{t_proj:.4f}",
         build_s=f"{t_build:.4f}", ms_per_itr=f"{1e3 * t_build / itr:.4f}",
         points_per_s=f"{M_MAIN / (t_proj + t_build):.2f}",
         peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}", card=repr(smi))
     return launches, wts, pts, coreset, Z, projector, ref6
+
+
+def _slots(state):
+    """The tracked atoms of a solver state, in the order they were first
+    selected."""
+    return state.idcs[:int(state.size)].cpu().numpy()
 
 
 def _profile_build(torch, consts, method, tag, select_bound_ms=None, card=None, comm=None):
@@ -1252,9 +1306,10 @@ def _svi_arm(torch, smi, tag, N, n_sub, blackbox):
     w, idcs, size = one(3)
     torch.cuda.synchronize()
     t = time.perf_counter() - t0
-    carry = sparsevi._init_carry(x, fam, w, idcs, size)
+    pts = sparsevi._gather_pts(x, idcs)
+    carry = sparsevi._init_carry(x, fam, w, pts, size)
     launches, busy_us, idle = _profile_window(torch, lambda: sparsevi._optimize(
-        x, fam, torch.Generator(device=dev).manual_seed(4), w, idcs, size, n_sub,
+        x, fam, torch.Generator(device=dev).manual_seed(4), w, pts, size, n_sub,
         PROFILE_STEPS, sched, carry), PROFILE_STEPS)
     wn, ix = w[:size].cpu().numpy(), idcs[:size].cpu().numpy()
     xh = x.cpu().numpy()
@@ -1407,7 +1462,8 @@ def phase_frankwolfe(torch, smi, Z, projector):
         err=f"{err:.6e}", build_s=f"{t_build:.4f}", ms_per_itr=f"{1e3 * t_build / itr:.4f}",
         card=repr(smi))
     _profile_build(torch, coreset.snnls.consts, "frankwolfe", "frankwolfe_launches")
-    return launches
+    return launches, {"w": coreset.snnls.weights(), "err": err, "itr": itr,
+                      "slots": _slots(coreset.snnls.state), "ms_per_itr": 1e3 * t_build / itr}
 
 
 def phase_omp(torch, smi, Z, projector):
@@ -1788,7 +1844,8 @@ def phase_wide_build(torch, smi):
     """A Hilbert build whose select runs on the wide-row kernel: phase 6's
     data, a BlackBoxProjector of WIDE_BUILD_S samples by bench.py's rule, the
     default f32 select copy (V itself), GIGA and then Frank-Wolfe, M =
-    WIDE_BUILD_M each.  Returns the select launches of both builds."""
+    WIDE_BUILD_M each.  Returns the select launches of both builds and the
+    GIGA build's weights, error and atoms."""
     import numpy as np
     import bayesian_coresets_tpu_torch as bc
     from bayesian_coresets_tpu_torch.models import logistic
@@ -1842,11 +1899,15 @@ def phase_wide_build(torch, smi):
                 or pts.shape != (wts.size, D_MAIN):
             raise AssertionError(f"wide build {method}: empty, non-finite or malformed coreset")
         total += launches
+        if method == "giga":
+            ref = {"w": coreset.snnls.weights(), "err": err, "itr": itr,
+                   "slots": _slots(coreset.snnls.state),
+                   "ms_per_itr": 1e3 * t_build / (WIDE_BUILD_M - 1)}
         bound_ms, _ = _select_bound(torch, c.Vsel, WIDE_BUILD_S)
         _profile_build(torch, c, method, "wide_build_launches", select_bound_ms=bound_ms,
                        card=smi)
         del coreset, c
-    return total
+    return total, ref
 
 
 @contextlib.contextmanager
@@ -2382,6 +2443,496 @@ def phase_sharded(torch, smi, ref6, quality, wts, pts, cfg=None):
             + sum(x["launches"] for x in ss))
 
 
+def _proj_kernels(torch):
+    """Phase 20's two kernels alone, at (c)'s and (d)'s local shapes: the
+    select's dots-only mode (``giga_dots``) against its plain version
+    (int32 dots equal, f32 within 1e-5 of the largest), and the score of
+    those dots (``giga_score_select``: the index identical, random, ties
+    and all invalid, and the fused select's result bit for bit on the
+    unsplit dots); each timed in a batch and cold, beside its bound and, for
+    the dots, the library call that computes them.  Returns the kernels
+    line's fields for both, at (c)'s shape, and the largest errors."""
+    from bayesian_coresets_tpu_torch.ops import _cuda_build
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+
+    lib = _cuda_build.load_library()
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    line, dots_err, score_err = {}, 0.0, 0.0
+    for name, n, S in PROJ_KERNEL_SHAPES:
+        dtype = getattr(torch, name)
+        c, dirs = _select_problem(torch, n, S, dtype, seed=n + S)
+        V, norms, valid = c.Vsel, c.norms, c.valid
+        kd, pd = gs.giga_dots(V, dirs), gs.giga_dots_ref(V, dirs)
+        err = float((kd.double() - pd.double()).abs().max())
+        scale = float(pd.double().abs().max())
+        if (dtype == torch.int8 and not torch.equal(kd, pd)) or err > 1e-5 * scale:
+            raise AssertionError(f"proj dots {name} n={n}: kernel against plain {err} "
+                                 f"(largest dot {scale})")
+        dots_err = max(dots_err, err)
+        f, e1 = _hold(gs.giga_score_select, gs.giga_score_select_ref, (kd, norms, valid),
+                      f"proj score {name} n={n} random")
+        fi, fs = gs.giga_select(V, dirs, norms, valid)
+        ki, ks = gs.giga_score_select(kd, norms, valid)
+        if (int(fi), float(fs)) != (int(ki), float(ks)):
+            raise AssertionError(f"proj score {name} n={n}: ({int(ki)}, {float(ks)}) on the "
+                                 f"unsplit dots, fused select ({int(fi)}, {float(fs)})")
+        tied_d, tied_n = kd.clone(), norms.clone()
+        first = f // 2
+        for j in (first, n - 1):
+            tied_d[j], tied_n[j] = kd[f], norms[f]
+        _, e2 = _hold(gs.giga_score_select, gs.giga_score_select_ref, (tied_d, tied_n, valid),
+                      f"proj score {name} n={n} ties", expect_idx=min(first, f))
+        _hold(gs.giga_score_select, gs.giga_score_select_ref,
+              (kd, norms, torch.zeros_like(valid)), f"proj score {name} n={n} all_invalid",
+              expect_idx=0)
+        score_err = max(score_err, e1, e2)
+        del tied_d, tied_n
+        # times: direct launches in a batch and cold, the plain versions, the
+        # dots' library call, and the bounds
+        row_bytes = V.shape[1] * V.element_size()
+        out = torch.empty_like(kd)
+        ws, stream = gs.workspace(V.device)
+        idx = torch.empty(1, dtype=torch.int32, device="cuda")
+        score = torch.empty(1, dtype=torch.float32, device="cuda")
+        dl = (lib.giga_dots_launch, ptr(V), gs._DTYPE_CODE[dtype], n, row_bytes, ptr(dirs), S,
+              ptr(out), ctypes.c_void_p(stream))
+        sl = (lib.giga_score_launch, ptr(kd), int(dtype == torch.int8), n, ptr(norms),
+              ptr(valid), ptr(ws), ptr(idx), ptr(score), ctypes.c_void_p(stream))
+        times = {}
+        for kname, launch, plain in (
+                ("giga_dots", dl, lambda: gs.giga_dots_ref(V, dirs)),
+                ("giga_score_select", sl, lambda: gs.giga_score_select_ref(kd, norms, valid))):
+            times[kname] = (_direct_ms(torch, *launch), _cold_ms(torch, _launcher(*launch)),
+                            _median_ms(torch, plain, batches=3, per_batch=3))
+        lib_ms, lib_how = _library_ms(torch, V, dirs)
+        bounds = {"giga_dots": _bound(V.numel() * V.element_size() + S * 2 * 4 + n * 2 * 4,
+                                      4 * n * V.shape[1], name),
+                  # 8 bytes of dots, a valid byte (and an f32 norm) a row;
+                  # ~10 f32 operations a row
+                  "giga_score_select": _bound(n * (9 if dtype == torch.int8 else 13) + 8,
+                                              10 * n, "float32")}
+        for kname in ("giga_dots", "giga_score_select"):
+            k_ms, cold_ms, p_ms = times[kname]
+            b_ms, b_by = bounds[kname]
+            lms = lib_ms if kname == "giga_dots" else None
+            say(f"proj_kernel_{kname}", dtype=name, n=n, S=S, row_bytes=row_bytes,
+                kernel_ms=f"{k_ms:.4f}", cold_l2_ms=f"{cold_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+                bound_ms=f"{b_ms:.4f}", bound_by=b_by, share_of_bound=f"{b_ms / k_ms:.3f}",
+                cold_share=f"{b_ms / cold_ms:.3f}",
+                library_ms="none" if kname != "giga_dots" else
+                ("not_run" if lib_ms is None else f"{lib_ms:.4f}"),
+                library=lib_how if kname == "giga_dots" else "none",
+                max_abs_err=dots_err if kname == "giga_dots" else score_err,
+                checks=("exact_int32" if dtype == torch.int8 else "f32_1e-5") if
+                kname == "giga_dots" else "random,ties,all_invalid,fused_bitwise")
+            if name == PROJ_KERNEL_SHAPES[0][0]:
+                line[kname] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                               "library_ms": lms}
+        del c, V, norms, valid, dirs, kd, pd, out
+        torch.cuda.empty_cache()
+    line["giga_dots"]["max_abs_err"] = dots_err
+    line["giga_score_select"]["max_abs_err"] = score_err
+    return line
+
+
+def _axis_per_itr(led, itr: int) -> dict:
+    """The ledger's exchanges per iteration, by axis and kind: (calls, bytes)."""
+    return {a: {k: (c / itr, b / itr) for k, (c, b) in kinds.items()}
+            for a, kinds in led.by_axis.items()}
+
+
+def _axes_text(per_itr: dict) -> str:
+    return ";".join(f"{a}:{_per_itr_text(k)}" for a, k in sorted(per_itr.items())) or "none"
+
+
+def _profile_proj(torch, consts, comm, method):
+    """Launches per iteration of a proj-sharded build (one rank's): 65
+    iterations of warm-up, then PROFILE_ITRS under torch.profiler; the
+    dots-only select kernels and the score kernels counted by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bayesian_coresets_tpu_torch.ops import snnls
+
+    s = snnls.build(consts, snnls.init_state(consts, 1024), 65, 1e-6, method=method, comm=comm)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s2 = snnls.build(consts, s, PROFILE_ITRS, 1e-6, method=method, comm=comm)
+        torch.cuda.synchronize()
+    itrs = int(s2.itr) - int(s.itr)
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    count = lambda key: sum(e.count for e in rows if key in e.key)  # noqa: E731
+    return {"launches_per_itr": sum(e.count for e in rows) / itrs,
+            "dots_kernels_per_itr": count("giga_select") / itrs,
+            "score_kernels_per_itr": count("giga_score") / itrs,
+            "device_busy_us_per_itr": sum(getattr(e, "self_device_time_total", 0.0)
+                                          for e in rows) / itrs}
+
+
+def _rank20(part: str, d: str, cfg: dict) -> dict:
+    """One rank of phase 20, spawned by ``parallel.run_local``.  ``part``
+    "c": two ranks, {"proj": 2} GIGA and Frank-Wolfe at phase 6's config,
+    then SparseVI and BatchPSVI on {"data": 2}; "d": four ranks, {"data": 2,
+    "proj": 2} GIGA at phase 17's config, then weighted NUTS on {"data": 2,
+    "chains": 2}.  Returns what the parent checks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import bayesian_coresets_tpu_torch as bc
+    from bayesian_coresets_tpu_torch import parallel as P
+    from bayesian_coresets_tpu_torch.coresets import bpsvi, sparsevi
+    from bayesian_coresets_tpu_torch.mcmc import weighted
+    from bayesian_coresets_tpu_torch.models import logistic
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+    from bayesian_coresets_tpu_torch.ops import snnls
+    from bayesian_coresets_tpu_torch.utils import config
+
+    dev = torch.device(cfg["dev"])
+    bc.set_default_device(dev)
+    out = {"rank": dist.get_rank(), "backend": str(dist.get_backend())}
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def proj_build(mesh, S, method, splits, select_dtype, tag):
+        """Phase 6's data and projection at S samples, built with S split
+        over the proj axis in ``splits`` as the single-process phase did."""
+        Z = logistic.gen_synthetic(torch.Generator(device=dev).manual_seed(0), cfg["N"], D_MAIN)
+        proj = bc.BlackBoxProjector(_near_map_sampler, S, logistic.log_likelihood,
+                                    generator=torch.Generator(device=dev).manual_seed(1))
+        # in pieces of at most 512 MB (one piece at S=500): the projection's
+        # temporaries of every rank at once would not fit the card at S=16384
+        step = max(1, (512 << 20) // (4 * S))
+        vecs = torch.empty((Z.shape[0], S), device=dev)
+        for lo in range(0, Z.shape[0], step):
+            vecs[lo:lo + step] = proj.project(Z[lo:lo + step])
+        valid = torch.sqrt(torch.sum(vecs ** 2, dim=1)) > 0.0
+        b = vecs[valid].sum(dim=0)
+        sync()
+        led = mesh.ledger
+        gs.launches = gs.dots_launches = gs.score_launches = 0
+        led.reset()
+        t0 = time.perf_counter()
+        consts, n, _ = P.make_sharded_consts(vecs.T, b, mesh, valid=valid,
+                                             select_dtype=select_dtype, shard_proj=True)
+        del vecs, Z
+        comm = P.sharded_comm(mesh, consts, True)
+        sync()
+        t_setup, setup = time.perf_counter() - t0, {a: dict(k) for a, k in led.by_axis.items()}
+        if cuda:
+            torch.cuda.empty_cache()
+        state = snnls.init_state(consts, 1024)
+        led.reset()
+        t0 = time.perf_counter()
+        for k in splits:
+            state = snnls.build(consts, state, k, config.TOL, method=method, matvec_k=1024,
+                                comm=comm)
+        sync()
+        t_build = time.perf_counter() - t0
+        itr = int(state.itr)
+        res = {"itr": itr, "build_s": t_build, "setup_s": t_setup, "setup": setup,
+               "dots": gs.dots_launches, "score": gs.score_launches, "select": gs.launches,
+               "per_itr": _axis_per_itr(led, itr), "local": tuple(consts.Vsel.shape),
+               "local_dtype": str(consts.Vsel.dtype).replace("torch.", ""),
+               "n_loc": consts.V.shape[0]}
+        bnorm = float(consts.bnorm)
+        res["err"] = float(snnls.error(consts, state.w, support=1024, comm=comm)) / bnorm
+        res["w"] = comm.gather(state.w)[:n].cpu().numpy()
+        res["slots"] = _slots(state)
+        if cfg["profile"] and method == "giga":
+            res["profile"] = _profile_proj(torch, consts, comm, method)
+        if cuda:
+            res["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        del consts, state
+        if cuda:
+            torch.cuda.empty_cache()
+        out[tag] = res
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    if part == "c":
+        mesh = P.make_mesh({"proj": 2})
+        proj_build(mesh, S_MAIN, "giga", (50, cfg["M"] - 50), torch.int8, "giga")
+        proj_build(mesh, S_MAIN, "frankwolfe", (50, cfg["M"] - 50), torch.int8, "fw")
+        data = P.make_mesh({"data": 2})
+        sched = lambda i: 1.0 / (1.0 + i)   # noqa: E731
+        for tag, N, n_sub, bb in (("canonical_exact", cfg["svi_n"], None, False),
+                                  ("scaled_N100k_sub1024", cfg["svi_n_scaled"], SVI_SUB_SCALED,
+                                   True)):
+            x = _gaussian_data(torch, N, SVI_D, dev)
+            fam = _gaussian_family(torch, SVI_D, dev, SVI_S if bb else None)
+            x_loc, comm = sparsevi.data_block(x, data)
+            data.ledger.reset()
+            sync()
+            t0 = time.perf_counter()
+            w, idcs, size = sparsevi.svi_build(
+                x_loc, torch.zeros(SVI_CAP, device=dev),
+                torch.full((SVI_CAP,), -1, dtype=torch.int64, device=dev), 0,
+                torch.Generator(device=dev).manual_seed(3), SVI_M, family=fam, n_sub_sel=n_sub,
+                n_sub_opt=n_sub, opt_itrs=SVI_OPT, step_sched=sched, comm=comm)
+            sync()
+            out[f"svi/{tag}"] = {"s": time.perf_counter() - t0, "w": w[:size].cpu().numpy(),
+                                 "idcs": idcs[:size].cpu().numpy(), "rows": x_loc.shape[0],
+                                 "per_step": _axis_per_itr(data.ledger,
+                                                           SVI_M * (1 + SVI_OPT))}
+        x = _gaussian_data(torch, cfg["bp_n"], BP_D, dev)
+        fam = _gaussian_family(torch, BP_D, dev, BP_S, grad=True)
+        init = bpsvi.uniform_init_idcs(cfg["bp_n"], BP_SZ,
+                                       torch.Generator(device=dev).manual_seed(9))
+        x_loc, comm = sparsevi.data_block(x, data)
+        data.ledger.reset()
+        sync()
+        t0 = time.perf_counter()
+        w, p = bpsvi.bpsvi_build(x_loc, init, torch.Generator(device=dev).manual_seed(3),
+                                 family=fam, n_sub_opt=cfg["bp_sub"], opt_itrs=cfg["bp_steps"],
+                                 step_sched=sched, comm=comm)
+        sync()
+        out["bpsvi"] = {"s": time.perf_counter() - t0, "w": w.cpu().numpy(),
+                        "p": p.cpu().numpy(), "per_step": _axis_per_itr(data.ledger,
+                                                                         cfg["bp_steps"])}
+    else:
+        mesh = P.make_mesh({"data": 2, "proj": 2})
+        out["coords"] = mesh.coords
+        proj_build(mesh, cfg["WS"], "giga", (1, cfg["WM"] - 1), None, "giga")
+        chains = P.make_mesh({"data": 2, "chains": 2})
+        out["coords_chains"] = chains.coords
+        with np.load(os.path.join(d, "coreset.npz")) as z:
+            zc, wc = torch.as_tensor(z["pts"], device=dev), torch.as_tensor(z["wts"], device=dev)
+        kw = dict(num_chains=cfg["chains"], target_accept=0.8, pooled_adaptation=True,
+                  mesh=chains)
+        _, _, r1 = weighted.run(logistic, zc, wc, 5, torch.Generator(device=dev).manual_seed(19),
+                                num_warmup=1, **kw)
+        chains.ledger.reset()
+        _, t, r = weighted.run(logistic, zc, wc, cfg["draws"],
+                               torch.Generator(device=dev).manual_seed(19),
+                               num_warmup=cfg["draws"], **kw)
+        out["nuts"] = {"first": r1.samples.cpu().numpy(), "samples": r.samples.cpu().numpy(),
+                       "divergences": int(r.num_divergent.sum()), "seconds": t,
+                       "step": r.step_size.cpu().numpy(),
+                       "exchanges": {a: dict(k) for a, k in chains.ledger.by_axis.items()}}
+    if cuda:
+        out["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _against(res: dict, ref: dict, label: str) -> dict:
+    """A proj-sharded build against its single-process run: the first slot
+    (in the order atoms were first selected) where their atoms part, and
+    the weights' and errors' distance.  Raises where the atoms agree but the
+    weights do not (rtol 1e-4, atol 1e-5 of the largest), or where they part
+    and the errors at M differ by more than PROJ_ERR_RTOL."""
+    import numpy as np
+    w, wr = res["w"], ref["w"]
+    a, b = res["slots"], ref["slots"]
+    k = next((i for i in range(min(a.size, b.size)) if a[i] != b[i]),
+             None if a.size == b.size else min(a.size, b.size))
+    scale = float(np.abs(wr).max())
+    rel = float(np.max(np.abs(w - wr)) / scale)
+    err_rel = abs(res["err"] - ref["err"]) / ref["err"]
+    if k is None and not np.allclose(w, wr, rtol=1e-4, atol=1e-5 * scale):
+        raise AssertionError(f"{label}: the same atoms, weights {rel:.3e} of the largest apart")
+    if k is not None and not err_rel <= PROJ_ERR_RTOL:
+        raise AssertionError(f"{label}: atoms part at slot {k}, errors {res['err']} and "
+                             f"{ref['err']}")
+    return dict(atoms=int((w > 0).sum()), ref_atoms=int((wr > 0).sum()),
+                weights_bit_identical=bool(np.array_equal(w, wr)),
+                first_parting_slot="none" if k is None else k,
+                max_weight_diff_of_largest=f"{rel:.3e}", err=f"{res['err']:.6e}",
+                ref_err=f"{ref['err']:.6e}", err_rel_diff=f"{err_rel:.3e}")
+
+
+def phase_proj(torch, smi, ref6, ref12, ref17, wts, pts, cfg=None):
+    """Phase 20: the proj axis (the select's dots-only mode and the score
+    of summed dots), two-axis meshes, and SparseVI and BatchPSVI on row-
+    sharded data, on the one card; ranks spawned by ``parallel.run_local``
+    over gloo (NCCL refuses two ranks on one card), (c) two, (d) four.
+    Returns the new kernels' launches on these paths (every rank's) and the
+    kernels line's fields."""
+    import numpy as np
+
+    from bayesian_coresets_tpu_torch.coresets import bpsvi, sparsevi
+    from bayesian_coresets_tpu_torch.mcmc import weighted
+    from bayesian_coresets_tpu_torch.models import logistic
+    from bayesian_coresets_tpu_torch.parallel import run_local
+
+    cfg = dict(PROJ_CFG if cfg is None else cfg)
+    dev = torch.device(cfg["dev"])
+    say("proj_phase", start="phase 20", c="world=2,backend=gloo,{proj:2};{data:2}",
+        d="world=4,backend=gloo,{data:2,proj:2};{data:2,chains:2}", card=repr(smi))
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+
+    line = _proj_kernels(torch) if cfg["kernels"] else {}
+    gs.dots_launches = gs.score_launches = 0    # the holds' launches do not count
+    # the single-process runs of (c)'s SparseVI and BatchPSVI, same seeds
+    sched = lambda i: 1.0 / (1.0 + i)   # noqa: E731
+    refs = {}
+    for tag, N, n_sub, bb in (("canonical_exact", cfg["svi_n"], None, False),
+                              ("scaled_N100k_sub1024", cfg["svi_n_scaled"], SVI_SUB_SCALED,
+                               True)):
+        x = _gaussian_data(torch, N, SVI_D, dev)
+        fam = _gaussian_family(torch, SVI_D, dev, SVI_S if bb else None)
+        t0 = time.perf_counter()
+        w, idcs, size = sparsevi.svi_build(
+            x, torch.zeros(SVI_CAP, device=dev),
+            torch.full((SVI_CAP,), -1, dtype=torch.int64, device=dev), 0,
+            torch.Generator(device=dev).manual_seed(3), SVI_M, family=fam, n_sub_sel=n_sub,
+            n_sub_opt=n_sub, opt_itrs=SVI_OPT, step_sched=sched)
+        refs[tag] = {"w": w[:size].cpu().numpy(), "idcs": idcs[:size].cpu().numpy(),
+                     "s": time.perf_counter() - t0}
+    x = _gaussian_data(torch, cfg["bp_n"], BP_D, dev)
+    fam = _gaussian_family(torch, BP_D, dev, BP_S, grad=True)
+    init = bpsvi.uniform_init_idcs(cfg["bp_n"], BP_SZ, torch.Generator(device=dev).manual_seed(9))
+    t0 = time.perf_counter()
+    w, p = bpsvi.bpsvi_build(x, init, torch.Generator(device=dev).manual_seed(3), family=fam,
+                             n_sub_opt=cfg["bp_sub"], opt_itrs=cfg["bp_steps"], step_sched=sched)
+    refs["bpsvi"] = {"w": w.cpu().numpy(), "p": p.cpu().numpy(), "s": time.perf_counter() - t0}
+    del x, fam, w, p
+    zc, wc = torch.as_tensor(pts, device=dev), torch.as_tensor(wts, device=dev)
+    _, _, r1 = weighted.run(logistic, zc, wc, 5, torch.Generator(device=dev).manual_seed(19),
+                            num_chains=cfg["chains"], target_accept=0.8, num_warmup=1,
+                            pooled_adaptation=True)
+    first_ref = r1.samples.cpu().numpy()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        np.savez(os.path.join(d, "coreset.npz"), wts=wts, pts=pts)
+        t0 = time.perf_counter()
+        c = run_local(_rank20, 2, "gloo", os.path.join(d, "init_c"), args=("c", d, cfg))
+        t_c = time.perf_counter() - t0
+        launches = {"giga_dots": 0, "giga_score_select": 0}
+        _proj_builds(c, "c", (("giga", ref6), ("fw", ref12)), cfg["N"], cfg, launches, smi)
+        _proj_svi(c, refs, cfg)
+        say("proj_c_spawn", spawn_to_join_s=f"{t_c:.1f}",
+            peak_GB_by_rank=[f"{r.get('peak_GB', float('nan')):.3f}" for r in c])
+        t0 = time.perf_counter()
+        dd = run_local(_rank20, 4, "gloo", os.path.join(d, "init_d"), args=("d", d, cfg))
+        t_d = time.perf_counter() - t0
+    _proj_builds(dd, "d", (("giga", ref17),), -(-cfg["N"] // 2), cfg, launches, smi)
+    if [r["coords"] for r in dd] != [{"data": k // 2, "proj": k % 2} for k in range(4)] or \
+            [r["coords_chains"] for r in dd] != [{"data": k // 2, "chains": k % 2}
+                                                 for k in range(4)]:
+        raise AssertionError(f"phase 20 (d): coordinates {[r['coords'] for r in dd]}")
+    _proj_nuts(torch, dd, first_ref, zc, wc, cfg)
+    say("proj_d_spawn", spawn_to_join_s=f"{t_d:.1f}",
+        peak_GB_by_rank=[f"{r.get('peak_GB', float('nan')):.3f}" for r in dd], launches=launches)
+    return launches, line
+
+
+def _proj_builds(ranks, part, builds, n_loc, cfg, launches, smi):
+    """Phase 20's proj-sharded builds of one spawn against their single-
+    process phases; adds the ranks' kernel launches to ``launches``."""
+    import numpy as np
+
+    for tag, ref in builds:
+        res = [r[tag] for r in ranks]
+        r0 = res[0]
+        label = f"phase 20 ({part}) {tag}"
+        cmp = _against(r0, ref, label)
+        for r in res[1:]:
+            if not np.array_equal(r["w"], r0["w"]):
+                raise AssertionError(f"{label}: the ranks' weights differ")
+        prof = r0.get("profile", {})
+        say(f"proj_{part}_{tag}", world=len(ranks), local_block=r0["local"],
+            local_dtype=r0["local_dtype"], itr=r0["itr"],
+            dots_launches=[r["dots"] for r in res], score_launches=[r["score"] for r in res],
+            fused_select_launches=[r["select"] for r in res],
+            select_launches_per_itr=f"{(r0['dots'] + r0['score']) / r0['itr']:.3f}",
+            ms_per_itr=f"{1e3 * max(r['build_s'] for r in res) / r0['itr']:.4f}",
+            ref_ms_per_itr=f"{ref['ms_per_itr']:.4f}",
+            setup_s=f"{max(r['setup_s'] for r in res):.4f}",
+            launches_per_itr=f"{prof.get('launches_per_itr', float('nan')):.2f}",
+            dots_kernels_per_itr=f"{prof.get('dots_kernels_per_itr', float('nan')):.3f}",
+            score_kernels_per_itr=f"{prof.get('score_kernels_per_itr', float('nan')):.3f}",
+            device_busy_us_per_itr=f"{prof.get('device_busy_us_per_itr', float('nan')):.1f}",
+            exchanges_per_itr=_axes_text(r0["per_itr"]),
+            peak_GB=[f"{r.get('peak_GB', float('nan')):.3f}" for r in res], **cmp,
+            times="gloo (copies through the host)", card=repr(smi))
+        want = cfg["M"] if part == "c" else cfg["WM"]
+        if any(r["itr"] != want or r["dots"] != r["itr"] or r["score"] != r["itr"]
+               or r["select"] for r in res):
+            raise AssertionError(f"{label}: {[(r['itr'], r['dots'], r['score'], r['select']) for r in res]} "
+                                 "(iterations, dots, score and fused select launches)")
+        dots_c, dots_b = r0["per_itr"]["proj"]["dots"]
+        if dots_c != 1 or dots_b != r0["n_loc"] * 2 * 4 or r0["n_loc"] != n_loc:
+            raise AssertionError(f"{label}: proj dots exchanges {dots_c}/{dots_b} B per "
+                                 f"iteration for {r0['n_loc']} local rows")
+        if prof and (prof["dots_kernels_per_itr"] != 1 or prof["score_kernels_per_itr"] != 1):
+            raise AssertionError(f"{label}: profiled {prof}")
+        launches["giga_dots"] += sum(r["dots"] for r in res)
+        launches["giga_score_select"] += sum(r["score"] for r in res)
+
+
+def _proj_svi(c, refs, cfg):
+    """Phase 20 (c)'s SparseVI and BatchPSVI on {"data": 2} against one
+    process."""
+    import numpy as np
+
+    for tag in ("canonical_exact", "scaled_N100k_sub1024"):
+        res, ref = [r[f"svi/{tag}"] for r in c], refs[tag]
+        same = all(np.array_equal(r["idcs"], ref["idcs"]) for r in res)
+        scale = float(np.abs(ref["w"]).max())
+        rel = max(float(np.max(np.abs(r["w"] - ref["w"]))) for r in res) / scale
+        say("proj_c_svi", arm=tag, world=2, rows=[r["rows"] for r in res], size=ref["idcs"].size,
+            idcs_identical=same, max_weight_diff_of_largest=f"{rel:.3e}",
+            s=f"{max(r['s'] for r in res):.4f}", ref_s=f"{ref['s']:.4f}",
+            us_per_adam_step=f"{1e6 * max(r['s'] for r in res) / (SVI_M * (1 + SVI_OPT)):.2f}",
+            exchanges_per_adam_step=_axes_text(res[0]["per_step"]),
+            times="gloo (copies through the host)")
+        if not same or not all(np.allclose(r["w"], ref["w"], rtol=SVI_SHARD_RTOL,
+                                           atol=1e-6 * scale) for r in res):
+            raise AssertionError(f"phase 20 (c) svi {tag}: indices equal {same}, weights "
+                                 f"{rel:.3e} of the largest apart")
+    res, ref = [r["bpsvi"] for r in c], refs["bpsvi"]
+    dw = max(float(np.max(np.abs(r["w"] - ref["w"]))) for r in res)
+    dp = max(float(np.max(np.abs(r["p"] - ref["p"]))) for r in res)
+    say("proj_c_bpsvi", world=2, N=cfg["bp_n"], sz=BP_SZ, n_sub=cfg["bp_sub"], steps=cfg["bp_steps"],
+        max_weight_diff=f"{dw:.3e}", max_point_diff=f"{dp:.3e}",
+        s=f"{max(r['s'] for r in res):.4f}", ref_s=f"{ref['s']:.4f}",
+        us_per_joint_step=f"{1e6 * max(r['s'] for r in res) / cfg['bp_steps']:.2f}",
+        exchanges_per_joint_step=_axes_text(res[0]["per_step"]),
+        times="gloo (copies through the host)")
+    for r in res:
+        if not (np.allclose(r["w"], ref["w"], rtol=SVI_SHARD_RTOL,
+                            atol=SVI_SHARD_RTOL * float(np.abs(ref["w"]).max()))
+                and np.allclose(r["p"], ref["p"], rtol=SVI_SHARD_RTOL, atol=SVI_SHARD_RTOL)):
+            raise AssertionError(f"phase 20 (c) bpsvi: weights {dw}, points {dp} apart")
+
+
+def _proj_nuts(torch, dd, first_ref, zc, wc, cfg):
+    """Phase 20 (d)'s chain-sharded NUTS on {"data": 2, "chains": 2}: phase
+    19's checks, and every rank's draws the same."""
+    import numpy as np
+    from bayesian_coresets_tpu_torch import mcmc
+
+    dev = zc.device
+    nu = dd[0]["nuts"]
+    first_err = float(np.max(np.abs(nu["first"] - first_ref)))
+    samples = torch.as_tensor(nu["samples"], device=dev)
+    rhat = float(mcmc.split_rhat(samples).max())
+    flat = samples.reshape(-1, samples.shape[-1])
+    is_mean, is_sd, _ = _importance_moments(torch, zc, wc)
+    off_is = float((torch.abs(flat.mean(dim=0).double() - is_mean) / is_sd).max())
+    steps_equal = all(np.array_equal(r["nuts"]["step"], nu["step"]) for r in dd)
+    same_draws = all(np.array_equal(r["nuts"]["samples"], nu["samples"]) for r in dd)
+    say("proj_d_nuts", mesh="{data:2,chains:2}", chains=cfg["chains"],
+        per_chain_rank=cfg["chains"] // 2, warmup=cfg["draws"], draws=cfg["draws"],
+        first5_max_abs_diff=f"{first_err:.3e}", max_rhat=f"{rhat:.4f}",
+        divergences=nu["divergences"], mean_minus_is_mean_sds=f"{off_is:.4f}",
+        pooled_step_equal_on_ranks=steps_equal, draws_equal_on_ranks=same_draws,
+        seconds=f"{max(r['nuts']['seconds'] for r in dd):.3f}",
+        exchanges={a: {k: v[0] for k, v in kinds.items()} for a, kinds in nu["exchanges"].items()},
+        times="gloo (copies through the host)")
+    if not first_err <= 1e-5:
+        raise AssertionError(f"phase 20 (d): the first transitions differ by {first_err}")
+    if rhat > RHAT_MAX or nu["divergences"] > DIV_SHARE_MAX * cfg["chains"] * cfg["draws"]:
+        raise AssertionError(f"phase 20 (d): R-hat {rhat}, {nu['divergences']} divergences")
+    if not off_is <= IS_SDS_MAX or not steps_equal or not same_draws:
+        raise AssertionError(f"phase 20 (d): mean {off_is} sd from importance sampling; "
+                             f"steps equal {steps_equal}, draws equal {same_draws}")
+
+
 def _per_itr_text(per_itr: dict) -> str:
     """kind:calls/bytes per iteration, for a say() line."""
     return ",".join(f"{k}:{c:g}/{n:g}B" for k, (c, n) in sorted(per_itr.items()))
@@ -2414,7 +2965,7 @@ def main() -> int:
     phase_svi_parity(torch)
     phase_bpsvi(torch, smi)
     say("svi_bpsvi_optimize_launches", giga_select=gs.launches, packed_select=ps.launches)
-    fw_launches = phase_frankwolfe(torch, smi, Z, projector)
+    fw_launches, ref12 = phase_frankwolfe(torch, smi, Z, projector)
     omp_launches = phase_omp(torch, smi, Z, projector)
     phase_sampling(torch, smi, Z, projector)
     del Z, projector, coreset
@@ -2423,11 +2974,16 @@ def main() -> int:
     gs.launches = 0
     st_launches, stq_launches, st_omp_launches, st_select, quality = phase_streamed(torch, smi)
     gs.launches = 0
-    wide_launches = phase_wide_build(torch, smi)
+    wide_launches, ref17 = phase_wide_build(torch, smi)
     torch.cuda.empty_cache()
     exp_launches, exp_err = phase_experiments(torch, smi)
     gs.launches = ps.launches = 0
     sharded_launches = phase_sharded(torch, smi, ref6, quality, wts, pts)
+    gs.dots_launches = gs.score_launches = 0
+    proj_launches, proj_line = phase_proj(torch, smi, ref6, ref12, ref17, wts, pts)
+    if gs.dots_launches != 0 or gs.score_launches != 0:
+        raise AssertionError("phase 20's parent launched a proj kernel outside its ranks' "
+                             "count: the kernels line takes the ranks' counts")
     if ps.launches:
         raise AssertionError("a solver's path launched the packed select kernel")
     say("select_launches_by_path", giga=launches, frankwolfe=fw_launches, omp=omp_launches,
@@ -2456,7 +3012,12 @@ def main() -> int:
          "replaces": "scripts/probe_int4_pallas.py:73",
          "launches": packed_launches, "max_abs_err": packed_err, "ms": pk_ms,
          "plain_ms": pp_ms, "bound_ms": pk_bound, "bound_by": pk_bound_by,
-         "library_ms": None}]}), flush=True)
+         "library_ms": None}] + [
+        {"name": name, "route": "cuda",
+         "source": "bayesian_coresets_tpu_torch/csrc/giga_select.cu",
+         "replaces": "bayesian_coresets_tpu/ops/pallas_kernels.py:110",
+         "launches": proj_launches[name], **proj_line[name]}
+        for name in ("giga_dots", "giga_score_select")]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -87,10 +87,11 @@ def main() -> int:
             x, torch.zeros(32, device=dev), torch.full((32,), -1, dtype=torch.int64, device=dev),
             0, torch.Generator(device=dev).manual_seed(2), 30, family=fam, n_sub_sel=None,
             n_sub_opt=None, opt_itrs=5, step_sched=sched)
-        carry = sparsevi._init_carry(x, fam, w, idcs, size)
+        pts = sparsevi._gather_pts(x, idcs)
+        carry = sparsevi._init_carry(x, fam, w, pts, size)
         gen = torch.Generator(device=dev).manual_seed(3)
         _window(torch, label, lambda: sparsevi._optimize(
-            x, fam, gen, w, idcs, size, None, args.steps, sched, carry), args.steps)
+            x, fam, gen, w, pts, size, None, args.steps, sched, carry), args.steps)
 
     xb = gaussian.gen_synthetic(torch.Generator(device=dev).manual_seed(1), 100_000, 20)
     fam = family(20, 200, grad=True)

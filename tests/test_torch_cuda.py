@@ -9,7 +9,9 @@ CPU, sampling builds that read only ``done``, a short
 NUTS run on the card, projected Adam, SparseVI and ``optimize()`` on the
 card against the CPU, SparseVI and BatchPSVI builds that read nothing
 back from the card but SparseVI's one flag per select, and the
-synthetic_vectors experiment driver on the card against ``--device cpu``.
+synthetic_vectors experiment driver on the card against ``--device cpu``;
+the proj axis's two kernels (the select's dots-only mode and the score of
+summed dots) against their plain versions and against the fused select.
 
 Every test here needs a card and skips without one.  This file imports no
 JAX, so it also runs where JAX is absent; there, skip the JAX conftest:
@@ -815,3 +817,121 @@ def test_one_rank_nccl_build_sharded_equals_one_process(cuda_device, tmp_path):
     finally:
         dist.destroy_process_group()
     assert torch.equal(st.w, one.w) and int((st.w > 0).sum()) > 100
+
+
+# the proj axis's select: the dots-only mode (ring and wide-row kernels) and
+# the score of summed dots
+DOTS_SHAPES = [("int8", 500, 5003), ("bfloat16", 500, 5003), ("float32", 500, 5003),
+               ("int8", 49168, 515), ("bfloat16", 24584, 515), ("float32", 12289, 515),
+               ("float32", 16384, 2051)]
+
+
+def _dots_close(kd, pd, kind):
+    """int32 dots equal; f32 within 1e-5 of the row's sum of absolute
+    products' scale (sums in another order)."""
+    if kind == "int8":
+        assert kd.dtype == torch.int32
+        torch.testing.assert_close(kd, pd, rtol=0, atol=0)
+    else:
+        assert kd.dtype == torch.float32
+        scale = pd.abs().max().item()
+        torch.testing.assert_close(kd, pd, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,S,n", DOTS_SHAPES, ids=[f"{k}-{S}" for k, S, _ in DOTS_SHAPES])
+def test_dots_kernel_matches_plain(kind, S, n, cuda_device):
+    """``giga_dots`` against ``giga_dots_ref``, on rows the ring kernel takes
+    and rows past 48 KB (the wide-row kernel): one launch each."""
+    Vsel, dirs, _, _ = _wide_inputs(kind, S, cuda_device, n=n)
+    before = gs.dots_launches
+    kd = gs.giga_dots(Vsel, dirs)
+    torch.cuda.synchronize()
+    assert gs.dots_launches == before + 1 and kd.shape == (n, 2)
+    _dots_close(kd, gs.giga_dots_ref(Vsel, dirs), kind)
+
+
+@pytest.mark.cuda
+def test_dots_kernel_past_2_to_24_rows(cuda_device):
+    """int8 dots of 2^24 + 5 rows: the row index of the output is 64-bit."""
+    n, S = (1 << 24) + 5, 32
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    V = torch.randint(-127, 128, (n, S), generator=gen, device=cuda_device, dtype=torch.int8)
+    dirs = torch.nn.functional.normalize(torch.randn((S, 2), generator=gen, device=cuda_device),
+                                         dim=0)
+    kd = gs.giga_dots(V, dirs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(kd, gs.giga_dots_ref(V, dirs), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_score_kernel_matches_plain(dtype, case, cuda_device):
+    """``giga_score_select`` on the dots of ``giga_dots_ref`` against its
+    plain version: the index identical (ties to the first row, all invalid
+    to row 0), the score within 1e-6 relative; and on the unsplit dots it
+    gives the fused kernel's (index, score) bit for bit."""
+    Vsel, dirs, norms, valid = [t.to(cuda_device) for t in _select_inputs(case, dtype)]
+    dots = gs.giga_dots_ref(Vsel, dirs)
+    before = gs.score_launches
+    ki, ks = gs.giga_score_select(dots, norms, valid)
+    torch.cuda.synchronize()
+    assert gs.score_launches == before + 1
+    pi, pscore = gs.giga_score_select_ref(dots, norms, valid)
+    assert int(ki) == int(pi)
+    if case == "all_invalid":
+        assert int(ki) == 0 and float(ks) == -np.inf
+    else:
+        np.testing.assert_allclose(float(ks), float(pscore), rtol=1e-6)
+    if case == "ties":
+        assert int(ki) == 7
+    fi, fs = gs.giga_select(Vsel, dirs, norms, valid)
+    si, ss = gs.giga_score_select(gs.giga_dots(Vsel, dirs), norms, valid)
+    assert int(si) == int(fi) and float(ss) == float(fs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_split_dots_summed_equal_the_fused_select(dtype, cuda_device):
+    """Column blocks of whole 16-byte rows, each with its slice of the
+    directions, through the dots kernel and summed: int8 sums equal the
+    unsplit dots and the score kernel then gives the fused select's result
+    to the bit; f32 and bf16 sums agree within 1e-5 and pick its index."""
+    Vsel, dirs, norms, valid = [t.to(cuda_device) for t in _select_inputs("random", dtype)]
+    mult = gs.col_multiple(Vsel.dtype)
+    cut = [0, 10 * mult, 21 * mult, Vsel.shape[1]]
+    parts = [gs.giga_dots(Vsel[:, a:b].contiguous(), dirs[a:min(b, dirs.shape[0])])
+             for a, b in zip(cut, cut[1:])]
+    summed = sum(parts)
+    whole = gs.giga_dots(Vsel, dirs)
+    _dots_close(summed, whole, str(dtype).replace("torch.", ""))
+    fi, fs = gs.giga_select(Vsel, dirs, norms, valid)
+    si, ss = gs.giga_score_select(summed, norms, valid)
+    assert int(si) == int(fi)
+    if dtype == torch.int8:
+        assert float(ss) == float(fs)
+    else:
+        np.testing.assert_allclose(float(ss), float(fs), rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_score_calls_on_two_streams(cuda_device):
+    """Score launches on two streams each use their stream's workspace."""
+    inputs = []
+    for seed in (6, 7):
+        Vsel, dirs, norms, valid = [t.to(cuda_device) for t in _giga_inputs(torch.int8, 30000,
+                                                                            seed=seed)]
+        inputs.append((gs.giga_dots_ref(Vsel, dirs), norms, valid))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(10):
+        for args, st in zip(inputs, streams):
+            with torch.cuda.stream(st):
+                outs.append(gs.giga_score_select(*args))
+    torch.cuda.synchronize()
+    want = [int(gs.giga_score_select_ref(*args)[0]) for args in inputs]
+    assert [int(o[0]) for o in outs] == want * 10
+    keys = {k for k in gs._workspaces if k[1] in {s.cuda_stream for s in streams}}
+    assert len(keys) == 2

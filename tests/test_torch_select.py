@@ -183,3 +183,79 @@ def test_wrapper_takes_rows_past_the_ring_kernels_width(dtype, S):
         rtol = 1e-5 if dtype == torch.float32 else 2e-2
     assert int(np.argmax(want)) == 7
     np.testing.assert_allclose(float(score), want[7], rtol=rtol)
+
+
+def _tensor(Vsel, sd):
+    if sd == "bfloat16":
+        return torch.as_tensor(Vsel.view(np.int16)).view(torch.bfloat16)
+    return torch.as_tensor(Vsel)
+
+
+BLOCKS = [(0, 48), (48, 96), (96, SP)]     # a column split into whole 16-byte rows
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("sd", list(DTYPES))
+def test_split_dots_then_score_equal_the_fused_select(sd, case):
+    """The proj axis's select: ``giga_dots_ref`` of each column block with
+    its slice of the directions, summed, then ``giga_score_select_ref``,
+    against the fused plain select on the unsplit matrix.  Unsplit, the two
+    kernels' plain versions give the fused result bit for bit.  Split, int8
+    dots are integers, so their sum and the result are exact; f32 and bf16
+    sums are taken in another order: the same index, the score within 1e-6
+    relative (where the best two scores are further apart than that)."""
+    _, Vsel, norms, valid, dirs = _inputs(case, sd)
+    vt, d = _tensor(Vsel, sd), torch.as_tensor(dirs)
+    nt, ok = torch.as_tensor(norms), torch.as_tensor(valid)
+    fi, fs = gs.giga_select_ref(vt, d, nt, ok)
+    whole = gs.giga_dots_ref(vt, d)
+    assert whole.shape == (NP, 2)
+    assert whole.dtype == (torch.int32 if sd == "int8" else torch.float32)
+    wi, ws = gs.giga_score_select_ref(whole, nt, ok)
+    assert (int(wi), float(ws)) == (int(fi), float(fs))
+    split = sum(gs.giga_dots_ref(vt[:, c0:c1].contiguous(), d[c0:min(c1, S)])
+                for c0, c1 in BLOCKS)
+    si, ss = gs.giga_score_select_ref(split, nt, ok)
+    if sd == "int8":
+        assert split.dtype == torch.int32
+        torch.testing.assert_close(split, whole, rtol=0, atol=0)
+        assert (int(si), float(ss)) == (int(fi), float(fs))
+        return
+    assert int(si) == int(fi)
+    if case == "all_invalid":
+        assert float(ss) == float(fs) == float("-inf") and int(si) == 0
+    else:
+        np.testing.assert_allclose(float(ss), float(fs), rtol=1e-6)
+
+
+def test_dots_and_score_cpu_route_count_no_launch():
+    """On CPU tensors the two wrappers run their plain versions; only a
+    CUDA launch counts."""
+    _, Vsel, norms, valid, dirs = _inputs("ties", "int8")
+    vt, d = torch.as_tensor(Vsel), torch.as_tensor(dirs)
+    before = (gs.dots_launches, gs.score_launches, gs.launches)
+    dots = gs.giga_dots(vt, d)
+    torch.testing.assert_close(dots, gs.giga_dots_ref(vt, d), rtol=0, atol=0)
+    i, s = gs.giga_score_select(dots, torch.as_tensor(norms), torch.as_tensor(valid))
+    assert (int(i), float(s)) == _port(Vsel, norms, valid, dirs, "int8")
+    assert (gs.dots_launches, gs.score_launches, gs.launches) == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "norms", "valid", "empty"])
+def test_score_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    n = 64
+    args = dict(dots=torch.zeros((n, 2), dtype=torch.int32), norms=torch.ones(n),
+                valid=torch.ones(n, dtype=torch.bool))
+    if bad == "dtype":
+        args["dots"] = args["dots"].double()
+    elif bad == "shape":
+        args["dots"] = torch.zeros((n, 3), dtype=torch.int32)
+    elif bad == "norms":
+        args["norms"] = torch.ones(n + 1)
+    elif bad == "valid":
+        args["valid"] = args["valid"].to(torch.uint8)
+    else:
+        args = dict(dots=torch.zeros((0, 2), dtype=torch.int32), norms=torch.ones(0),
+                    valid=torch.ones(0, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        gs.giga_score_select(**args)
