@@ -45,15 +45,16 @@
 //     scores never reach device memory;
 //   - one launch: a packed 64-bit atomicMax per block, then the block with
 //     the last ticket decodes the key and resets the workspace.
-// Rows past 48 KB (f32 S > 12288, bf16 > 24576, int8 > 49152) take
-// giga_select_wide_kernel below, in the same one launch.  It replaces the
-// same TPU kernel (_giga_select_kernel) at wide projections, and is bound by
-// bytes too (f32 n=4096, S=12289: 201 MB at two multiply-adds per 4 bytes).
-// A ring tile of whole rows holds one such row, with one warp of eight
-// working on it (24-31% of the bound at 49168-byte rows), and a kernel that
-// read such rows straight from global memory kept too few bytes in flight
-// (one block per 36 rows, 18-56%).  The wide kernel instead streams groups
-// of 8 rows in 4 KB pieces
+// Rows past 4 KB (f32 S > 1024, bf16 > 2048; int8 past kRingMaxRowInt8)
+// take giga_select_wide_kernel below, in the same one launch.  It replaces
+// the same TPU kernel (_giga_select_kernel) at wide projections, and is
+// bound by bytes too (f32 n=4096, S=12289: 201 MB at two multiply-adds per 4 bytes).
+// Past 4 KB a ring tile of whole rows (8 KB) holds one row, with one lane
+// group of one warp working on it and only 2-4 tiles in flight, so most
+// consumer warps wait: 24-57% of the bound from 16 KB to 48 KB rows, slower
+// than torch.matmul at 48 KB; and a kernel that read such rows straight
+// from global memory kept too few bytes in flight (one block per 36 rows,
+// 18-56%).  The wide kernel instead streams groups of 8 rows in 4 KB pieces
 // (stream_rows.cuh's row_groups): every consumer lane takes one 16-byte
 // chunk of each piece for all 8 rows, and a 3-4 stage TMA ring keeps
 // 96-128 KB in flight on each SM.  Each lane quantizes its own chunks of
@@ -94,11 +95,19 @@ constexpr float kInv127Sq = (float)(1.0 / (127.0 * 127.0));
 
 enum SelectDtype { kInt8 = 0, kBf16 = 1, kF32 = 2 };
 
-// Rows past this take the wide-row kernel (a sweep may build other limits)
-#ifndef BCT_GIGA_RING_MAX_ROW
-#define BCT_GIGA_RING_MAX_ROW (48 * 1024)
-#endif
+// Rows past these take the wide-row kernel: the crossover of the two
+// kernels on the H100 (scripts/sweep_wide_select.py --mid).  f32 and bf16
+// rows of 4112 bytes already run faster in 4 KB pieces (3% and 15%); int8
+// rows stay on the ring kernel up to 4608 bytes (2-4% faster there than
+// in pieces, 5% slower at 4864).  A sweep may build one other limit for
+// every dtype (BCT_GIGA_RING_MAX_ROW; ring48 builds the earlier 48 KB).
+#ifdef BCT_GIGA_RING_MAX_ROW
 constexpr int kRingMaxRow = BCT_GIGA_RING_MAX_ROW;
+constexpr int kRingMaxRowInt8 = BCT_GIGA_RING_MAX_ROW;
+#else
+constexpr int kRingMaxRow = 4096;
+constexpr int kRingMaxRowInt8 = 4608;
+#endif
 
 struct SelectArgs {
   const unsigned char* V;
@@ -341,19 +350,27 @@ __global__ void __launch_bounds__(kThreads) giga_select_kernel(const SelectArgs 
   if constexpr (!DOTS) finish(best, a.ws, a.idx, a.score);
 }
 
-// One 16-byte chunk's columns of both directions, in Vsel's type.
+// One 16-byte chunk's columns of both directions, in Vsel's type; for bf16
+// the wide-row kernel keeps them widened to f32 (exactly), so a piece's
+// directions are widened once for all the rows of a group, not once a row.
+template <int DT>
 struct Dirs2 {
   int4 p, q;
 };
 
-// The same select for rows past the ring's 48 KB (stream_rows.cuh's
+template <>
+struct Dirs2<kBf16> {
+  float p[8], q[8];
+};
+
+// The same select for rows past the ring's limit (stream_rows.cuh's
 // row_groups): groups of 8 rows in 4 KB pieces through a 3-4 stage TMA
 // ring, one block per SM.  Each lane quantizes its own chunks of the
 // directions from the f32 array in the block's first group, as
 // quantize_dirs does, bit for bit, and keeps them in shared memory for the
 // later groups (rows up to 65984 bytes on the H100; wider rows fetch them
-// again in every group).  The row sums are combined in warp order, so f32
-// and bf16 scores are the same bits on every launch.  DOTS: the dots-only
+// again in every group); bf16 directions are widened once a piece (Dirs2).
+// The row sums are combined in warp order, so f32 and bf16 scores are the same bits on every launch.  DOTS: the dots-only
 // mode, as in giga_select_kernel.
 template <int DT, bool DOTS>
 __global__ void __launch_bounds__(kThreads) giga_select_wide_kernel(const SelectArgs a,
@@ -364,34 +381,81 @@ __global__ void __launch_bounds__(kThreads) giga_select_wide_kernel(const Select
   const unsigned long long best = row_groups<Acc, 2 * E>(
       a.V, a.n, a.row_bytes, w, smem, a.dirs, 2 * (long long)a.S,
       [](const RawDirs<2 * E>& r) {
-        unsigned int p[4] = {}, q[4] = {};
+        Dirs2<DT> d;
+        if constexpr (DT == kBf16) {
 #pragma unroll
-        for (int k = 0; k < E; ++k) {
-          const float f0 = r.v[2 * k], f1 = r.v[2 * k + 1];
-          if constexpr (DT == kInt8) {
-            p[k / 4] |= ((unsigned int)quantize_int8(f0) & 0xFFu) << (8 * (k % 4));
-            q[k / 4] |= ((unsigned int)quantize_int8(f1) & 0xFFu) << (8 * (k % 4));
-          } else if constexpr (DT == kBf16) {
-            p[k / 2] |= (unsigned int)__bfloat16_as_ushort(__float2bfloat16_rn(f0)) << (16 * (k % 2));
-            q[k / 2] |= (unsigned int)__bfloat16_as_ushort(__float2bfloat16_rn(f1)) << (16 * (k % 2));
-          } else {
-            p[k] = __float_as_uint(f0);
-            q[k] = __float_as_uint(f1);
+          for (int k = 0; k < E; ++k) {
+            d.p[k] = __bfloat162float(__float2bfloat16_rn(r.v[2 * k]));
+            d.q[k] = __bfloat162float(__float2bfloat16_rn(r.v[2 * k + 1]));
           }
+        } else {
+          unsigned int p[4] = {}, q[4] = {};
+#pragma unroll
+          for (int k = 0; k < E; ++k) {
+            const float f0 = r.v[2 * k], f1 = r.v[2 * k + 1];
+            if constexpr (DT == kInt8) {
+              p[k / 4] |= ((unsigned int)quantize_int8(f0) & 0xFFu) << (8 * (k % 4));
+              q[k / 4] |= ((unsigned int)quantize_int8(f1) & 0xFFu) << (8 * (k % 4));
+            } else {
+              p[k] = __float_as_uint(f0);
+              q[k] = __float_as_uint(f1);
+            }
+          }
+          d.p = make_int4((int)p[0], (int)p[1], (int)p[2], (int)p[3]);
+          d.q = make_int4((int)q[0], (int)q[1], (int)q[2], (int)q[3]);
         }
-        return Dirs2{make_int4((int)p[0], (int)p[1], (int)p[2], (int)p[3]),
-                     make_int4((int)q[0], (int)q[1], (int)q[2], (int)q[3])};
+        return d;
       },
-      [](unsigned char* dq, int chunks, int c, const Dirs2& d) {
+      [](unsigned char* dq, int chunks, int c, const Dirs2<DT>& d) {
         int4* d4 = reinterpret_cast<int4*>(dq);
-        d4[c] = d.p;
-        d4[chunks + c] = d.q;
+        if constexpr (DT == kBf16) {           // back to bf16 bits (exact)
+          unsigned int p[4], q[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            p[k] = (unsigned int)__bfloat16_as_ushort(__float2bfloat16_rn(d.p[2 * k])) |
+                   (unsigned int)__bfloat16_as_ushort(__float2bfloat16_rn(d.p[2 * k + 1])) << 16;
+            q[k] = (unsigned int)__bfloat16_as_ushort(__float2bfloat16_rn(d.q[2 * k])) |
+                   (unsigned int)__bfloat16_as_ushort(__float2bfloat16_rn(d.q[2 * k + 1])) << 16;
+          }
+          d4[c] = make_int4((int)p[0], (int)p[1], (int)p[2], (int)p[3]);
+          d4[chunks + c] = make_int4((int)q[0], (int)q[1], (int)q[2], (int)q[3]);
+        } else {
+          d4[c] = d.p;
+          d4[chunks + c] = d.q;
+        }
       },
       [](const unsigned char* dq, int chunks, int c) {
         const int4* d4 = reinterpret_cast<const int4*>(dq);
-        return Dirs2{d4[c], d4[chunks + c]};
+        Dirs2<DT> d;
+        if constexpr (DT == kBf16) {
+          const int4 p = d4[c], q = d4[chunks + c];
+          const __nv_bfloat162* pp = reinterpret_cast<const __nv_bfloat162*>(&p);
+          const __nv_bfloat162* qq = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float2 y = __bfloat1622float2(pp[k]), z = __bfloat1622float2(qq[k]);
+            d.p[2 * k] = y.x; d.p[2 * k + 1] = y.y;
+            d.q[2 * k] = z.x; d.q[2 * k + 1] = z.y;
+          }
+        } else {
+          d.p = d4[c];
+          d.q = d4[chunks + c];
+        }
+        return d;
       },
-      [](int4 x, const Dirs2& d, Acc& a0, Acc& a1) { dot<DT>(x, d.p, d.q, a0, a1); },
+      [](int4 x, const Dirs2<DT>& d, Acc& a0, Acc& a1) {
+        if constexpr (DT == kBf16) {           // chunk_dot's order, directions widened
+          const __nv_bfloat162* vv = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float2 v = __bfloat1622float2(vv[i]);
+            a0 = fmaf(v.x, d.p[2 * i], a0); a0 = fmaf(v.y, d.p[2 * i + 1], a0);
+            a1 = fmaf(v.x, d.q[2 * i], a1); a1 = fmaf(v.y, d.q[2 * i + 1], a1);
+          }
+        } else {
+          dot<DT>(x, d.p, d.q, a0, a1);
+        }
+      },
       [&](long long row) {
         if constexpr (DOTS) return make_float2(1.0f, 1.0f);   // no per-row inputs
         return make_float2(DT == kInt8 ? 1.0f : a.norms[row], a.valid[row] ? 1.0f : 0.0f);
@@ -439,8 +503,8 @@ int launch_select(SelectArgs a, int dtype, void* stream) {
                        : dtype == kBf16 ? pick<kBf16, DOTS>(log_g)
                                         : pick<kF32, DOTS>(log_g);
   Plan plan;
-  cudaError_t err =
-      plan_launch(kernel, a.n, rb, 2 * rb, (32 >> log_g) * kRowsPerStep, kRingMaxRow, &plan);
+  cudaError_t err = plan_launch(kernel, a.n, rb, 2 * rb, (32 >> log_g) * kRowsPerStep,
+                                dtype == kInt8 ? kRingMaxRowInt8 : kRingMaxRow, &plan);
   if (err != cudaSuccess) return (int)err;
   a.tile_rows = plan.tile_rows;
   a.stages = plan.stages;
@@ -463,8 +527,16 @@ int launch_select(SelectArgs a, int dtype, void* stream) {
 // The score and first-max argmax of dots summed elsewhere (giga_score_launch):
 // rows of the (n, 2) dots, int32 (DT kInt8: scaled by 1/127^2) or f32
 // (divided by the row's norm), through row_key and finish, as the fused
-// select scores its own sums.  A grid-stride loop, one thread a row; bound
-// by bytes (12-13 per row).
+// select scores its own sums.  A grid-stride loop, one thread a row.  At
+// 12-13 bytes a row (0.9 MB at n=100k) the byte bound is a fraction of a
+// microsecond; what sets the time is a chain of latencies (the launch, a
+// load, a row's two divisions and square root, the block's reduction, the
+// finish's atomics and the last block's read of the key), and on the H100
+// it takes 2.5-3 us more than an empty kernel launched the same way.
+// Measured and not kept (scripts/sweep_wide_select.py --score; PERF.md):
+// one block per SM of 256-1024 threads, 2-16 rows a thread with 16-byte
+// loads, clusters whose rank 0 alone does the atomics, and per-block keys
+// in slots reduced by the block of the last ticket.
 template <int DT>
 __global__ void __launch_bounds__(kThreads) giga_score_kernel(
     const void* __restrict__ dots, long long n, const float* __restrict__ norms,
@@ -482,6 +554,21 @@ __global__ void __launch_bounds__(kThreads) giga_score_kernel(
   finish(best, ws, idx, score);
 }
 
+// The floor of a launch-bound kernel: nothing, launched by the same host
+// path as the score kernel (giga_empty_launch; measurement only).
+__global__ void empty_kernel() {}
+
+// The score kernel's grid: a block per kThreads rows, at most 4 per SM.
+inline cudaError_t score_grid(long long n, int* grid) {
+  int dev = 0, sms = 0;
+  size_t budget = 0;
+  const cudaError_t err = device_limits(&dev, &sms, &budget);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  *grid = (int)(blocks < 4ll * sms ? blocks : 4ll * sms);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  V: (n, row_bytes / elem) rows,
@@ -489,9 +576,8 @@ __global__ void __launch_bounds__(kThreads) giga_score_kernel(
 // elem; norms: (n,) f32 (unused for int8); valid: (n,) bool; workspace: 16
 // zero bytes owned by the caller for this stream (left zero again by every
 // launch); idx/score: one int32 / one f32.  One kernel launch on `stream`:
-// the ring kernel where plan_launch can place the rows (the directions and
-// two one-row stages in shared memory: rows up to 48 KB), else the wide-row
-// kernel, up to rows of 1 MiB; never synchronizes; returns
+// the ring kernel for rows of at most 4 KB (int8: 4608 bytes), else the
+// wide-row kernel, up to rows of 1 MiB; never synchronizes; returns
 // cudaGetLastError().
 extern "C" int giga_select_launch(const void* V, int dtype, long long n, long long row_bytes,
                                   const void* dirs, int S, const void* norms, const void* valid,
@@ -532,12 +618,9 @@ extern "C" int giga_score_launch(const void* dots, int dots_int32, long long n, 
                                  const void* valid, void* workspace, void* idx, void* score,
                                  void* stream) {
   if (n <= 0 || n >= (1ll << 31)) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  size_t budget = 0;
-  cudaError_t err = device_limits(&dev, &sms, &budget);
+  int grid = 0;
+  cudaError_t err = score_grid(n, &grid);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  const int grid = (int)(blocks < 4ll * sms ? blocks : 4ll * sms);
   const void* kernel = dots_int32 ? reinterpret_cast<const void*>(&giga_score_kernel<kInt8>)
                                   : reinterpret_cast<const void*>(&giga_score_kernel<kF32>);
   const long long nn = n;
@@ -546,6 +629,25 @@ extern "C" int giga_score_launch(const void* dots, int dots_int32, long long n, 
                   &score};
   err = cudaLaunchKernel(kernel, dim3(grid), dim3(kThreads), args, 0,
                          reinterpret_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The practical floor of giga_score_launch's time: the same arguments and
+// the same host work (the grid from the device's SM count, one launch, the
+// error check), but an empty kernel of one block; it touches nothing.  For
+// measurement only (chip_smoke.py times it beside the score kernel).
+extern "C" int giga_empty_launch(const void* dots, int dots_int32, long long n, const void* norms,
+                                 const void* valid, void* workspace, void* idx, void* score,
+                                 void* stream) {
+  (void)dots; (void)dots_int32; (void)norms; (void)valid; (void)workspace; (void)idx;
+  (void)score;
+  if (n <= 0 || n >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  cudaError_t err = score_grid(n, &grid);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernel(reinterpret_cast<const void*>(&empty_kernel), dim3(1), dim3(32), nullptr,
+                         0, reinterpret_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -22,12 +22,13 @@
 //     ticket decodes the key into (idx, score) and resets key and ticket to
 //     0, so the workspace is ready for the next launch on the stream.
 //
-// Rows past the ring's limit (48 KB; packed 32 KB: past it a tile holds one
-// row, and one warp of eight computes on it) take row_groups below instead:
-// the same persistent grid (one block per SM: the quantized directions of
-// the whole row fill up to half of its shared memory), the same finish, but
-// ring stages of one 4 KB piece of each of kGroupRows rows, so every
-// consumer lane works on every stage, and 96-128 KB in flight per SM again.
+// Rows past the ring's limit (GIGA 4 KB, int8 4608 bytes; packed 32 KB:
+// past 4 KB a tile holds one row, and one warp of eight computes on it)
+// take row_groups below instead: the same persistent grid (one block per
+// SM: the quantized directions of the whole row fill up to half of its
+// shared memory), the same finish, but ring stages of one 4 KB piece of
+// each of kGroupRows rows, so every consumer lane works on every stage,
+// and 96-128 KB in flight per SM again.
 //
 // Everything here has internal linkage: each kernel source includes its own
 // copy, so the library links without duplicate symbols.

@@ -102,6 +102,7 @@ def load_library() -> ctypes.CDLL:
                 (lib.packed_select_launch, [ptr, i64, i64, ptr, i32] + [ptr] * 6),
                 (lib.giga_dots_launch, [ptr, i32, i64, i64, ptr, i32, ptr, ptr]),
                 (lib.giga_score_launch, [ptr, i32, i64] + [ptr] * 6),
+                (lib.giga_empty_launch, [ptr, i32, i64] + [ptr] * 6),
             ]:
                 fn.restype = ctypes.c_int
                 fn.argtypes = args

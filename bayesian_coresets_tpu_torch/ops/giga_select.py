@@ -195,11 +195,12 @@ def giga_select(Vsel: torch.Tensor, dirs: torch.Tensor, norms: torch.Tensor,
     whole number of 16-byte chunks; dirs: (S, 2) f32 [cdir_n, xw_n] with
     S <= Sp; norms: (n,) f32 row norms (unused for int8); valid: (n,) bool.
     On a CUDA tensor this makes one kernel launch on the current stream,
-    without synchronizing: rows of at most 48 KB (f32 S <= 12288, bf16
-    S <= 24576, int8 S <= 49152) stream through the TMA ring kernel in
-    tiles of whole rows, wider rows, up to the entry point's 1 MiB, through
-    the wide-row kernel of the same source, in groups of 8 rows walked in
-    4 KB pieces.  On a CPU tensor it runs :func:`giga_select_ref`.
+    without synchronizing: rows of at most 4 KB (f32 S <= 1024, bf16
+    S <= 2048; int8 rows of at most 4608 bytes) stream through the TMA ring
+    kernel in tiles of whole rows, wider rows, up to the entry point's
+    1 MiB, through the wide-row kernel of the same source, in groups of 8
+    rows walked in 4 KB pieces.  On a CPU tensor it runs
+    :func:`giga_select_ref`.
     """
     global launches
     _check(Vsel, dirs, norms, valid)

@@ -19,11 +19,14 @@ script exits non-zero without printing the final result line):
    and the library call that computes the two dots only (no score, no
    argmax; the port never calls it): ``torch._int_mm(Vsel, Q)`` for int8,
    ``torch.matmul(Vsel, Q)`` with TF32 off for bf16 and f32; then rows past
-   the ring kernel's 48 KB through the wide-row kernel (f32 S=12289 and
-   16384, bf16 S=24584, int8 S=49168, n=4096, and phase 17's f32 n=100k
-   S=16384: random directions, the winner invalid, ties), each timed beside
-   its bound and its library call (these matrices are far larger than L2,
-   so their batch time is their cold time), and int8 dots past 2^24;
+   the ring kernel's 4 KB through the wide-row kernel: rows of 4-48 KB (f32
+   n=4096 S=12288, f32 8192 x 8192, int8 16384 x 32768, f32 n=100k S=1536
+   and the linear_regression driver's f32 (10000, 10301)) and rows past 48
+   KB (f32 S=12289 and 16384, bf16 S=24584, int8 S=49168, n=4096, and
+   phase 17's f32 n=100k S=16384): random directions, the winner invalid,
+   ties, each timed beside its bound and its library call (these matrices
+   are far larger than L2, so their batch time is their cold time), and
+   int8 dots past 2^24;
 4. packed select: the packed-int4 select kernel against its plain version
    at the probe's size (N=2^20, S=512): random directions, the winner's
    block invalid, ties, all invalid, a row count off the tile, and
@@ -129,8 +132,9 @@ script exits non-zero without printing the final result line):
    ``synthetic_vectors`` at its defaults with GIGA and FW, and OMP at M=100.
    One ``[experiments]`` line per driver (seconds, select launches,
    iterations, metrics at M_max, the split of logistic_poisson's time,
-   ``reduced=``); one select launch per GIGA/FW/OMP iteration, none of the
-   packed kernel;
+   ``reduced=``; linear_regression's also the select's time per launch on
+   its own select copy, beside its bound); one select launch per
+   GIGA/FW/OMP iteration, none of the packed kernel;
 19. the sharded paths over ``torch.distributed`` on the one card, each
    rank a process spawned by ``parallel.run_local`` (loading phase 2's
    library): (a) a 1-rank NCCL group runs ``HilbertCoreset(mesh=)`` at
@@ -154,9 +158,12 @@ script exits non-zero without printing the final result line):
    identical, random, ties, all invalid, and the fused select's result bit
    for bit on unsplit dots), each timed in a batch and cold beside its
    bound and, for the dots, ``torch._int_mm`` or ``torch.matmul`` (TF32
-   off).  (c) two ranks: ``{"proj": 2}`` GIGA and Frank-Wolfe at phase 6's
-   config (local blocks (100000, 256) int8) against phases 6 and 12 (the
-   first slot where their atoms part, if any; the same atoms need the
+   off); the score kernel also beside its floor, an empty kernel launched
+   by the same host path and timed the same ways, and both in a CUDA graph
+   of 20 launches (device time without the host's calls).  (c) two ranks:
+   ``{"proj": 2}`` GIGA and Frank-Wolfe at phase 6's config (local blocks
+   (100000, 256) int8) against phases 6 and 12 (the first slot where their
+   atoms part, if any; the same atoms need the
    weights within rtol 1e-4, atol 1e-5 of the largest), then ``{"data":
    2}`` SparseVI at phase 9's canonical exact arm and its N=100k sub-1024
    arm, and BatchPSVI at phase 11's config with 100 Adam steps, each
@@ -223,7 +230,14 @@ JAX_RKL_MAX = {"canonical_blackbox": 1162.0726287995294,
                "scaled_N100k_sub1024": 136240.48075067793}
 RKL_SLACK = 1.5
 PROFILE_STEPS = 10          # Adam steps in each profiled window
-# rows past the ring kernels' shared memory (48 KB; packed 32 KB): (dtype, S)
+# rows of 4-48 KB, past the ring kernel's 4 KB: (dtype, n, S): 48 KB, 32 KB
+# and 32 KB int8 rows (the shapes where the ring kernel lost to its
+# library call or ran at 32-59% of its bound), 6 KB rows at phase 6's N,
+# and the linear_regression driver's f32 select (N=10000, d + p^2 = 301 +
+# 100^2 columns, 41216-byte rows)
+MID_SELECT = [("float32", 4096, 12288), ("float32", 8192, 8192), ("int8", 16384, 32768),
+              ("float32", 100_000, 1536), ("float32", 10_000, 10_301)]
+# rows past 48 KB (packed 32 KB): (dtype, n, S)
 WIDE_N = 4096
 WIDE_SELECT = [("float32", WIDE_N, 12289), ("float32", WIDE_N, 16384),
                ("bfloat16", WIDE_N, 24584), ("int8", WIDE_N, 49168),
@@ -368,6 +382,33 @@ def _direct_ms(torch, lib_fn, *args) -> float:
 
 
 _flush = []
+
+
+def _graph_ms(torch, make, per_graph: int = 20, reps: int = 7) -> float:
+    """Median device time per launch of ``per_graph`` launches captured in
+    one CUDA graph on a side stream (no host work between the launches):
+    ``make(stream_handle)`` returns a launcher on that stream."""
+    st = torch.cuda.Stream()
+    launch = make(st.cuda_stream)
+    with torch.cuda.stream(st):
+        launch()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=st):
+        for _ in range(per_graph):
+            launch()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / per_graph)
+    times.sort()
+    return times[len(times) // 2]
 
 
 def _cold_ms(torch, fn, reps: int = COLD_REPS) -> float:
@@ -542,31 +583,35 @@ def _hold_wide(torch, kernel, plain, args, kill, label, scale=None):
     return max(err, e2, e3)
 
 
-def _wide_select(torch, lib):
-    """Kernel 1 on rows past the ring's shared memory: the wide-row kernel
-    against the plain version, and its time beside its bound."""
+def _kill(args, f):
+    """A select's inputs with row f invalid."""
+    ok = args[3].clone()
+    ok[f] = False
+    return [*args[:3], ok]
+
+
+def _rows_select(torch, lib, shapes, tag, lo, hi):
+    """Kernel 1 on rows of more than ``lo`` and at most ``hi`` bytes, all on
+    the wide-row kernel: each shape against the plain version (random, the
+    winner dead, ties), the score against row f's f64 score, and its time
+    beside its bound and its library call.  Returns the largest score error."""
     from bayesian_coresets_tpu_torch.ops import giga_select as gs
 
-    def kill(args, f):
-        ok = args[3].clone()
-        ok[f] = False
-        return [*args[:3], ok]
-
     max_err = 0.0
-    for name, n, S in WIDE_SELECT:
+    for name, n, S in shapes:
         dtype = getattr(torch, name)
         c, dirs = _select_problem(torch, n, S, dtype, seed=S)
         args = [c.Vsel, dirs, c.norms, c.valid]
         row_bytes = c.Vsel.shape[1] * c.Vsel.element_size()
-        if row_bytes <= 48 * 1024:
-            raise AssertionError(f"wide select {name} S={S}: a row of {row_bytes} bytes")
+        if not lo < row_bytes <= hi:
+            raise AssertionError(f"{tag} {name} S={S}: a row of {row_bytes} bytes")
         scale = None if dtype == torch.int8 else (lambda a, f: _f32_scale(torch, a, f))
+        label = f"{tag.replace('_', ' ')} {name} n={n} S={S}"
         before = gs.launches
-        err = _hold_wide(torch, gs.giga_select, gs.giga_select_ref, args, kill,
-                         f"wide select {name} n={n} S={S}", scale=scale)
+        err = _hold_wide(torch, gs.giga_select, gs.giga_select_ref, args, _kill, label,
+                         scale=scale)
         if gs.launches - before != 3:
-            raise AssertionError(f"wide select {name} S={S}: {gs.launches - before} launches "
-                                 "for 3 selects")
+            raise AssertionError(f"{label}: {gs.launches - before} launches for 3 selects")
         max_err = max(max_err, err)
         # the random case's scores against row f's f64 score: the kernel's
         # and the plain version's rounding apart
@@ -574,25 +619,17 @@ def _wide_select(torch, lib):
         pi, pscore = gs.giga_select_ref(*args)
         s64, size = _f32_scale(torch, args, int(pi)) if scale else (float(pscore), 0.0)
         if abs(float(ks) - s64) > SELECT_TOL * abs(s64):
-            raise AssertionError(f"wide select {name} n={n} S={S}: kernel score {float(ks)} "
-                                 f"against {s64} in f64")
+            raise AssertionError(f"{label}: kernel score {float(ks)} against {s64} in f64")
         f64 = dict(score_f64=f"{s64:.9e}", kernel_rel_err_f64=f"{abs(float(ks) - s64) / abs(s64):.3e}",
                    plain_rel_err_f64=f"{abs(float(pscore) - s64) / abs(s64):.3e}",
                    kernel_plain_rel=f"{abs(float(ks) - float(pscore)) / abs(float(pscore)):.3e}",
                    abs_scale=f"{size:.4e}")
-        ws, stream = gs.workspace(c.Vsel.device)
-        idx = torch.empty(1, dtype=torch.int32, device="cuda")
-        score = torch.empty(1, dtype=torch.float32, device="cuda")
-        ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-        k_ms = _direct_ms(torch, lib.giga_select_launch, ptr(c.Vsel), gs._DTYPE_CODE[dtype],
-                          n, row_bytes, ptr(dirs), S, ptr(c.norms), ptr(c.valid), ptr(ws),
-                          ptr(idx), ptr(score), ctypes.c_void_p(stream))
+        k_ms, bound_ms, bound_by = _time_select(torch, lib, args, S)
         p_ms = _median_ms(torch, lambda: gs.giga_select_ref(*args), batches=3, per_batch=3)
         lib_ms, lib_how = _library_ms(torch, c.Vsel, dirs)
-        bound_ms, bound_by = _select_bound(torch, c.Vsel, S)
         # every matrix here is far larger than L2: a batch of launches is as
         # cold as a single launch after a flush
-        say("select_wide", dtype=name, n=n, S=S, row_bytes=row_bytes,
+        say(tag, dtype=name, n=n, S=S, row_bytes=row_bytes,
             kernel_ms=f"{k_ms:.4f}", cold_l2_ms="=kernel_ms(matrix>L2)",
             plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
             bound_by=bound_by, share_of_bound=f"{bound_ms / k_ms:.3f}",
@@ -602,6 +639,33 @@ def _wide_select(torch, lib):
             max_abs_err=err, **f64, checks="random,invalid_winner,ties")
         del c, args, dirs
         torch.cuda.empty_cache()
+    return max_err
+
+
+def _time_select(torch, lib, args, S):
+    """Kernel 1's time on (Vsel, dirs, norms, valid) from a batch of direct
+    launches, and its bound: (ms, bound_ms, bound_by)."""
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+    Vsel, dirs, norms, valid = args
+    ws, stream = gs.workspace(Vsel.device)
+    idx = torch.empty(1, dtype=torch.int32, device=Vsel.device)
+    score = torch.empty(1, dtype=torch.float32, device=Vsel.device)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    k_ms = _direct_ms(torch, lib.giga_select_launch, ptr(Vsel), gs._DTYPE_CODE[Vsel.dtype],
+                      Vsel.shape[0], Vsel.shape[1] * Vsel.element_size(), ptr(dirs), S,
+                      ptr(norms), ptr(valid), ptr(ws), ptr(idx), ptr(score),
+                      ctypes.c_void_p(stream))
+    return (k_ms, *_select_bound(torch, Vsel, S))
+
+
+def _wide_select(torch, lib):
+    """Kernel 1 on rows of 4-48 KB (``MID_SELECT``), then past 48 KB
+    (``WIDE_SELECT``), through the wide-row kernel; then int8 dots past
+    2^24."""
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+
+    max_err = max(_rows_select(torch, lib, MID_SELECT, "select_mid", 4096, 48 * 1024),
+                  _rows_select(torch, lib, WIDE_SELECT, "select_wide", 48 * 1024, 1 << 20))
 
     # int8 dots past 2^24: rows aligned with +-1 directions reach 49168 *
     # 127^2 = 7.9e8, where int32 -> f32 rounds (to nearest even, as the plain
@@ -1932,25 +1996,25 @@ def _finite_columns(table, name):
             raise AssertionError(f"{name}: column {k} is not finite: {col}")
 
 
-def _hold_driver_select(torch, coreset, label):
-    """Kernel 1 against its plain version on a driver's own select copy,
-    with GIGA's directions from the build's end state (b and xw), then with
-    the winner dead, then with copies of the winner before and after it.
-    Returns the largest score error; the launches are not counted."""
-    from bayesian_coresets_tpu_torch.ops import giga_select as gs
-
-    def kill(args, f):
-        ok = args[3].clone()
-        ok[f] = False
-        return [*args[:3], ok]
-
+def _driver_select_args(torch, coreset):
+    """A driver's own select copy with GIGA's directions from the build's
+    end state (b and xw): (Vsel, dirs, norms, valid)."""
     c, st = coreset.snnls.consts, coreset.snnls.state
     bn = c.b / torch.linalg.vector_norm(c.b)
     xwn = st.xw / torch.linalg.vector_norm(st.xw)
     cd = bn - (bn @ xwn) * xwn
     dirs = torch.stack([cd / torch.linalg.vector_norm(cd), xwn], dim=1).contiguous()
+    return [c.Vsel, dirs, c.norms, c.valid]
+
+
+def _hold_driver_select(torch, coreset, label):
+    """Kernel 1 against its plain version on a driver's own select copy
+    (``_driver_select_args``), then with the winner dead, then with copies
+    of the winner before and after it.  Returns the largest score error;
+    the launches are not counted."""
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
     return _hold_wide(torch, gs.giga_select, gs.giga_select_ref,
-                      [c.Vsel, dirs, c.norms, c.valid], kill, label,
+                      _driver_select_args(torch, coreset), _kill, label,
                       scale=lambda a, f: _f32_scale(torch, a, f))
 
 
@@ -2058,6 +2122,12 @@ def _exp_linear_regression(gs):
     itr, cpu_itr = int(coreset.snnls.state.itr), int(cpu_coreset.snnls.state.itr)
     Vsel = coreset.snnls.consts.Vsel
     hold_err = _hold_driver_select(torch, coreset, "linear_regression select")
+    # the select's time per launch on the driver's own copy (412 MB, far
+    # past L2: a batch is as cold as the driver's launches)
+    from bayesian_coresets_tpu_torch.ops import _cuda_build
+    args = _driver_select_args(torch, coreset)
+    sel_ms, sel_bound, _ = _time_select(torch, _cuda_build.load_library(), args,
+                                        args[1].shape[0])
     keys = ("rklw", "fklw", "mu_errs", "Sig_errs")
     _finite_columns(card, "linear_regression")
     below = cpu["csizes"] < 100          # the driver's default proj_dim
@@ -2070,7 +2140,10 @@ def _exp_linear_regression(gs):
               **{f"max_rel_diff_{k}_below_proj_dim": f"{v:.3g}" for k, v in rel.items()},
               csizes=",".join(str(int(c)) for c in card["csizes"]),
               cpu_csizes=",".join(str(int(c)) for c in cpu["csizes"]),
-              select_held=f"{Vsel.dtype}:{tuple(Vsel.shape)}", select_max_abs_err=hold_err)
+              select_held=f"{Vsel.dtype}:{tuple(Vsel.shape)}", select_max_abs_err=hold_err,
+              select_ms_per_launch=f"{sel_ms:.4f}", select_bound_ms=f"{sel_bound:.4f}",
+              select_share_of_bound=f"{sel_bound / sel_ms:.3f}",
+              select_ms_in_run=f"{sel_ms * launches:.2f}")
     if launches != itr or itr == 0 or cpu_launches:
         raise AssertionError(f"linear_regression: {launches} select launches for {itr} "
                              f"iterations, {cpu_launches} on the CPU")
@@ -2504,6 +2577,17 @@ def _proj_kernels(torch):
                 ("giga_score_select", sl, lambda: gs.giga_score_select_ref(kd, norms, valid))):
             times[kname] = (_direct_ms(torch, *launch), _cold_ms(torch, _launcher(*launch)),
                             _median_ms(torch, plain, batches=3, per_batch=3))
+        # the score kernel's floor: an empty kernel launched by the same host
+        # path with the same arguments, timed the same ways; and both kernels
+        # in a CUDA graph (no host work between launches: device time)
+        el = (lib.giga_empty_launch, *sl[1:])
+        graph_ws = torch.zeros(2, dtype=torch.int64, device="cuda")
+        floor = {"empty_kernel_ms": _direct_ms(torch, *el),
+                 "empty_kernel_cold_ms": _cold_ms(torch, _launcher(*el))}
+        for key, fn in (("score_graph_ms", lib.giga_score_launch),
+                        ("empty_graph_ms", lib.giga_empty_launch)):
+            floor[key] = _graph_ms(torch, lambda st, fn=fn: _launcher(
+                fn, *sl[1:6], ptr(graph_ws), ptr(idx), ptr(score), ctypes.c_void_p(st)))
         lib_ms, lib_how = _library_ms(torch, V, dirs)
         bounds = {"giga_dots": _bound(V.numel() * V.element_size() + S * 2 * 4 + n * 2 * 4,
                                       4 * n * V.shape[1], name),
@@ -2524,7 +2608,9 @@ def _proj_kernels(torch):
                 library=lib_how if kname == "giga_dots" else "none",
                 max_abs_err=dots_err if kname == "giga_dots" else score_err,
                 checks=("exact_int32" if dtype == torch.int8 else "f32_1e-5") if
-                kname == "giga_dots" else "random,ties,all_invalid,fused_bitwise")
+                kname == "giga_dots" else "random,ties,all_invalid,fused_bitwise",
+                **({} if kname == "giga_dots" else
+                   {k: f"{v:.4f}" for k, v in floor.items()}))
             if name == PROJ_KERNEL_SHAPES[0][0]:
                 line[kname] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                                "library_ms": lms}

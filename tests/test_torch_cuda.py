@@ -11,7 +11,11 @@ card against the CPU, SparseVI and BatchPSVI builds that read nothing
 back from the card but SparseVI's one flag per select, and the
 synthetic_vectors experiment driver on the card against ``--device cpu``;
 the proj axis's two kernels (the select's dots-only mode and the score of
-summed dots) against their plain versions and against the fused select.
+summed dots) against their plain versions and against the fused select;
+rows of 4-48 KB (past the ring kernel's limit) through the select and its
+dots-only mode at every dtype, and the score kernel at row counts off its
+block and grid, on views off 16-byte alignment, with ties at the first
+and last rows and 100 calls back to back.
 
 Every test here needs a card and skips without one.  This file imports no
 JAX, so it also runs where JAX is absent; there, skip the JAX conftest:
@@ -935,3 +939,167 @@ def test_score_calls_on_two_streams(cuda_device):
     assert [int(o[0]) for o in outs] == want * 10
     keys = {k for k in gs._workspaces if k[1] in {s.cuda_stream for s in streams}}
     assert len(keys) == 2
+
+
+# Mid-width rows, 4-48 KB: past the ring kernel's 4 KB (int8: 4608 bytes)
+# they take the wide-row kernel, in groups of 8 rows walked in 4 KB pieces.
+# (kind, S): 4096 bytes (the ring kernel's last f32 and bf16 width), 4112
+# (the first past it: a second piece of one chunk), 4608 and 4624 (the
+# int8 limit and the first int8 width past it), 5120 and 5136, 6 KB, 8 KB
+# and 8208 (a third piece of one chunk), 16 and 32 KB, linear_regression's
+# f32 rows (10301 columns, padded to 41216 bytes) and 48 KB; n=1037 is off
+# every group of 8 rows and every block's share.
+MID_ROW_BYTES = [4096, 4112, 4608, 4624, 5120, 5136, 6144, 8192, 8208, 16384, 32768, 41216,
+                 49152]
+MID_ELEM = {"int8": 1, "bfloat16": 2, "float32": 4}
+MID = [(k, 10301 if (k, rb) == ("float32", 41216) else rb // e)
+       for rb in MID_ROW_BYTES for k, e in MID_ELEM.items()]
+MID_IDS = [f"{k}-{S}" for k, S in MID]
+MID_N = 1037
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,S", MID, ids=MID_IDS)
+def test_mid_rows_match_plain(kind, S, cuda_device):
+    """Random directions, the winner invalid, copies of the winner far
+    before it and at the last row (the first wins), every row invalid."""
+    args = _wide_inputs(kind, S, cuda_device, n=MID_N, seed=S)
+    row_bytes = args[0].shape[1] * args[0].element_size()
+    assert 4096 <= row_bytes <= 48 * 1024
+    f = _hold_wide(kind, args)
+    dead = list(args)
+    dead[3] = args[3].clone()
+    dead[3][f] = False
+    assert _hold_wide(kind, dead) != f
+    tied = list(args)
+    tied[0], tied[2] = args[0].clone(), args[2].clone()
+    first = f // 2 if f > 1 else f
+    for j in (first, MID_N - 1):
+        tied[0][j], tied[2][j] = args[0][f], args[2][f]
+    _hold_wide(kind, tied, expect_idx=min(first, f))
+    dead[3] = torch.zeros_like(args[3])
+    _hold_wide(kind, dead, expect_idx=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,S", MID, ids=MID_IDS)
+def test_mid_rows_dots_match_plain(kind, S, cuda_device):
+    """The dots-only mode at mid-width rows: int8 dots equal the plain
+    version's, f32 and bf16 within 1e-5 of the largest; one launch."""
+    Vsel, dirs, _, _ = _wide_inputs(kind, S, cuda_device, n=MID_N, seed=S + 1)
+    before = gs.dots_launches
+    kd = gs.giga_dots(Vsel, dirs)
+    torch.cuda.synchronize()
+    assert gs.dots_launches == before + 1 and kd.shape == (MID_N, 2)
+    _dots_close(kd, gs.giga_dots_ref(Vsel, dirs), kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,S", [("float32", 1028), ("bfloat16", 2056), ("float32", 4096),
+                                    ("float32", 10301), ("bfloat16", 24576)])
+def test_mid_rows_repeat_bit_identical(kind, S, cuda_device):
+    """100 launches of an f32 or bf16 mid-width select, and 10 of its
+    dots-only mode, give the same bits: the row sums are combined in a
+    fixed order."""
+    args = _wide_inputs(kind, S, cuda_device, n=MID_N, seed=S + 2)
+    out = [gs.giga_select(*args) for _ in range(100)]
+    dots = [gs.giga_dots(args[0], args[1]) for _ in range(10)]
+    torch.cuda.synchronize()
+    idx = torch.stack([o[0] for o in out]).cpu()
+    bits = torch.stack([o[1] for o in out]).view(torch.int32).cpu()
+    assert bool((idx == idx[0]).all()) and bool((bits == bits[0]).all())
+    assert all(torch.equal(d.view(torch.int32), dots[0].view(torch.int32)) for d in dots)
+
+
+def _score_inputs(kind, n, dev, seed=0):
+    """(dots, norms, valid) of a score select on ``dev``: int32 dots of an
+    int8 select (|d| <= 127^2), or f32 sums with their row norms; a tenth
+    of the rows invalid."""
+    rng = np.random.default_rng(seed)
+    norms = rng.uniform(0.5, 2.0, size=n).astype(np.float32)
+    if kind == "int8":
+        dots = rng.integers(-16129, 16130, size=(n, 2)).astype(np.int32)
+    else:
+        dots = (rng.uniform(-1.0, 1.0, size=(n, 2)) * norms[:, None]).astype(np.float32)
+    valid = rng.uniform(size=n) > 0.1
+    return [torch.as_tensor(a, device=dev) for a in (dots, norms, valid)]
+
+
+def _hold_score(args, expect_idx=None):
+    ki, ks = gs.giga_score_select(*args)
+    pi, pscore = gs.giga_score_select_ref(*args)
+    assert int(ki) == int(pi)
+    if expect_idx is not None:
+        assert int(ki) == expect_idx
+    if float(pscore) == -np.inf:
+        assert float(ks) == -np.inf
+    else:
+        assert float(ks) == float(pscore)
+    return int(pi)
+
+
+# n=1, off a warp and a block's 288 rows, and past one pass of the grid
+# (4 blocks of 288 rows an SM: 152064 rows on the H100)
+SCORE_N = [1, 2, 15, 17, 4095, 4097, 32771, 100_000, 1_200_007]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SCORE_N)
+@pytest.mark.parametrize("kind", ["int8", "float32"])
+def test_score_kernel_row_counts(kind, n, cuda_device):
+    """The score kernel at row counts off a warp, a block, the grid's step
+    and its passes: the plain version's index and score (the same
+    arithmetic: equal), then with every row invalid (row 0, -inf)."""
+    args = _score_inputs(kind, n, cuda_device, seed=n)
+    before = gs.score_launches
+    _hold_score(args)
+    assert gs.score_launches == before + 1
+    _hold_score([args[0], args[1], torch.zeros_like(args[2])], expect_idx=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "float32"])
+def test_score_kernel_ties_at_the_first_and_last_rows(kind, cuda_device):
+    """The winner copied to row 0 (row 0 wins) and to the last row (the
+    first copy wins); the only maximum at the last row, off every block's
+    step; and the same on views one row in (off 16-byte alignment)."""
+    n = 100_003
+    dots, norms, valid = _score_inputs(kind, n, cuda_device, seed=5)
+    valid[:] = True
+    f = _hold_score([dots, norms, valid])
+    for places, want in (((0, n - 1), 0), ((n - 1,), min(f, n - 1)), ((f // 3, n - 1), f // 3)):
+        d, nr = dots.clone(), norms.clone()
+        for j in places:
+            d[j], nr[j] = dots[f], norms[f]
+        _hold_score([d, nr, valid], expect_idx=want)
+    d, nr = dots.clone(), norms.clone()
+    d[f], nr[f] = d[0], nr[0]                 # the old winner no longer wins
+    d[n - 1], nr[n - 1] = dots[f], norms[f]   # the only copy of it, at the last row
+    _hold_score([d, nr, valid], expect_idx=n - 1)
+    # views one row in: dots 8 bytes, norms 4 and valid 1 off 16-byte alignment
+    _hold_score([d[1:], nr[1:], valid[1:]], expect_idx=n - 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "float32"])
+def test_score_kernel_back_to_back_on_one_workspace(kind, cuda_device):
+    """100 score launches on one stream with no reset between them, an
+    all-invalid one among them: each leaves the key and ticket zero."""
+    dots, norms, valid = _score_inputs(kind, 100_000, cuda_device, seed=9)
+    variants = []
+    for k in range(5):                        # the valid rows of a fifth each: 5 winners
+        ok = valid.clone()
+        ok[: 20_000 * k] = False
+        ok[20_000 * (k + 1):] = False
+        variants.append([dots, norms, ok])
+    want = [int(gs.giga_score_select_ref(*v)[0]) for v in variants]
+    assert [w // 20_000 for w in want] == list(range(5))
+    args = variants[0]
+    got, dead_out = [], None
+    for r in range(100):
+        if r == 50:
+            dead_out = gs.giga_score_select(args[0], args[1], torch.zeros_like(args[2]))
+        got.append(gs.giga_score_select(*variants[r % 5])[0])
+    torch.cuda.synchronize()
+    assert [int(g) for g in got] == [want[r % 5] for r in range(100)]
+    assert int(dead_out[0]) == 0 and float(dead_out[1]) == -np.inf

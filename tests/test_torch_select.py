@@ -8,6 +8,15 @@ exactly.  The score may differ by 1e-6 relative: for f32 and bf16 the
 Pallas kernel multiplies by ``nrminv = 1/norms`` where the port divides by
 ``norms``.  The CUDA kernel itself is checked against the plain version
 only on a card, in tests/test_torch_cuda.py (marker ``cuda``).
+
+Besides the narrow rows (S=120) at every dtype, the select and the dots are
+held at mid-width rows with a small n: f32 S=2048 (8 KB rows) and 12288
+(48 KB), int8 S=16384 (16 KB), which the card streams through its wide-row
+kernel.  The dots of ``giga_dots`` against ``_select_dots``: int8 dots equal
+as integers (the JAX package's f32 ``dots * 1/127^2`` times 127^2, rounded,
+recovers its int32 sums exactly below 2^22), f32 dots (divided by the
+norms) within rtol 1e-5 and 1e-5 of the largest (sums of up to 12288
+products in another order).
 """
 
 import jax.numpy as jnp
@@ -23,43 +32,52 @@ from bayesian_coresets_tpu_torch.ops import giga_select as gs
 torch.set_num_threads(1)
 
 NP, SP, S = 2048, 128, 120          # JAX's tile asserts: np % 1024, Sp % 128
+NP_MID, TILE_MID = 256, 128         # mid-width rows: rows, the Pallas kernel's tile
 DTYPES = {"int8": (jnp.int8, torch.int8), "bfloat16": (jnp.bfloat16, torch.bfloat16),
           "float32": (jnp.float32, torch.float32)}
 CASES = ["random", "invalid_tile", "all_invalid", "ties"]
+# (dtype, columns): the narrow rows at every dtype, then the mid-width rows
+MID_SHAPES = [("float32", 2048), ("float32", 12288), ("int8", 16384)]
+SHAPES = ([pytest.param(sd, S, id=sd) for sd in DTYPES]
+          + [pytest.param(sd, cols, id=f"{sd}-S{cols}") for sd, cols in MID_SHAPES])
 
 
 def _unit(v):
     return v / np.linalg.norm(v)
 
 
-def _inputs(case, sd, seed=0):
-    """(V f32 (NP, S), Vsel numpy (NP, SP), norms, valid, dirs (S, 2))."""
-    rng = np.random.default_rng(seed)
-    V = rng.normal(size=(NP, S)).astype(np.float32)
-    valid = np.ones(NP, bool)
+def _inputs(case, sd, seed=0, cols=S):
+    """(V f32 (NP, S), Vsel numpy (NP, SP), norms, valid, dirs (S, 2)); at
+    mid-width columns (V (NP_MID, cols), Vsel (NP_MID, cols)) the cases'
+    rows sit at the same fractions of n."""
+    n, sp = (NP, SP) if cols == S else (NP_MID, cols)
+    at = lambda i: i * n // NP          # noqa: E731  (row i of NP, at n rows)
+    rng = np.random.default_rng(seed if cols == S else seed + cols)
+    V = rng.normal(size=(n, cols)).astype(np.float32)
+    valid = np.ones(n, bool)
     # directions as GIGA forms them: cdir_n orthogonal to xw_n, both unit
-    xw = _unit(V[:40].sum(axis=0) + 0.1 * rng.normal(size=S))
+    xw = _unit(V[:40].sum(axis=0) + 0.1 * rng.normal(size=cols))
     bvec = _unit(V.sum(axis=0))
     cd = _unit(bvec - (bvec @ xw) * xw)
     dirs = np.stack([cd, xw], axis=1).astype(np.float32)
     if case == "invalid_tile":
-        valid[1024:] = False
+        valid[at(1024):] = False
         # the best rows of the whole input sit in the invalid tile
-        V[1500] = 5.0 * cd
-        V[1600] = 3.0 * cd
+        V[at(1500)] = 5.0 * cd
+        V[at(1600)] = 3.0 * cd
     elif case == "all_invalid":
         valid[:] = False
     elif case == "ties":
         best = int(np.argmax(V @ cd / np.linalg.norm(V, axis=1)))
-        V[[best // 2, best, NP - 1]] = V[best]       # three copies of the best row
-        V[1700:1710] = V[best // 2]
+        V[[best // 2, best, n - 1]] = V[best]        # three copies of the best row
+        V[at(1700):at(1710)] = V[best // 2]
     norms = np.linalg.norm(V, axis=1).astype(np.float32)
     if sd == "int8":
         Vsel = np.clip(np.round(V / norms[:, None] * 127.0), -127, 127).astype(np.int8)
     else:
         Vsel = V.astype(DTYPES[sd][0]) if sd == "bfloat16" else V
         Vsel = np.asarray(Vsel)
-    Vsel = np.pad(Vsel, ((0, 0), (0, SP - S)))
+    Vsel = np.pad(Vsel, ((0, 0), (0, sp - cols)))
     return V, Vsel, norms, valid, dirs
 
 
@@ -73,15 +91,23 @@ def _port(Vsel, norms, valid, dirs, sd):
     return int(i), float(s)
 
 
+def _jax_consts(V, Vsel, norms, valid, sd):
+    return jsn.SNNLSConsts(jnp.asarray(V), jnp.zeros(V.shape[1]), jnp.asarray(norms),
+                           jnp.float32(1.0), jnp.asarray(valid), jnp.zeros(0),
+                           jnp.asarray(Vsel) if sd != "float32" else jnp.asarray(V)[:0])
+
+
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("sd", list(DTYPES))
-def test_plain_select_matches_pallas_kernel(sd, case):
-    _, Vsel, norms, valid, dirs = _inputs(case, sd)
-    nrminv = np.ones(NP, np.float32) if sd == "int8" else (1.0 / norms).astype(np.float32)
+@pytest.mark.parametrize("sd,cols", SHAPES)
+def test_plain_select_matches_pallas_kernel(sd, cols, case):
+    _, Vsel, norms, valid, dirs = _inputs(case, sd, cols=cols)
+    nrminv = (np.ones(len(norms), np.float32) if sd == "int8"
+              else (1.0 / norms).astype(np.float32))
     bias = np.where(valid, 0.0, -np.inf).astype(np.float32)
+    tile = 1024 if cols == S else TILE_MID
     with pltpu.force_tpu_interpret_mode():
         ji, js = giga_select_pallas(jnp.asarray(Vsel), jnp.asarray(dirs),
-                                    jnp.asarray(nrminv), jnp.asarray(bias))
+                                    jnp.asarray(nrminv), jnp.asarray(bias), tile_rows=tile)
     ti, ts = _port(Vsel, norms, valid, dirs, sd)
     assert ti == int(ji)
     if case == "all_invalid":
@@ -91,13 +117,11 @@ def test_plain_select_matches_pallas_kernel(sd, case):
 
 
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("sd", list(DTYPES))
-def test_plain_select_matches_default_select(sd, case):
+@pytest.mark.parametrize("sd,cols", SHAPES)
+def test_plain_select_matches_default_select(sd, cols, case):
     """The JAX package's default select: score matmul, guards, argmax."""
-    V, Vsel, norms, valid, dirs = _inputs(case, sd)
-    consts = jsn.SNNLSConsts(jnp.asarray(V), jnp.zeros(S), jnp.asarray(norms),
-                             jnp.float32(1.0), jnp.asarray(valid), jnp.zeros(0),
-                             jnp.asarray(Vsel) if sd != "float32" else jnp.asarray(V)[:0])
+    V, Vsel, norms, valid, dirs = _inputs(case, sd, cols=cols)
+    consts = _jax_consts(V, Vsel, norms, valid, sd)
     dots = jsn._select_dots(consts, jnp.asarray(dirs))
     d1 = dots[:, 1]
     geo_ok = (d1 > -1.0 + 1e-14) & (1.0 - d1 * d1 > 0.0)
@@ -111,6 +135,25 @@ def test_plain_select_matches_default_select(sd, case):
         assert ti == 0 and ts == -np.inf
     else:
         np.testing.assert_allclose(ts, float(js), rtol=1e-6)
+
+
+@pytest.mark.parametrize("sd,cols", [p for p in SHAPES if p.values[0] != "bfloat16"])
+def test_plain_dots_match_jax(sd, cols):
+    """``giga_dots`` (the dots-only mode's plain version) against the JAX
+    package's ``_select_dots`` on the same rows and directions."""
+    V, Vsel, norms, valid, dirs = _inputs("random", sd, cols=cols)
+    want = np.asarray(jsn._select_dots(_jax_consts(V, Vsel, norms, valid, sd),
+                                       jnp.asarray(dirs)))
+    got = gs.giga_dots(torch.as_tensor(Vsel), torch.as_tensor(dirs))
+    if sd == "int8":
+        assert got.dtype == torch.int32
+        ints = np.rint(want.astype(np.float64) * 127.0 ** 2).astype(np.int64)
+        assert np.abs(ints).max() < 2 ** 22
+        np.testing.assert_array_equal(got.numpy().astype(np.int64), ints)
+    else:
+        assert got.dtype == torch.float32
+        scaled = (got / torch.as_tensor(norms)[:, None]).numpy()
+        np.testing.assert_allclose(scaled, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
 def test_ties_pick_the_first_maximum():
