@@ -1,9 +1,11 @@
 """Numerical kernels: the sparse-NNLS solvers (GIGA, Frank-Wolfe, OMP,
 importance and uniform sampling), their fused select, the packed-int4
 select probe, the active-set NNLS re-solve, and projected Adam; the
-solvers also run on int8-resident constants (``make_consts_quantized``)."""
+solvers also run on int8-resident constants (``make_consts_quantized``).
+On a CUDA device the build loop and the re-solve replay CUDA graphs
+(``graphs``)."""
 
-from . import giga_select, nnls, packed_select
+from . import giga_select, graphs, nnls, packed_select
 from .opt import nn_opt
 from .snnls import (
     GIGA,
@@ -38,5 +40,6 @@ __all__ = [
     "nn_opt",
     "nnls",
     "giga_select",
+    "graphs",
     "packed_select",
 ]

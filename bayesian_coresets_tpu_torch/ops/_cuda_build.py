@@ -103,6 +103,7 @@ def load_library() -> ctypes.CDLL:
                 (lib.giga_dots_launch, [ptr, i32, i64, i64, ptr, i32, ptr, ptr]),
                 (lib.giga_score_launch, [ptr, i32, i64] + [ptr] * 6),
                 (lib.giga_empty_launch, [ptr, i32, i64] + [ptr] * 6),
+                (lib.fold_scale_launch, [ptr, i64, ptr, ptr, ptr]),
             ]:
                 fn.restype = ctypes.c_int
                 fn.argtypes = args

@@ -109,7 +109,7 @@ def giga_select_ref(Vsel: torch.Tensor, dirs: torch.Tensor, norms: torch.Tensor,
         V, nr = Vsel[r:r + _REF_BLOCK_ROWS], norms[r:r + _REF_BLOCK_ROWS]
         score = score_rows(_ref_scale(_ref_dots(V, q), nr), valid[r:r + _REF_BLOCK_ROWS])
         f = torch.argmax(score)
-        s, f = score[f], (f + r).to(torch.int32)
+        s, f = score.index_select(0, f.view(1))[0], (f + r).to(torch.int32)
         if best_f is None:
             best_f, best_s = f, s
         else:                          # a later block wins only with a larger score
@@ -151,7 +151,7 @@ def giga_score_select_ref(dots: torch.Tensor, norms: torch.Tensor, valid: torch.
     index, f32 score), 0-dim tensors."""
     score = score_rows(_ref_scale(dots, norms), valid)
     f = torch.argmax(score)
-    return f.to(torch.int32), score[f]
+    return f.to(torch.int32), score.index_select(0, f.view(1))[0]
 
 
 def _check_rows(Vsel, dirs):

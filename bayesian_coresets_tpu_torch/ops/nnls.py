@@ -6,7 +6,9 @@ gathered active-set system.  The active set is small (at most the coreset
 size), so the Gram matrix is a (K, K) block and the solve costs nothing
 that scales with n.  The Gram products are plain ``torch`` matmuls, as the
 JAX package computes them outside any Pallas kernel.  The loops run a fixed
-number of iterations and read nothing back to the host.
+number of iterations and read nothing back to the host (the JAX package's
+``fori_loop``), so a CUDA graph captures a whole solve
+(``snnls.optimize_active``).
 """
 
 from __future__ import annotations

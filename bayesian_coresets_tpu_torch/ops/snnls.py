@@ -31,14 +31,18 @@ step for step:
   the dense matvec gathers only the top ``support`` weights' rows
   (:func:`_v_matvec`).
 
-Where the JAX package runs the whole build as one ``lax.while_loop``, this
-is an eager Python loop over the same step.  The iteration count is kept on
-the host (so the refresh cadence needs no device read), and the
-conditions that depend on the device (the loop guard ``done``, which the
-overflow latch feeds, and for GIGA and Frank-Wolfe the wscale fold) come
-back in ONE small device-to-host transfer per iteration.  The weight vector
-(the sampling solvers' counts) is updated in place: ``build`` copies it once
-on entry.
+The JAX package runs the whole build as one ``lax.while_loop``
+(``build_core``).  Here the loop body is :func:`_segment`: ``n`` iterations
+on device values alone, each gated by a device flag ``live = (itr <
+itr_end) & ~done`` (JAX's ``cond``) that every write is ``where``-gated by,
+so that a segment that outlives the build or latches ``done`` half-way
+changes nothing more.  :func:`build` walks the segments of
+:func:`segments` (the refresh begins a segment, at multiples of
+``REFRESH_EVERY``) and reads back one pair (``done``, ``itr``) per segment.
+On a CUDA device without ``comm`` each segment is a replayed CUDA graph
+(:mod:`.graphs`); on CPU tensors and in sharded builds the segments are one
+iteration long and run directly.  The weight vector (the sampling solvers'
+counts) is updated in place: ``build`` copies it once on entry.
 
 The O(S) and O(K*S) reductions of the step (the scalar cache, the reweight
 dots, the support refresh) accumulate in float64 and round to float32, and
@@ -52,6 +56,7 @@ multiplies by its reciprocal, which the CPU does not.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import NamedTuple
 
@@ -62,12 +67,21 @@ import torch.nn.functional as F
 from .. import native
 from ..utils import checkpoint, config
 from ..utils.errors import NumericalPrecisionError
+from . import graphs
+from .fold_scale import fold_scale
 from .giga_select import (col_multiple, giga_dots, giga_score_select, giga_select,
                           quantize_dirs, sqrt_rn)
 from .nnls import nnls_rows
 
 REFRESH_EVERY = 64      # exact xw = A@w recompute cadence (f32 drift control)
 _WSCALE_FLOOR = 1e-10   # fold the carried scale into w before it underflows
+# iterations per replayed segment: REFRESH_EVERY, but OMP's iteration is
+# ~6700 kernels (its 256 FISTA steps), so its graphs hold 4 (~27k nodes; a
+# graph of 8 took 0.95 s to capture and instantiate on an H100, and chunked
+# builds capture a head and a tail of their own)
+_GRAPH_SEGMENT = {"orthopursuit": 4}
+
+itrs_run = 0    # iterations build's segments ran (since last set to 0), gated ones included
 
 
 class SNNLSConsts(NamedTuple):
@@ -447,8 +461,9 @@ class GigaAux(NamedTuple):
 def _aux_from_xw(consts: SNNLSConsts, xw: torch.Tensor, wscale=1.0, comm=None) -> GigaAux:
     r = (xw - consts.b).double()
     bxw, nw2, err2 = _sdots([(consts.b, xw), (xw, xw), (r, r)], comm)
-    return GigaAux(bxw, nw2, sqrt_rn(err2),
-                   torch.as_tensor(wscale, dtype=torch.float32, device=xw.device))
+    if not isinstance(wscale, torch.Tensor):      # a fill: no host-to-device copy
+        wscale = torch.full((), wscale, dtype=torch.float32, device=xw.device)
+    return GigaAux(bxw, nw2, sqrt_rn(err2), wscale)
 
 
 class GigaStep(NamedTuple):
@@ -488,7 +503,9 @@ def _select(consts: SNNLSConsts, dirs: torch.Tensor, comm):
 
 
 def _giga_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux,
-               tol: float, comm=None) -> GigaStep:
+               tol: float, comm=None, live=None) -> GigaStep:
+    """One GIGA step's candidate; ``live`` (a device flag, or None for
+    true) gates its commit."""
     bnorm = torch.where(consts.bnorm == 0, 1.0, consts.bnorm)
     bn = consts.b / bnorm
     nw = sqrt_rn(torch.clamp_min(aux.nw2, 0.0))
@@ -535,7 +552,7 @@ def _giga_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux,
     new_wf = torch.clamp_min(alpha * old_wf + beta, 0.0)
     delta = new_wf - alpha * old_wf
     xw2 = alpha * state.xw + delta * xf                # xw stays TRUE-scale
-    aux2 = _aux_from_xw(consts, xw2, comm=comm)
+    aux2 = _aux_from_xw(consts, xw2, wscale=aux.wscale, comm=comm)
 
     # monotonicity check (reference snnls.py:54-61).  Kept as the JAX
     # package has it: with support slots, size > 0 also counts atoms whose
@@ -547,7 +564,7 @@ def _giga_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux,
     monotone_ok = ~size_nonzero | (aux2.err <= aux.err * (1.0 + tol))
     ok = ok_sel & ok_rw & monotone_ok & torch.isfinite(aux2.err)
     idcs2, size2, overflow = _track_support(state, f)
-    commit = ok & ~overflow
+    commit = _gate(ok & ~overflow, live)
 
     aux_out = GigaAux(bxw=torch.where(commit, aux2.bxw, aux.bxw),
                       nw2=torch.where(commit, aux2.nw2, aux.nw2),
@@ -558,20 +575,22 @@ def _giga_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux,
                     ok, overflow, idcs2, size2, aux_out)
 
 
-def _carried_commit(state: SNNLSState, st: GigaStep, fold_commit: bool, comm=None):
+def _gate(flag: torch.Tensor, live) -> torch.Tensor:
+    return flag if live is None else flag & live
+
+
+def _carried_commit(state: SNNLSState, st: GigaStep, comm=None):
     """Commit a scale-carried rank-1 update: the global alpha rescale folds
     into wscale, and only index f of the weights is written — in place.
-    ``fold_commit`` (read on the host) says the scale would underflow and
-    the step commits: then the scale is folded into every weight first
-    (the O(n) pass of the JAX package's ``lax.cond``)."""
+    Where the scale would underflow and the step commits (``fold &
+    commit``, a device flag), the scale is first folded into every weight,
+    the JAX package's ``lax.cond`` (ops/snnls.py:698 there), by
+    :func:`.fold_scale.fold_scale`, a kernel that returns at once while the
+    flag is clear; the written weight is then ``new_wf / 1.0``, itself."""
     w = state.w
-    if fold_commit:
-        w.mul_(st.ws2)
-        _set1(w, st.fl, st.new_wf, comm)
-    else:
-        raw = torch.where(st.commit,
-                          st.new_wf / torch.where(st.fold, 1.0, st.ws2), st.old_raw)
-        _set1(w, st.fl, raw, comm)
+    fold_scale(w, st.fold & st.commit, st.ws2)
+    raw = torch.where(st.commit, st.new_wf / torch.where(st.fold, 1.0, st.ws2), st.old_raw)
+    _set1(w, st.fl, raw, comm)
     ws_out = torch.where(st.commit, torch.where(st.fold, 1.0, st.ws2), st.aux.wscale)
     return (w,
             torch.where(st.commit, st.xw2, state.xw),
@@ -595,11 +614,12 @@ def _select_residual(consts: SNNLSConsts, rn: torch.Tensor, comm=None):
 
 
 def _fw_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux, tol: float,
-             nsum: torch.Tensor, comm=None) -> GigaStep:
+             nsum: torch.Tensor, comm=None, live=None) -> GigaStep:
     """Frank-Wolfe step (ops/snnls.py:712-758 there; reference
     frankwolfe.py:5-40), scale-carried and self-committing like GIGA: the
     rescale w <- (1 - gamma) w rides ``aux.wscale`` and only the selected
-    index is written.  ``nsum`` is the sum of the valid rows' norms."""
+    index is written.  ``nsum`` is the sum of the valid rows' norms;
+    ``live`` gates the commit as in :func:`_giga_step`."""
     resid = consts.b - state.xw
     f, _ = _select_residual(consts, _normalize(resid, comm), comm)   # scale-invariant argmax
     fl = f.long().view(1)
@@ -637,8 +657,8 @@ def _fw_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux, tol: float,
     ok = ok & torch.isfinite(new_err)
     idcs2, size2, overflow = _track_support(state, f)
     ws2 = alpha * ws
-    return GigaStep(fl, ws2, ws2 < _WSCALE_FLOOR, new_wf, old_raw, xw2, ok & ~overflow,
-                    ok, overflow, idcs2, size2, aux)
+    return GigaStep(fl, ws2, ws2 < _WSCALE_FLOOR, new_wf, old_raw, xw2,
+                    _gate(ok & ~overflow, live), ok, overflow, idcs2, size2, aux)
 
 
 def _select_dots_rows(rows: torch.Tensor, norms: torch.Tensor, rn: torch.Tensor) -> torch.Tensor:
@@ -769,16 +789,18 @@ def _draw(consts: SNNLSConsts, draws, cdf: torch.Tensor, comm=None, shard_cdf=No
 
 
 def _sampling_step(consts: SNNLSConsts, state: SNNLSState, fl: torch.Tensor,
-                   xf: torch.Tensor, psf: torch.Tensor, T_old: torch.Tensor, comm=None):
+                   xf: torch.Tensor, psf: torch.Tensor, T_old: torch.Tensor, comm=None,
+                   live=None):
     """One categorical draw ``fl`` with its row ``xf`` and probability
     ``psf`` (ops/snnls.py:800-847 there): the count of f rises by one, in
     place (on its owner), and the cached image follows the weight map
     w_i = (cts_i / T) / ps_i in O(S): ``xw <- (T/(T+1)) xw + V[f] / ((T+1)
     ps_f)``.  A draw that would overflow the support slots changes nothing.
     Returns ``(xw, idcs, size, overflow)``; the weights are formed from the
-    counts when they are needed (:func:`_sampling_weights`)."""
+    counts when they are needed (:func:`_sampling_weights`).  ``live``
+    gates the commit as in :func:`_giga_step`."""
     idcs, size, overflow = _track_support(state, fl[0].to(torch.int32))
-    commit = ~overflow
+    commit = _gate(~overflow, live)
     if comm is None:
         state.cts.index_add_(0, fl, commit.to(state.cts.dtype).view(1))
     else:
@@ -793,25 +815,253 @@ def _sampling_step(consts: SNNLSConsts, state: SNNLSState, fl: torch.Tensor,
 
 
 METHODS = ("giga", "frankwolfe", "orthopursuit", "importance", "uniform")
+_SAMPLING = ("importance", "uniform")
+_FRESH_SEED = torch.Generator().initial_seed()   # a new generator's seed
+_default_gens: dict[torch.device, torch.Generator] = {}
+
+
+class _Carry(NamedTuple):
+    """What a build carries from one iteration to the next, all device
+    values: the solver state, the GIGA/FW scalar cache, and the sampling
+    solvers' first commit flag and last overflow; ``itr_end``, ``itr0``
+    (the build's first iteration) and ``T0`` (the counts' sum on entry) are
+    read and never written."""
+
+    w: torch.Tensor
+    xw: torch.Tensor
+    cts: torch.Tensor
+    idcs: torch.Tensor
+    size: torch.Tensor
+    itr: torch.Tensor
+    fail: torch.Tensor
+    done: torch.Tensor
+    bxw: torch.Tensor
+    nw2: torch.Tensor
+    err: torch.Tensor
+    wscale: torch.Tensor
+    first_ok: torch.Tensor
+    last_over: torch.Tensor
+    itr_end: torch.Tensor
+    itr0: torch.Tensor
+    T0: torch.Tensor
+
+    def state(self) -> SNNLSState:
+        return SNNLSState(*self[:8])
+
+    def aux(self) -> GigaAux:
+        return GigaAux(*self[8:12])
+
+    def update(self, s: SNNLSState, aux: GigaAux, **kw) -> "_Carry":
+        return self._replace(**s._asdict(), **aux._asdict(), **kw)
+
+
+class _Problem(NamedTuple):
+    """What a build's iterations read and never write."""
+
+    consts: SNNLSConsts
+    method: str
+    tol: float
+    matvec_k: int
+    comm: object
+    draws: object                   # the sampling solvers' draw source
+    cdf: torch.Tensor | None        # cumulative f64 ps (sampling)
+    shard_cdf: torch.Tensor | None  # the ranks' cumulative masses (sharded sampling)
+    nsum: torch.Tensor | None       # the valid rows' norms summed (Frank-Wolfe)
+
+
+def _derived(consts: SNNLSConsts, method: str, comm=None):
+    """(nsum, cdf): what the iterations read that depends on the constants
+    alone (Frank-Wolfe's norm sum, the sampling solvers' f64 cdf)."""
+    nsum = cdf = None
+    if method == "frankwolfe":
+        nsum = torch.sum(torch.where(consts.valid, consts.norms, 0.0).double())
+        nsum = (nsum if comm is None else comm.sum(nsum, "setup")).float()
+    if method in _SAMPLING:
+        cdf = torch.cumsum(consts.ps.double(), dim=0)
+    return nsum, cdf
+
+
+def segments(start: int, count: int, length: int = REFRESH_EVERY):
+    """The segments of a build of ``count`` iterations from iteration
+    ``start``, in order, made as they are walked: ``(first iteration,
+    iterations, begins with the refresh)``.  None is longer than ``length``
+    (1 to REFRESH_EVERY) or crosses a multiple of ``length`` or of
+    REFRESH_EVERY, so the refresh, at the multiples of REFRESH_EVERY,
+    always begins one.  With ``length = REFRESH_EVERY``: a head up to the
+    next refresh, whole segments, and a tail."""
+    if not 1 <= length <= REFRESH_EVERY:
+        raise ValueError(f"segment length must be in [1, {REFRESH_EVERY}]; got {length}")
+    pos, end = int(start), int(start) + max(int(count), 0)
+    while pos < end:
+        n = min(length - pos % length, REFRESH_EVERY - pos % REFRESH_EVERY, end - pos)
+        yield pos, n, pos % REFRESH_EVERY == 0
+        pos += n
+
+
+def _segment(p: _Problem, c: _Carry, n: int, refresh: bool) -> _Carry:
+    """``n`` iterations of ``p.method`` from ``c`` on device values alone,
+    nothing read back to the host: the JAX package's ``build_core`` body
+    (ops/snnls.py:909-981 there).  The first begins with the exact refresh
+    where ``refresh`` says the segment starts at a multiple of
+    REFRESH_EVERY."""
+    for i in range(n):
+        c = _iteration(p, c, refresh and i == 0)
+    return c
+
+
+def _iteration(p: _Problem, c: _Carry, refresh: bool) -> _Carry:
+    """One iteration, gated by ``live = (itr < itr_end) & ~done`` (``cond``
+    there, :905-907): every write is where-gated by it, ``itr`` included,
+    so that an iteration past the build's end or after ``done`` latched
+    changes nothing (a sampling solver's generator still draws)."""
+    consts, comm, method = p.consts, p.comm, p.method
+    s, aux = c.state(), c.aux()
+    K = s.idcs.shape[0]
+    live = (c.itr < c.itr_end) & ~c.done
+    if method in _SAMPLING:
+        T = c.T0 + (c.itr - c.itr0).to(c.T0.dtype)        # the draws counted so far
+    if refresh:
+        if method in _SAMPLING:
+            s = s._replace(w=torch.where(c.itr > c.itr0,
+                                         _sampling_weights(consts, s.cts, T), s.w))
+        # exact refresh of the cached matvec AND the scalar cache; with
+        # support slots it gathers only the tracked rows (O(K*S))
+        exact = (_support_matvec(consts, s.w, s.idcs, s.size, comm) if K
+                 else _v_matvec(consts, s.w, support=p.matvec_k))
+        xw = aux.wscale * exact       # state.w is raw-scale (wscale is 1
+        #                               for OMP and the sampling solvers)
+        aux = _aux_from_xw(consts, xw, wscale=aux.wscale, comm=comm)
+        s = s._replace(xw=xw)
+    extra = {}
+    if method in ("giga", "frankwolfe"):
+        st = (_giga_step(consts, s, aux, p.tol, comm, live) if method == "giga"
+              else _fw_step(consts, s, aux, p.tol, p.nsum, comm, live))
+        fail = torch.where(st.ok, 0, s.fail + 1)
+        # retry-once-then-latch; a support-capacity overflow latches at once
+        latch = (fail >= 2) | st.overflow
+        w, xw, idcs, size, aux = _carried_commit(s, st, comm)
+        s = s._replace(w=w, xw=xw, idcs=idcs, size=size)
+    elif method in _SAMPLING:
+        xw, idcs, size, overflow = _sampling_step(
+            consts, s, *_draw(consts, p.draws, p.cdf, comm, p.shard_cdf), T, comm, live)
+        # every draw is ok: only an overflow, which needs slots, latches
+        fail, latch = torch.zeros_like(s.fail), overflow
+        extra = dict(first_ok=torch.where(live & (c.itr == c.itr0), ~overflow, c.first_ok),
+                     last_over=torch.where(live, overflow, c.last_over))
+        s = s._replace(xw=xw, idcs=idcs, size=size)
+    else:
+        w2, xw2, idcs2, size2, overflow = _omp_step(consts, s, comm=comm)
+        # the loop's monotone gate (ops/snnls.py:946-954 there): fail iff
+        # the error rose beyond the tolerance's slack
+        size_nonzero = s.size > 0 if K else torch.any(s.w > 0)
+        new_err = _cached_error(consts, xw2)
+        ok = ((~size_nonzero | (new_err <= _cached_error(consts, s.xw) * (1.0 + p.tol)))
+              & torch.isfinite(new_err))
+        fail = torch.where(ok, 0, s.fail + 1)
+        latch = (fail >= 2) | overflow
+        commit = ok & ~overflow & live
+        s = s._replace(w=torch.where(commit, w2, s.w), xw=torch.where(commit, xw2, s.xw),
+                       idcs=torch.where(commit, idcs2, s.idcs),
+                       size=torch.where(commit, size2, s.size))
+    s = s._replace(fail=torch.where(live, fail, s.fail), done=s.done | (live & latch),
+                   itr=s.itr + live.to(s.itr.dtype))
+    return c.update(s, aux, **extra)
+
+
+def _carry(consts: SNNLSConsts, state: SNNLSState, itr_end: int, comm=None) -> _Carry:
+    """The carry of a build from ``state`` up to iteration ``itr_end``."""
+    dev = state.w.device
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    return _Carry(*state, *_aux_from_xw(consts, state.xw, comm=comm), first_ok=no,
+                  last_over=no, itr_end=torch.full((), itr_end, dtype=state.itr.dtype, device=dev),
+                  itr0=state.itr, T0=torch.sum(state.cts))
+
+
+def _read(c: _Carry, itr: int, latches: bool) -> tuple[int, bool]:
+    """The host's one read of a segment, (itr, done); none where nothing
+    can latch (a sampling build without slots), whose ``itr`` is known."""
+    if not latches:
+        return itr, False
+    itr, done = torch.stack([c.itr, c.done.to(c.itr.dtype)]).tolist()
+    return itr, bool(done)
+
+
+def _graph_generator(draws, dev: torch.device) -> torch.Generator:
+    """The generator a replayed sampling build draws from: ``draws`` itself
+    or its :class:`Draws`' generator, or for ``None`` this device's own,
+    seeded as a new generator is (so that replays of one graph serve every
+    such build)."""
+    if draws is None:
+        gen = _default_gens.get(dev)
+        if gen is None:
+            gen = _default_gens.setdefault(dev, torch.Generator(device=dev))
+        return gen.manual_seed(_FRESH_SEED)
+    gen = draws if isinstance(draws, torch.Generator) else getattr(draws, "gen", None)
+    if type(draws) not in (torch.Generator, Draws) or not isinstance(gen, torch.Generator):
+        raise ValueError("a build on a CUDA device replays CUDA graphs, which draw from a "
+                         f"torch.Generator; got the draw source {type(draws).__name__} "
+                         "(pass segment=1 to run it one iteration at a time)")
+    if config.resolve_device(gen.device) != dev:
+        raise ValueError(f"the generator is on {gen.device}, the constants on {dev}")
+    return gen
+
+
+def _replayer(consts: SNNLSConsts, carry: _Carry, method: str, tol: float, draws,
+              matvec_k: int):
+    """A step ``(c, n, refresh) -> c`` that replays the CUDA graph of an
+    ``n``-iteration segment (captured at first use, one per (n, refresh))
+    on the static buffers of ``consts``' graphs, and those buffers with
+    ``carry`` copied in: the state lives there until it is copied out."""
+    gen = _graph_generator(draws, consts.V.device) if method in _SAMPLING else None
+    key = ("build", method, float(tol), int(matvec_k),
+           tuple((t.dtype, tuple(t.shape)) for t in carry))
+    e = graphs.graphs_for(tuple(consts), key, gen,
+                          lambda: _Carry(*(torch.empty_like(t) for t in carry)),
+                          lambda: _derived(consts, method))
+    graphs.copy_into(e.static, carry)
+    nsum, cdf = e.derived
+    p = _Problem(consts, method, tol, matvec_k, None, None if gen is None else Draws(gen),
+                 cdf, None, nsum)
+
+    def step(c, n, refresh):
+        e.run((n, refresh), lambda: graphs.copy_into(c, _segment(p, c, n, refresh)))
+        return c
+
+    return step, e.static
 
 
 def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
-          method: str = "giga", draws=None, matvec_k: int = 1024, comm=None) -> SNNLSState:
+          method: str = "giga", draws=None, matvec_k: int = 1024, comm=None,
+          segment: int | None = None) -> SNNLSState:
     """Run up to ``itrs`` iterations of ``method``, continuing from ``state``.
 
     Port of the JAX package's ``build_core``/``build``
-    (ops/snnls.py:870-989 there): one eager loop for the five solvers.
+    (ops/snnls.py:870-989 there) for the five solvers: the iterations go in
+    the segments of :func:`segments`, each run by :func:`_segment` on
+    device values alone, and the host reads one pair (``itr``, ``done``)
+    after each segment (none in a sampling build without slots, which
+    cannot latch).  ``segment`` is the segments' length.  By default, on a
+    CUDA device without ``comm``, segments of 64 iterations (OMP: 8) are
+    replayed as CUDA graphs (:mod:`.graphs`); on CPU tensors, in sharded
+    builds and with ``segment=1`` they are one iteration long and run
+    directly; on CPU tensors any length runs directly.  Every length gives
+    the same weights, atoms, ``itr`` and ``done`` bit for bit; when ``done``
+    latches inside a segment, its remaining iterations still run, gated,
+    so the select kernel launches once per iteration run (counted in
+    ``itrs_run``) and a sampling build's generator (but not the state) has
+    advanced further than a one-iteration run leaves it.
+
     GIGA and Frank-Wolfe commit inside their step (the monotone gate
-    included), so the loop does not gate them again; OMP's candidate passes
-    the loop's monotone gate and where-gated commit; the sampling solvers
-    have no gate.  Two failed steps in a row, or a step that would track
-    more than ``max_active`` atoms, latch ``done``.  ``draws`` (a
-    ``torch.Generator`` on the data's device, or a draw source, see
-    :class:`Draws`) feeds the sampling solvers; the default is a generator
-    seeded with 0.  ``matvec_k`` bounds nnz(w) for the refresh without
-    support slots on int8-resident constants (:func:`_v_matvec`; ignored
-    for f32 V).  Returns a new state with TRUE-scale weights; ``state``
-    itself is left unchanged.
+    included); OMP's candidate passes the loop's monotone gate and
+    where-gated commit; the sampling solvers have no gate.  Two failed steps
+    in a row, or a step that would track more than ``max_active`` atoms,
+    latch ``done``.  ``draws`` (a ``torch.Generator`` on the data's device,
+    or a draw source, see :class:`Draws`, which needs one-iteration
+    segments on a CUDA device) feeds the sampling solvers; the default is a
+    generator seeded as a new one is.  ``matvec_k`` bounds nnz(w) for the
+    refresh without support slots on int8-resident constants
+    (:func:`_v_matvec`; ignored for f32 V).  Returns a new state with
+    TRUE-scale weights; ``state`` itself is left unchanged.
 
     ``comm`` (``parallel/comm.py``) runs this rank's part of a row-sharded
     build: ``consts``, ``state.w`` and ``state.cts`` hold this rank's rows,
@@ -825,6 +1075,7 @@ def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
     another exchange.  A sharded build tracks its support: ``state`` needs
     slots (``max_active`` > 0), which the refresh gathers.
     """
+    global itrs_run
     if method not in METHODS:
         raise ValueError(f"method must be one of {METHODS}; got {method!r}")
     if method == "orthopursuit" and _proj(comm) is not None:
@@ -833,89 +1084,65 @@ def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
     if comm is not None and state.idcs.shape[0] == 0:
         raise ValueError("a sharded build tracks its support: make the state with "
                          "max_active > 0")
-    dev = consts.V.device
-    itr = int(state.itr)
-    itr_end = itr + int(itrs)
-    done = bool(state.done)
-    K = state.idcs.shape[0]
-    carried = method in ("giga", "frankwolfe")
-    sampling = method in ("importance", "uniform")
+    sampling = method in _SAMPLING
     if sampling and state.cts.shape[0] != consts.V.shape[0]:
         raise ValueError(f"method {method!r} needs constants made with sampling= and a "
                          "state made from them (ps and cts of n entries)")
-    s = state._replace(w=state.w.clone(), cts=state.cts.clone())
-    aux = _aux_from_xw(consts, s.xw, comm=comm)
-    if method == "frankwolfe":
-        nsum = torch.sum(torch.where(consts.valid, consts.norms, 0.0).double())
-        nsum = (nsum if comm is None else comm.sum(nsum, "setup")).float()
-    if sampling:
-        draws = as_draws(draws if draws is not None else torch.Generator(device=dev))
-        cdf = torch.cumsum(consts.ps.double(), dim=0)
-        T0 = torch.sum(s.cts)
+    dev = consts.V.device
+    replay = dev.type == "cuda" and comm is None and segment != 1
+    length = segment or (_GRAPH_SEGMENT.get(method, REFRESH_EVERY) if replay else 1)
+    first, done = torch.stack([state.itr, state.done.to(state.itr.dtype)]).tolist()
+    plan = segments(first, 0 if done else itrs, length)
+    latches = not sampling or state.idcs.shape[0] > 0
+    carry = _carry(consts, state, first + int(itrs), comm)
+    replay = replay and not done and itrs > 0
+    if replay:
+        step, c = _replayer(consts, carry, method, tol, draws, matvec_k)
+    else:
+        nsum, cdf = _derived(consts, method, comm)
         shard_cdf = None
-        if comm is not None:
-            T0 = comm.sum(T0, "setup")
-            shard_cdf = torch.cumsum(comm.slots(cdf[-1], "setup"), dim=0)
-        first_commit = overflow = None     # the first draw's commit flag, the last's overflow
-    first = itr
-    while itr < itr_end and not done:
-        if itr % REFRESH_EVERY == 0:
-            if sampling and itr > first:
-                s = s._replace(w=_sampling_weights(consts, s.cts, T0 + float(itr - first)))
-            # exact refresh of the cached matvec AND the scalar cache; with
-            # support slots it gathers only the tracked rows (O(K*S))
-            exact = (_support_matvec(consts, s.w, s.idcs, s.size, comm) if K
-                     else _v_matvec(consts, s.w, support=matvec_k))
-            xw = aux.wscale * exact       # state.w is raw-scale (wscale is 1
-            #                               for OMP and the sampling solvers)
-            aux = _aux_from_xw(consts, xw, wscale=aux.wscale, comm=comm)
-            s = s._replace(xw=xw)
-        if carried:
-            st = (_giga_step(consts, s, aux, tol, comm) if method == "giga"
-                  else _fw_step(consts, s, aux, tol, nsum, comm))
-            fail = torch.where(st.ok, 0, s.fail + 1)
-            # retry-once-then-latch; a support-capacity overflow latches at once
-            done_t = s.done | (fail >= 2) | st.overflow
-            fold_commit, done = torch.stack([st.fold & st.commit, done_t]).tolist()
-            w, xw, idcs, size, aux = _carried_commit(s, st, fold_commit, comm)
-            s = s._replace(w=w, xw=xw, idcs=idcs, size=size, fail=fail, done=done_t)
-        elif sampling:
-            xw, idcs, size, overflow = _sampling_step(
-                consts, s, *_draw(consts, draws, cdf, comm, shard_cdf),
-                T0 + float(itr - first), comm)
-            if first_commit is None:
-                first_commit = ~overflow
-            # every draw is ok: only an overflow, which needs slots, latches
-            done_t = s.done | overflow
-            done = bool(done_t) if K else False
-            s = s._replace(xw=xw, idcs=idcs, size=size,
-                           fail=torch.zeros_like(s.fail), done=done_t)
-        else:
-            w2, xw2, idcs2, size2, overflow = _omp_step(consts, s, comm=comm)
-            # the loop's monotone gate (ops/snnls.py:946-954 there): fail iff
-            # the error rose beyond the tolerance's slack
-            size_nonzero = s.size > 0 if K else torch.any(s.w > 0)
-            new_err = _cached_error(consts, xw2)
-            ok = ((~size_nonzero | (new_err <= _cached_error(consts, s.xw) * (1.0 + tol)))
-                  & torch.isfinite(new_err))
-            fail = torch.where(ok, 0, s.fail + 1)
-            done_t = s.done | (fail >= 2) | overflow
-            commit = ok & ~overflow
-            done = bool(done_t)
-            s = s._replace(w=torch.where(commit, w2, s.w), xw=torch.where(commit, xw2, s.xw),
-                           idcs=torch.where(commit, idcs2, s.idcs),
-                           size=torch.where(commit, size2, s.size), fail=fail, done=done_t)
-        itr += 1
-    if carried:
+        if sampling:
+            draws = as_draws(draws if draws is not None else torch.Generator(device=dev))
+            if comm is not None:
+                carry = carry._replace(T0=comm.sum(carry.T0, "setup"))
+                shard_cdf = torch.cumsum(comm.slots(cdf[-1], "setup"), dim=0)
+        p = _Problem(consts, method, tol, matvec_k, comm, draws, cdf, shard_cdf, nsum)
+        step = functools.partial(_segment, p)
+        c = carry._replace(w=state.w.clone(), cts=state.cts.clone())
+    itr = first
+    for start, n, refresh in plan:
+        c = step(c, n, refresh)
+        itrs_run += n
+        itr, done = _read(c, start + n, latches)
+        if done:
+            break
+    if replay:                      # out of the static buffers
+        c = _Carry(*(t.clone() for t in c))
+    s = c.state()
+    if method in ("giga", "frankwolfe"):
         # fold the carried scale back: callers always see TRUE weights
-        s = s._replace(w=aux.wscale * s.w)
+        s = s._replace(w=c.wscale * s.w)
     elif sampling and itr > first:
         # the weights follow the counts.  Only the last draw can have been
         # refused (it ended the loop); if that was the first, the weights
         # stay as they were found
-        T = T0 + float(itr - first) - overflow.to(T0.dtype)
-        s = s._replace(w=torch.where(first_commit, _sampling_weights(consts, s.cts, T), s.w))
-    return s._replace(itr=torch.tensor(itr, dtype=torch.int32, device=dev))
+        T = c.T0 + (c.itr - c.itr0).to(c.T0.dtype) - c.last_over.to(c.T0.dtype)
+        s = s._replace(w=torch.where(c.first_ok, _sampling_weights(consts, s.cts, T), s.w))
+    return s
+
+
+def _optimize_core(consts: SNNLSConsts, w, xw, done, idcs, size, tol: float,
+                   num_iters: int, comm=None):
+    """The re-solve on device values alone, nothing read back to the host
+    (``optimize_active_core`` there): (w, xw, done, ok)."""
+    mask, safe = _active_mask(idcs, size)
+    Aact, (prev_w_act,) = _gather(consts, safe, comm, (w,), mask=mask, kind="rows")
+    w_act = nnls_rows(Aact, consts.b, mask, num_iters=num_iters)
+    w2 = _scatter(w, safe, mask, w_act, comm)
+    xw2 = w_act @ Aact
+    prev_cost = _cached_error(consts, prev_w_act @ Aact)
+    ok = _cached_error(consts, xw2) <= prev_cost * (1.0 + tol)
+    return torch.where(ok, w2, w), torch.where(ok, xw2, xw), done | ~ok, ok
 
 
 def optimize_active(consts: SNNLSConsts, state: SNNLSState, idcs: torch.Tensor,
@@ -924,21 +1151,31 @@ def optimize_active(consts: SNNLSConsts, state: SNNLSState, idcs: torch.Tensor,
 
     ``idcs`` are the active column indices, padded, covering ALL w>0
     entries; ``size`` the number of live ones.  The (K, K) solve is FISTA
-    (:mod:`.nnls`).  Returns the new state and whether the cost did not
-    rise: if it rose, the weights are kept and ``done`` latches.  Sharded
+    (:mod:`.nnls`), a fixed number of steps with nothing read back (the
+    JAX package's ``fori_loop``); on a CUDA device without ``comm`` it is
+    one replayed CUDA graph per padded size (:mod:`.graphs`), with ``size``
+    an input.  Returns the new state and whether the cost did not rise: if
+    it rose, the weights are kept and ``done`` latches.  Sharded
     (``comm``): the active rows and weights come in one (K, S + 1)
     exchange, the solve runs on every rank, and each writes its own rows.
     """
-    mask, safe = _active_mask(idcs, size)
-    Aact, (prev_w_act,) = _gather(consts, safe, comm, (state.w,), mask=mask, kind="rows")
-    w_act = nnls_rows(Aact, consts.b, mask, num_iters=num_iters)
-    w = _scatter(state.w, safe, mask, w_act, comm)
-    xw = w_act @ Aact
-    prev_cost = _cached_error(consts, prev_w_act @ Aact)
-    ok = _cached_error(consts, xw) <= prev_cost * (1.0 + tol)
-    return state._replace(w=torch.where(ok, w, state.w),
-                          xw=torch.where(ok, xw, state.xw),
-                          done=state.done | ~ok), ok
+    dev = consts.V.device
+    if dev.type != "cuda" or comm is not None:
+        w, xw, done, ok = _optimize_core(consts, state.w, state.xw, state.done, idcs, size,
+                                         tol, num_iters, comm)
+        return state._replace(w=w, xw=xw, done=done), ok
+    inputs = (state.w, state.xw, state.done, idcs.to(device=dev, dtype=torch.int32),
+              torch.full((), int(size), dtype=torch.int32, device=dev))
+    key = ("optimize", float(tol), int(num_iters), tuple((t.dtype, tuple(t.shape)) for t in inputs))
+    e = graphs.graphs_for(tuple(consts), key, None,
+                          lambda: [torch.empty_like(t) for t in inputs]
+                          + [torch.empty((), dtype=torch.bool, device=dev)])
+    st = e.static                                   # w, xw, done, idcs, size, ok
+    graphs.copy_into(st, inputs)
+    e.run(None, lambda: graphs.copy_into(st[:3] + st[5:], _optimize_core(consts, *st[:5], tol,
+                                                                      num_iters)))
+    w, xw, done, ok = (t.clone() for t in st[:3] + st[5:])
+    return state._replace(w=w, xw=xw, done=done), ok
 
 
 def _active_set(state: SNNLSState, comm=None):

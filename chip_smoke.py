@@ -26,7 +26,10 @@ script exits non-zero without printing the final result line):
    phase 17's f32 n=100k S=16384): random directions, the winner invalid,
    ties, each timed beside its bound and its library call (these matrices
    are far larger than L2, so their batch time is their cold time), and
-   int8 dots past 2^24;
+   int8 dots past 2^24; each of the four shapes also timed in a CUDA graph
+   of 20 launches (no host call between them), and kernel 1's fixed cost
+   at int8 N=100k from the in-graph times at N=100k and N=1M, beside an
+   empty kernel's in-graph time (``[select_fixed_cost]``);
 4. packed select: the packed-int4 select kernel against its plain version
    at the probe's size (N=2^20, S=512): random directions, the winner's
    block invalid, ties, all invalid, a row count off the tile, and
@@ -48,20 +51,31 @@ script exits non-zero without printing the final result line):
 6. main path at full width, bench.py's flagship build (bench.py:88-109):
    logistic data N=100k, D=10 -> BlackBoxProjector(S=500 samples
    theta ~ 0.1 N(0, I)) -> HilbertCoreset(int8 select, max_active=1024)
-   .build(500), with the kernel's launch count checked against the
-   iterations run; then a profiled window of 64 iterations (after 65 of
-   warm-up, as ``scripts/profile_torch_build.py`` counts them): the select
-   kernel's launches per iteration, which must be 1, and all launches per
-   iteration;
+   .build(500), which replays CUDA graphs of 64-iteration segments, with
+   the kernel's launch count (replays counted) checked against the
+   iterations run; the same build in one-iteration segments on the same
+   constants, which must give the same state bit for bit (372 atoms and
+   error/|b| 4.479260e-02 at M=500); then a profiled window of 64
+   iterations (after 65 of warm-up, as ``scripts/profile_torch_build.py``
+   counts them) of each path: the select kernel's launches per iteration,
+   which must be 1, all launches (a graph's kernel nodes) per iteration,
+   device-busy µs and idle share, the graphs captured and their capture
+   seconds, and the peak allocation.  Each GIGA (and Frank-Wolfe)
+   iteration also launches the gated wscale fold (``csrc/fold_scale.cu``,
+   the JAX package's ``lax.cond`` at ops/snnls.py:698), once per iteration
+   run; it is held to its plain version at N=100k with the flag set and
+   clear, bit for bit, and timed (direct, in a graph, plain) beside its
+   bound (``[fold_kernel]``);
 7. NUTS on the coreset: ``mcmc.weighted.run`` on phase 6's coreset with
    1024 chains x (150 warmup + 150 draws) (bench.py:54, 319-322), checked
    for finite samples, split R-hat <= 1.05, divergences <= 1% of the
    sampling transitions, every posterior mean within 0.25 posterior sd of
    the coreset's Laplace mode and within 0.05 sd of an importance-sampled
    mean (f64, Laplace proposal);
-8. optimize: ``HilbertCoreset.optimize()`` (FISTA on the card) on phase 6's
-   coreset, after NUTS has sampled it: the error must not rise and nothing
-   may latch; then the exact host solver on the same active set must reach
+8. optimize: ``HilbertCoreset.optimize()`` (FISTA on the card, one
+   captured CUDA graph) on phase 6's coreset, after NUTS has sampled it:
+   the error must not rise and nothing may latch; the same solve again, a
+   replay of that graph, timed beside the first call and its capture; then the exact host solver on the same active set must reach
    the FISTA error within 1e-3;
 9. SparseVI at bench.py's canonical config (bench.py:211-231: N=1000,
    d=200, S=100, 50 Adam steps per select, M=30, 32 slots, the posterior
@@ -82,15 +96,17 @@ script exits non-zero without printing the final result line):
    and both rKL and error() below those of its initialization;
 12. Frank-Wolfe at full width: phase 6's data and projection,
    ``HilbertCoreset(snnls=FrankWolfe).build(500)``: one select launch per
-   iteration, ms per iteration, error()/|b| at M, and a profiled window as
-   in phase 6 with the select's share of the device time;
+   iteration, ms per iteration, error()/|b| at M (443 atoms), and as in
+   phase 6 the one-iteration build bit for bit and a profiled window of
+   each path with the select's share of the device time;
 13. OMP on the same projection, 100 iterations with max_active=128: one
    select launch per iteration, the error printed every 25 iterations must
    not rise, ms per iteration and the share of it that the 256-step FISTA
-   re-solve takes;
+   re-solve takes, the graphs (segments of 4 iterations) captured and their
+   capture seconds, and a profiled window of 16 replayed iterations;
 14. importance and uniform sampling on the same projection, 500 draws each:
    no kernel launch, the counts sum to 500, finite nonnegative weights and
-   error(), ms per draw, launches and host reads per draw;
+   error(), ms per draw, launches and host reads per draw, graphs captured;
 15. the Poisson model: ``poisson.gen_synthetic`` at N=100k ->
    BlackBoxProjector (S=500) -> a GIGA build (M=200) -> ``mcmc.weighted.run``
    on the coreset with 256 chains x (100 + 100), held to phase 7's gates
@@ -100,9 +116,11 @@ script exits non-zero without printing the final result line):
    ``HilbertCoreset(stream_chunk_size=1M, max_active=1024)`` (phase 6's
    projection samples) -> ``.build(500)`` (GIGA): construction and build
    seconds from ``utils/profiling.py``, ms per iteration, error()/|b|, one
-   select launch per iteration, a profiled window as in phase 6, and the
-   peak allocation, which must stay below the 16 GB of an f32 (N, S)
-   matrix; the select on that 4.1 GB int8 matrix held against its plain
+   select launch per iteration, as in phase 6 the one-iteration build bit
+   for bit and a profiled window of each path, the peak allocation, which
+   must stay below the 16 GB of an f32 (N, S) matrix, and the fold kernel
+   held and timed at N=8M as in phase 6, its plain version's O(N) multiply
+   and the kernel each as a share of the iteration (``[streamed_fold]``); the select on that 4.1 GB int8 matrix held against its plain
    version (in 2^20-row blocks) and timed beside its bound (share >= 0.5)
    and ``torch._int_mm``; the N=1M quality arm (the in-memory int8 select
    against the streamed path from the same data and projector: int8 rows
@@ -116,9 +134,10 @@ script exits non-zero without printing the final result line):
    1024)`` with the default f32 select copy (V itself, 6.55 GB, rows of 64
    KB) -> ``.build(200)`` with GIGA, then the same with
    ``snnls=FrankWolfe``: ms per iteration, one select launch per iteration,
-   error()/|b| at M (finite, no larger than after the first iteration), the
-   peak allocation, and a profiled window as in phase 6 with the select's
-   device µs per iteration beside its bound;
+   error()/|b| at M (finite, no larger than after the first iteration;
+   GIGA 182 atoms), the peak allocation, and as in phase 6 the
+   one-iteration build bit for bit and a profiled window of each path with
+   the select's device µs per iteration beside its bound;
 18. the experiment drivers through their ``main([...])`` entry points, each
    in a temporary working directory: ``logistic_poisson`` GIGA-OPT at the
    reference's logistic settings (S=500, M up to 1000, 8 NUTS chains, max
@@ -132,9 +151,11 @@ script exits non-zero without printing the final result line):
    ``synthetic_vectors`` at its defaults with GIGA and FW, and OMP at M=100.
    One ``[experiments]`` line per driver (seconds, select launches,
    iterations, metrics at M_max, the split of logistic_poisson's time,
-   ``reduced=``; linear_regression's also the select's time per launch on
-   its own select copy, beside its bound); one select launch per
-   GIGA/FW/OMP iteration, none of the packed kernel;
+   the graphs captured and their capture seconds, ``reduced=``;
+   linear_regression's also the select's time per launch on its own select
+   copy, beside its bound); one select launch per GIGA/FW/OMP iteration
+   run (``snnls.itrs_run``: after ``done`` latches inside a segment, its
+   gated iterations still select), none of the packed kernel;
 19. the sharded paths over ``torch.distributed`` on the one card, each
    rank a process spawned by ``parallel.run_local`` (loading phase 2's
    library): (a) a 1-rank NCCL group runs ``HilbertCoreset(mesh=)`` at
@@ -179,7 +200,11 @@ script exits non-zero without printing the final result line):
 
 Phases 8-11 and 14 launch no hand-written kernel: the JAX package computes
 SparseVI, BatchPSVI, the re-solve and the sampling solvers with plain XLA
-ops.  Every path is driven with the kernels' launch counts set to 0 just
+ops.  On the card ``snnls.build`` replays CUDA graphs
+(``bayesian_coresets_tpu_torch/ops/graphs.py``), and a replay adds the
+select launches its capture recorded to the kernels' counts; phase 5's
+wide-row build (which reads each pick back) and the sharded builds of
+phases 19-20 (never captured) run one-iteration segments.  Every path is driven with the kernels' launch counts set to 0 just
 before it and read just after; the kernels' ``launches`` are the sums over
 the paths that select through them (phases 6, 12, 13, 15-19, and phase
 20's proj-sharded builds for ``giga_dots`` and ``giga_score_select``;
@@ -210,6 +235,9 @@ COLD_REPS = 50
 FLUSH_BYTES = 128 << 20     # written before each cold-L2 launch (L2 is 50 MB)
 PROFILE_ITRS = 64           # GIGA iterations in phase 6's profiled window
 N_MAIN, D_MAIN, S_MAIN, M_MAIN = 100_000, 10, 500, 500
+# phases 6, 12 and 17's atoms (weights > 0) at M and phase 6's error/|b|
+# at M: the values these builds have given on the H100 since they were added
+MAIN_ATOMS, FW_ATOMS, WIDE_GIGA_ATOMS, MAIN_ERR = 372, 443, 182, "4.479260e-02"
 N_PROBE, S_PROBE = 1 << 20, 512                 # probe_int4_pallas.py:30
 NUTS_CHAINS, NUTS_DRAWS = 1024, 150             # bench.py:54
 RHAT_MAX, DIV_SHARE_MAX = 1.05, 0.01
@@ -736,7 +764,7 @@ def phase_select(torch):
 
     lib = _cuda_build.load_library()
     codes = gs._DTYPE_CODE
-    max_err, timing = 0.0, {}
+    max_err, timing, graph = 0.0, {}, {}
     for dtype, n in [(torch.int8, N_MAIN), (torch.bfloat16, N_MAIN),
                      (torch.float32, N_MAIN), (torch.int8, 1_000_000)]:
         c, dirs = _select_problem(torch, n, S_MAIN, dtype, seed=n + codes[dtype])
@@ -779,6 +807,13 @@ def phase_select(torch):
                   ptr(valid), ptr(ws), ptr(idx), ptr(score), ctypes.c_void_p(stream))
         k_ms = _direct_ms(torch, *launch)
         cold_ms = _cold_ms(torch, _launcher(*launch))
+        # in a CUDA graph (20 launches, no host call between them), on a
+        # stream and workspace of its own: the kernel's time without the
+        # launch gap of direct calls
+        graph_ws = torch.zeros(2, dtype=torch.int64, device="cuda")
+        g_ms = _graph_ms(torch, lambda st: _launcher(launch[0], *launch[1:9], ptr(graph_ws),
+                                                     *launch[10:12], ctypes.c_void_p(st)))
+        graph[(dtype, n)] = (g_ms, Vsel.numel() * Vsel.element_size())
         w_ms = _median_ms(torch, lambda: gs.giga_select(Vsel, dirs, norms, valid))
         p_ms = _median_ms(torch, lambda: gs.giga_select_ref(Vsel, dirs, norms, valid),
                           batches=5, per_batch=5)
@@ -787,7 +822,8 @@ def phase_select(torch):
         gbps = Vsel.numel() * Vsel.element_size() / (k_ms * 1e-3) / 1e9
         timing[(dtype, n)] = (k_ms, p_ms, bound_ms, bound_by, lib_ms)
         say("select", dtype=str(dtype).replace("torch.", ""), n=n, S=S_MAIN,
-            kernel_ms=f"{k_ms:.4f}", cold_l2_ms=f"{cold_ms:.4f}", wrapper_ms=f"{w_ms:.4f}",
+            kernel_ms=f"{k_ms:.4f}", graph_ms=f"{g_ms:.4f}", graph_share_of_bound=
+            f"{bound_ms / g_ms:.3f}", cold_l2_ms=f"{cold_ms:.4f}", wrapper_ms=f"{w_ms:.4f}",
             plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
             share_of_bound=f"{bound_ms / k_ms:.3f}", cold_share=f"{bound_ms / cold_ms:.3f}",
             kernel_GBps=f"{gbps:.1f}",
@@ -796,8 +832,20 @@ def phase_select(torch):
         if not bound_ms / k_ms >= 0.5:
             raise AssertionError(f"select {dtype} n={n}: {k_ms} ms, under half of its "
                                  f"bound {bound_ms} ms")
+        if (dtype, n) == (torch.int8, N_MAIN):
+            empty_ms = _graph_ms(torch, lambda st: _launcher(
+                lib.giga_empty_launch, ptr(Vsel), 1, n, ptr(norms), ptr(valid), ptr(graph_ws),
+                ptr(idx), ptr(score), ctypes.c_void_p(st)))
         del c, Vsel, norms, valid, dirs
         torch.cuda.empty_cache()
+    # kernel 1's fixed cost at int8: the in-graph time at N=100k less its
+    # bytes at the rate the N=1M select reaches over the extra bytes
+    (t1, b1), (t2, b2) = graph[(torch.int8, N_MAIN)], graph[(torch.int8, 1_000_000)]
+    per_byte = (t2 - t1) / (b2 - b1)
+    say("select_fixed_cost", dtype="int8", n=N_MAIN, batch_ms=f"{timing[(torch.int8, N_MAIN)][0]:.4f}",
+        graph_ms=f"{t1:.4f}", graph_ms_N1M=f"{t2:.4f}", empty_kernel_graph_ms=f"{empty_ms:.4f}",
+        marginal_GBps=f"{1e-6 / per_byte:.1f}", fixed_us=f"{1e3 * (t1 - per_byte * b1):.2f}",
+        bound_ms=f"{timing[(torch.int8, N_MAIN)][2]:.4f}")
     max_err = max(max_err, _wide_select(torch, lib))
     return max_err, timing[(torch.int8, N_MAIN)]
 
@@ -958,7 +1006,9 @@ def _wide_parity(torch):
     try:
         s_cpu = snnls.build(c_cpu, snnls.init_state(c_cpu, 1024), M, 1e-6)
         before = gs.launches
-        s_gpu = snnls.build(c_gpu, snnls.init_state(c_gpu, 1024), M, 1e-6)
+        # one-iteration segments: the recorder reads each pick back, which
+        # a captured graph cannot
+        s_gpu = snnls.build(c_gpu, snnls.init_state(c_gpu, 1024), M, 1e-6, segment=1)
         torch.cuda.synchronize()
         launches = gs.launches - before
     finally:
@@ -998,7 +1048,7 @@ def _parity_build(torch, c_cpu, c_gpu, method, mode, n, S, M):
     t0 = time.perf_counter()
     s_cpu = snnls.build(c_cpu, snnls.init_state(c_cpu, 1024), M, 1e-6, method=method)
     t_cpu = time.perf_counter() - t0
-    before = gs.launches
+    before, ran = gs.launches, snnls.itrs_run
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     s_gpu = snnls.build(c_gpu, snnls.init_state(c_gpu, 1024), M, 1e-6, method=method)
@@ -1009,8 +1059,8 @@ def _parity_build(torch, c_cpu, c_gpu, method, mode, n, S, M):
     if not np.array_equal(ig, ic):
         raise AssertionError(f"build parity ({method}, {mode}): card selected {ig[:20]}..., "
                              f"CPU {ic[:20]}...")
-    if gs.launches - before != int(s_gpu.itr):
-        raise AssertionError(f"build parity ({method}, {mode}): kernel launches != iterations")
+    _ran_check(f"build parity ({method}, {mode})", gs.launches - before,
+               snnls.itrs_run - ran, int(s_gpu.itr), bool(s_gpu.done))
     np.testing.assert_allclose(s_gpu.w.cpu().numpy(), s_cpu.w.numpy(), rtol=1e-4, atol=1e-6)
     say("build_parity", method=method, consts=mode, n=n, S=S, M=M, atoms=k,
         itr=int(s_gpu.itr), idcs="identical", cuda_s=f"{t_gpu:.3f}", cpu_s=f"{t_cpu:.3f}")
@@ -1026,7 +1076,9 @@ def phase_main(torch, smi):
     import numpy as np
     import bayesian_coresets_tpu_torch as bc
     from bayesian_coresets_tpu_torch.models import logistic
+    from bayesian_coresets_tpu_torch.ops import fold_scale as fs
     from bayesian_coresets_tpu_torch.ops import giga_select as gs
+    from bayesian_coresets_tpu_torch.ops import snnls
 
     dev = torch.device("cuda")
     torch.cuda.synchronize()
@@ -1038,12 +1090,13 @@ def phase_main(torch, smi):
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
 
-    gs.launches = 0
+    gs.launches = fs.launches = snnls.itrs_run = 0
     t0 = time.perf_counter()
     coreset = bc.HilbertCoreset(Z, projector, select_dtype=torch.int8, max_active=1024)
     torch.cuda.synchronize()
     t_proj = time.perf_counter() - t0
     bnorm = float(coreset.snnls.consts.bnorm)
+    caps0, cap_s0 = _graph_counts()
     t0 = time.perf_counter()
     coreset.build(50)
     torch.cuda.synchronize()
@@ -1053,13 +1106,21 @@ def phase_main(torch, smi):
     coreset.build(M_MAIN - 50)
     torch.cuda.synchronize()
     t_b2 = time.perf_counter() - t0
-    launches = gs.launches
+    caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
+    launches, fold_launches, ran = gs.launches, fs.launches, snnls.itrs_run
     itr = int(coreset.snnls.state.itr)
     err = coreset.error() / bnorm
     wts, pts, idcs = coreset.get()
 
-    if launches != itr or itr == 0:
-        raise AssertionError(f"main path: {launches} select launches for {itr} iterations")
+    _ran_check("main path", launches, ran, itr, coreset.reached_numeric_limit)
+    if fold_launches != ran:
+        raise AssertionError(f"main path: {fold_launches} fold launches for {ran} iterations")
+    one_ms = _one_itr(torch, coreset.snnls.consts, "giga", (50, M_MAIN - 50),
+                      coreset.snnls.state, 1024, "main path")
+    atoms = int((coreset.snnls.weights() > 0).sum())
+    if atoms != MAIN_ATOMS or f"{err:.6e}" != MAIN_ERR:
+        raise AssertionError(f"main path: {atoms} atoms, error/|b| {err:.6e} at M={itr}; "
+                             f"expected {MAIN_ATOMS} and {MAIN_ERR}")
     if wts.size == 0 or not np.isfinite(wts).all() or (wts <= 0).any():
         raise AssertionError("main path: empty or non-finite coreset")
     if pts.shape != (wts.size, D_MAIN) or not np.isfinite(pts).all():
@@ -1068,14 +1129,20 @@ def phase_main(torch, smi):
         raise AssertionError(f"main path: error/|b| {err} at M={itr} not below {err50} at 50")
     t_build = t_b1 + t_b2
     say("main", N=N_MAIN, D=D_MAIN, S=S_MAIN, M=M_MAIN, itr=itr, size=wts.size,
-        done=coreset.reached_numeric_limit, launches=launches,
-        err50=f"{err50:.6e}", err=f"{err:.6e}")
+        done=coreset.reached_numeric_limit, launches=launches, fold_launches=fold_launches,
+        iterations_run=ran,
+        err50=f"{err50:.6e}", err=f"{err:.6e}", graphs_captured=caps,
+        capture_s=f"{cap_s:.4f}", one_itr_ms_per_itr=f"{one_ms:.4f}",
+        one_itr_bit_identical=True)
     prof = _profile_build(torch, coreset.snnls.consts, "giga", "main_launches")
+    _profile_build(torch, coreset.snnls.consts, "giga", "main_launches", segment=1)
+    fold = _hold_fold(torch, N_MAIN, "fold_kernel", smi)
     ref6 = {"w": coreset.snnls.weights(), "itr": itr, "err": err, "idcs": idcs,
             "slots": _slots(coreset.snnls.state), "ms_per_itr": 1e3 * (t_b1 + t_b2) / itr,
-            **prof}
+            "fold_launches": fold_launches, "fold": fold[False], **prof}
     say("main_time", setup_s=f"{t_setup:.4f}", projection_s=f"{t_proj:.4f}",
         build_s=f"{t_build:.4f}", ms_per_itr=f"{1e3 * t_build / itr:.4f}",
+        capture_s=f"{cap_s:.4f}", one_itr_ms_per_itr=f"{one_ms:.4f}",
         points_per_s=f"{M_MAIN / (t_proj + t_build):.2f}",
         peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}", card=repr(smi))
     return launches, wts, pts, coreset, Z, projector, ref6
@@ -1087,25 +1154,52 @@ def _slots(state):
     return state.idcs[:int(state.size)].cpu().numpy()
 
 
-def _profile_build(torch, consts, method, tag, select_bound_ms=None, card=None, comm=None):
-    """Launches per iteration of ``method`` on phase 6's problem: 65
-    iterations of warm-up from a fresh state, then PROFILE_ITRS under
-    torch.profiler (one refresh inside), as scripts/profile_torch_build.py
-    counts them; and the select kernel's share of the device time.  The
-    build is functional: the coreset's own state is not touched.  With
-    ``comm`` (one rank of a sharded build) the line also gives the NCCL
-    kernels' device time per iteration.  Returns the line's numbers."""
+def _graph_counts():
+    """(graphs captured, their capture plus instantiate seconds) so far."""
+    from bayesian_coresets_tpu_torch.ops import graphs
+    return graphs.captures, graphs.capture_s + graphs.instantiate_s
+
+
+def _instantiate_s():
+    from bayesian_coresets_tpu_torch.ops import graphs
+    return graphs.instantiate_s
+
+
+def _profile_build(torch, consts, method, tag, select_bound_ms=None, card=None, comm=None,
+                   segment=None, max_active=1024, warm=65, window=PROFILE_ITRS):
+    """Launches per iteration of ``method`` on phase 6's problem: ``warm``
+    iterations of warm-up from a fresh state (and one window more, so that
+    the window's graphs exist), then ``window`` under torch.profiler (one
+    refresh inside), as scripts/profile_torch_build.py counts them; and the
+    select kernel's share of the device time.  ``segment`` is passed to the
+    build: by default it replays CUDA graphs (launches are their kernel
+    nodes), ``segment=1`` runs one-iteration segments.  The build is
+    functional: the coreset's own state is not touched.  With ``comm`` (one
+    rank of a sharded build) the line also gives the NCCL kernels' device
+    time per iteration.  Returns the line's numbers."""
     from torch.profiler import ProfilerActivity, profile
 
     from bayesian_coresets_tpu_torch.ops import giga_select as gs
     from bayesian_coresets_tpu_torch.ops import snnls
 
-    s = snnls.build(consts, snnls.init_state(consts, 1024), 65, 1e-6, method=method, comm=comm)
+    def run(state, itrs):
+        return snnls.build(consts, state, itrs, 1e-6, method=method, comm=comm,
+                           matvec_k=max_active, segment=segment)
+
+    caps0, cap_s0 = _graph_counts()
+    inst0 = _instantiate_s()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s = run(snnls.init_state(consts, max_active), warm)
+    if segment != 1 and comm is None:
+        run(s, window)                       # captures the window's graphs
+    torch.cuda.synchronize()
+    caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
+    inst_s = _instantiate_s() - inst0
     t0 = time.perf_counter()
-    snnls.build(consts, s, PROFILE_ITRS, 1e-6, method=method, comm=comm)   # unprofiled
+    run(s, window)                                                   # unprofiled
     torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / PROFILE_ITRS
+    wall_ms = 1e3 * (time.perf_counter() - t0) / window
     # One profiled window (phase 17's, late in a full run) came back with 61
     # select kernels for 64 launches, at half the time CUDA events give each;
     # the same window profiled in a fresh process had all 64 at full length.
@@ -1114,43 +1208,129 @@ def _profile_build(torch, consts, method, tag, select_bound_ms=None, card=None, 
     for short in range(3):
         before = gs.launches
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            s2 = snnls.build(consts, s, PROFILE_ITRS, 1e-6, method=method, comm=comm)
+            s2 = run(s, window)
             torch.cuda.synchronize()
         itrs = int(s2.itr) - int(s.itr)
         rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if itrs != PROFILE_ITRS or not rows:
+        if itrs != window or not rows:
             raise AssertionError(f"{tag}: {itrs} iterations, {len(rows)} kernel rows")
         select = sum(e.count for e in rows if "giga_select" in e.key)
         if select == itrs or gs.launches - before != itrs:
             break
         print(f"[{tag}_short_window] select_kernels={select} wrapper_launches="
               f"{gs.launches - before} itrs={itrs}", flush=True)
+    peak = torch.cuda.max_memory_allocated()
     total = sum(e.count for e in rows)
     busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
     select_us = sum(getattr(e, "self_device_time_total", 0.0) for e in rows
                     if "giga_select" in e.key)
     nccl_us = sum(getattr(e, "self_device_time_total", 0.0) for e in rows
                   if "nccl" in e.key.lower())
+    path = "one_itr" if segment == 1 or comm is not None else "graphs"
     stats = {"launches_per_itr": total / itrs, "device_busy_us_per_itr": busy_us / itrs,
              "unprofiled_wall_ms_per_itr": wall_ms, "nccl_us_per_itr": nccl_us / itrs,
-             "select_launches_per_itr": select / itrs}
-    say(tag, method=method, window_itrs=itrs, short_windows=short,
+             "select_launches_per_itr": select / itrs, "idle_share": 1.0 - busy_us * 1e-3
+             / itrs / wall_ms, "captures": caps, "capture_s": cap_s, "peak_GB": peak / 1e9}
+    say(tag, method=method, path=path, window_itrs=itrs, short_windows=short,
         select_launches_per_itr=f"{select / itrs:.3f}",
         wrapper_launches_per_itr=f"{(gs.launches - before) / itrs:.3f}",
         launches_per_itr=f"{total / itrs:.2f}", device_busy_us_per_itr=f"{busy_us / itrs:.1f}",
         unprofiled_wall_ms_per_itr=f"{wall_ms:.4f}",
-        idle_share=f"{1.0 - busy_us * 1e-3 / itrs / wall_ms:.4f}",
+        idle_share=f"{stats['idle_share']:.4f}",
         select_us_per_itr=f"{select_us / itrs:.1f}",
         **({} if comm is None else {"nccl_us_per_itr": f"{nccl_us / itrs:.1f}"}),
         select_share_of_device=f"{select_us / busy_us:.3f}" if busy_us else "not_measured",
+        graphs_captured=caps, capture_s=f"{cap_s:.4f}", instantiate_s=f"{inst_s:.4f}",
+        peak_mem_GB=f"{peak / 1e9:.3f}",
         **({} if select_bound_ms is None else {
             "select_bound_us": f"{1e3 * select_bound_ms:.1f}",
             "select_share_of_bound": f"{1e3 * select_bound_ms * itrs / select_us:.3f}"
             if select_us else "not_measured", "card": repr(card)}))
-    if select != itrs or gs.launches - before != itrs:
+    expect = 0 if method in ("importance", "uniform") else itrs
+    if select != expect or gs.launches - before != expect:
         raise AssertionError(f"{tag}: {select} select kernels on the card and "
                              f"{gs.launches - before} wrapper launches for {itrs} iterations")
     return stats
+
+
+def _hold_fold(torch, n, tag, smi):
+    """The gated fold kernel (``csrc/fold_scale.cu``) against its plain
+    version on an (n,) weight vector, with the flag set (a fold by 3e-11,
+    as a first iteration's) and clear: the weights bit for bit.  Then each
+    timed: direct launches (batch), 20 launches in a CUDA graph, and the
+    plain version, beside the bound of what the call must move (the flag
+    and the scale, and with the flag set the n weights read and written).
+    Returns {flag: times}."""
+    from bayesian_coresets_tpu_torch.ops import _cuda_build
+    from bayesian_coresets_tpu_torch.ops import fold_scale as fs
+
+    lib = _cuda_build.load_library()
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    w0 = 3.0 * torch.rand(n, generator=torch.Generator(device="cuda").manual_seed(n),
+                          device="cuda")
+    fold, keep = torch.full((), 3e-11, device="cuda"), torch.full((), 0.9999999, device="cuda")
+    out = {}
+    for flag in (True, False):
+        f = torch.full((), flag, dtype=torch.bool, device="cuda")
+        wk, wp = w0.clone(), w0.clone()
+        before = fs.launches
+        fs.fold_scale(wk, f, fold)
+        fs.fold_scale_ref(wp, f, fold)
+        torch.cuda.synchronize()
+        if fs.launches != before + 1 or not torch.equal(wk.view(torch.int32),
+                                                       wp.view(torch.int32)):
+            raise AssertionError(f"fold kernel n={n} flag={flag}: not the plain version's "
+                                 "weights bit for bit")
+        fs.launches = before
+        # timed with a scale near 1, so that repeated folds keep the weights normal
+        k_ms = _direct_ms(torch, lib.fold_scale_launch, ptr(wk), n, ptr(f), ptr(keep),
+                          ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        g_ms = _graph_ms(torch, lambda st: _launcher(lib.fold_scale_launch, ptr(wk), n, ptr(f),
+                                                     ptr(keep), ctypes.c_void_p(st)))
+        p_ms = _median_ms(torch, lambda: fs.fold_scale_ref(wp, f, keep))
+        b_ms, b_by = _bound(1 + 4 + (8 * n if flag else 0), n if flag else 0, "float32")
+        out[flag] = dict(ms=k_ms, graph_ms=g_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+        say(tag, n=n, flag=flag, kernel_ms=f"{k_ms:.4f}", graph_ms=f"{g_ms:.4f}",
+            plain_ms=f"{p_ms:.4f}", bound_ms=f"{b_ms:.6f}", bound_by=b_by,
+            share_of_bound=f"{b_ms / k_ms:.3f}", graph_share_of_bound=f"{b_ms / g_ms:.3f}",
+            weights="bit_identical", card=repr(smi))
+    return out
+
+
+def _one_itr(torch, consts, method, steps, ref_state, max_active, label):
+    """The build of ``steps`` (the calls' iteration counts) on the same
+    constants in one-iteration segments: its state must be the replayed
+    build's (``ref_state``) bit for bit.  Returns its ms per iteration."""
+    from bayesian_coresets_tpu_torch.ops import snnls
+    from bayesian_coresets_tpu_torch.utils import config
+
+    s, t = snnls.init_state(consts, max_active), 0.0
+    for k in steps:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = snnls.build(consts, s, k, config.TOL, method=method, matvec_k=max_active,
+                        segment=1)
+        torch.cuda.synchronize()
+        t += time.perf_counter() - t0
+    for name in snnls.SNNLSState._fields:
+        x, y = getattr(s, name), getattr(ref_state, name)
+        if x.is_floating_point():
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if x.shape != y.shape or not torch.equal(x, y):
+            raise AssertionError(f"{label}: the replayed build's {name} differs from the "
+                                 "one-iteration segments'")
+    return 1e3 * t / max(int(s.itr), 1)
+
+
+def _ran_check(label, launches, ran, itrs, done, length=64):
+    """The select launched once per iteration the build loop ran
+    (``snnls.itrs_run``, replays counted): the iterations the state
+    advanced, and only after ``done`` latched inside a segment up to that
+    segment's rest more (gated iterations still select)."""
+    extra = ran - itrs
+    if launches != ran or itrs == 0 or extra < 0 or (extra and not done) or extra >= length:
+        raise AssertionError(f"{label}: {launches} select launches, {ran} iterations run, "
+                             f"{itrs} advanced, done={done}")
 
 
 def _importance_moments(torch, zc, wc, n=200_000, seed=6, inflate=1.3):
@@ -1234,16 +1414,33 @@ def phase_nuts(torch, smi, wts, pts):
 def phase_optimize(torch, coreset):
     """HilbertCoreset.optimize() (FISTA on the card), then the exact host
     solver on the same active set."""
+    import numpy as np
     from bayesian_coresets_tpu_torch import native
+    from bayesian_coresets_tpu_torch.ops import snnls
+    from bayesian_coresets_tpu_torch.utils import config
 
     bnorm = float(coreset.snnls.consts.bnorm)
     e0 = coreset.error() / bnorm
     size0 = coreset.size()
+    st0, act = coreset.snnls.state, np.sort(coreset.snnls.active()[0])   # as optimize() does
+    caps0, cap_s0 = _graph_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     coreset.optimize()
     torch.cuda.synchronize()
     t_fista = time.perf_counter() - t0
+    caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
+    # the same solve from the same state again: a replay of its graph
+    idcs = np.zeros(1 << max(3, int(np.ceil(np.log2(act.size)))), dtype=np.int32)
+    idcs[:act.size] = act
+    idcs = torch.as_tensor(idcs, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snnls.optimize_active(coreset.snnls.consts, st0, idcs, act.size, config.TOL)
+    torch.cuda.synchronize()
+    t_replay = time.perf_counter() - t0
+    if _graph_counts()[0] != caps0 + caps:
+        raise AssertionError("optimize: the second solve of one padded size captured again")
     e1 = coreset.error() / bnorm
     if coreset.reached_numeric_limit or not e1 <= e0 * (1.0 + 1e-6):
         raise AssertionError(f"optimize: error/|b| {e0} -> {e1}, "
@@ -1261,7 +1458,8 @@ def phase_optimize(torch, coreset):
         raise AssertionError(f"optimize: exact error/|b| {e2} against FISTA's {e1}, "
                              f"latched={sn.reached_numeric_limit}")
     say("optimize", atoms_before=size0, err_before=f"{e0:.6e}", fista_err=f"{e1:.6e}",
-        fista_atoms=coreset.size(), fista_s=f"{t_fista:.4f}", exact_err=f"{e2:.6e}",
+        fista_atoms=coreset.size(), fista_s=f"{t_fista:.4f}", graphs_captured=caps,
+        capture_s=f"{cap_s:.4f}", fista_replay_s=f"{t_replay:.4f}", exact_err=f"{e2:.6e}",
         exact_atoms=sn.size(), exact_s=f"{t_exact:.4f}", gxx_build_s=f"{t_gxx:.3f}")
 
 
@@ -1503,6 +1701,7 @@ def phase_frankwolfe(torch, smi, Z, projector):
     coreset = bc.HilbertCoreset(Z, projector, snnls=bc.snnls.FrankWolfe,
                                 select_dtype=torch.int8, max_active=1024)
     bnorm = float(coreset.snnls.consts.bnorm)
+    caps0, cap_s0 = _graph_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     coreset.build(50)
@@ -1510,12 +1709,17 @@ def phase_frankwolfe(torch, smi, Z, projector):
     coreset.build(M_MAIN - 50)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0        # with the error() read at 50
+    caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
     launches = gs.launches
     itr = int(coreset.snnls.state.itr)
     err = coreset.error() / bnorm
     wts, pts, _ = coreset.get()
     if launches != itr or itr != M_MAIN:
         raise AssertionError(f"frankwolfe: {launches} select launches for {itr} iterations")
+    one_ms = _one_itr(torch, coreset.snnls.consts, "frankwolfe", (50, M_MAIN - 50),
+                      coreset.snnls.state, 1024, "frankwolfe")
+    if wts.size != FW_ATOMS:
+        raise AssertionError(f"frankwolfe: {wts.size} atoms at M={itr}, expected {FW_ATOMS}")
     if wts.size == 0 or not np.isfinite(wts).all() or (wts <= 0).any() \
             or pts.shape != (wts.size, D_MAIN):
         raise AssertionError("frankwolfe: empty, non-finite or malformed coreset")
@@ -1524,8 +1728,10 @@ def phase_frankwolfe(torch, smi, Z, projector):
     say("frankwolfe", N=N_MAIN, S=S_MAIN, M=M_MAIN, itr=itr, size=wts.size,
         done=coreset.reached_numeric_limit, launches=launches, err50=f"{err50:.6e}",
         err=f"{err:.6e}", build_s=f"{t_build:.4f}", ms_per_itr=f"{1e3 * t_build / itr:.4f}",
-        card=repr(smi))
+        graphs_captured=caps, capture_s=f"{cap_s:.4f}", one_itr_ms_per_itr=f"{one_ms:.4f}",
+        one_itr_bit_identical=True, card=repr(smi))
     _profile_build(torch, coreset.snnls.consts, "frankwolfe", "frankwolfe_launches")
+    _profile_build(torch, coreset.snnls.consts, "frankwolfe", "frankwolfe_launches", segment=1)
     return launches, {"w": coreset.snnls.weights(), "err": err, "itr": itr,
                       "slots": _slots(coreset.snnls.state), "ms_per_itr": 1e3 * t_build / itr}
 
@@ -1541,6 +1747,8 @@ def phase_omp(torch, smi, Z, projector):
     coreset = bc.HilbertCoreset(Z, projector, snnls=bc.snnls.OrthoPursuit,
                                 select_dtype=torch.int8, max_active=OMP_ACTIVE)
     bnorm = float(coreset.snnls.consts.bnorm)
+    caps0, cap_s0 = _graph_counts()
+    inst0 = _instantiate_s()
     errs, secs = [], []
     for _ in range(OMP_ITRS // OMP_CHUNK):
         torch.cuda.synchronize()
@@ -1550,6 +1758,7 @@ def phase_omp(torch, smi, Z, projector):
         secs.append(time.perf_counter() - t0)
         errs.append(coreset.error() / bnorm)
     t_build = sum(secs)
+    caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
     launches, itr = gs.launches, int(coreset.snnls.state.itr)
     if launches != itr or itr != OMP_ITRS or coreset.reached_numeric_limit:
         raise AssertionError(f"omp: {launches} select launches for {itr} iterations, "
@@ -1574,7 +1783,14 @@ def phase_omp(torch, smi, Z, projector):
         launches=launches, errs=",".join(f"{e:.6e}" for e in errs), build_s=f"{t_build:.4f}",
         chunk_s=",".join(f"{t:.3f}" for t in secs), ms_per_itr_last_chunk=f"{ms_itr:.3f}",
         fista_wall_ms=f"{fista_wall_ms:.3f}", fista_event_ms=f"{fista_ms:.3f}",
-        fista_share_of_itr=f"{fista_wall_ms / ms_itr:.3f}", card=repr(smi))
+        fista_share_of_itr=f"{fista_wall_ms / ms_itr:.3f}", graphs_captured=caps,
+        capture_s=f"{cap_s:.3f}", instantiate_s=f"{_instantiate_s() - inst0:.3f}",
+        segment=snnls._GRAPH_SEGMENT["orthopursuit"],
+        card=repr(smi))
+    # a replayed window of 16 iterations (segments of 4) from 33, with
+    # OMP_ACTIVE slots: its graph nodes per iteration
+    _profile_build(torch, c, "orthopursuit", "omp_launches", max_active=OMP_ACTIVE, warm=33,
+                   window=16)
     return launches
 
 
@@ -1590,7 +1806,9 @@ def phase_sampling(torch, smi, Z, projector):
         coreset = bc.HilbertCoreset(Z, projector, snnls=cls, max_active=1024, seed=3)
         sn = coreset.snnls
         bnorm = float(sn.consts.bnorm)
+        caps0, cap_s0 = _graph_counts()
         _, syncs, sites = _count_syncs(torch, lambda: coreset.build(SAMPLING_DRAWS))   # warm-up
+        caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
         w_first = sn.weights()
         coreset.reset()
         torch.cuda.synchronize()
@@ -1600,17 +1818,21 @@ def phase_sampling(torch, smi, Z, projector):
         t = time.perf_counter() - t0
         w, cts = sn.weights(), sn.state.cts
         err = coreset.error() / bnorm
-        launches, busy_us, idle = _profile_window(
-            torch, lambda: bc.snnls.build(sn.consts, sn.state, PROFILE_ITRS, 1e-6,
-                                          method=cls.method,
-                                          draws=torch.Generator(device="cuda").manual_seed(4)),
-            PROFILE_ITRS)
+        gen = torch.Generator(device="cuda")     # one generator: its graphs are replayed
+
+        def window():
+            return bc.snnls.build(sn.consts, sn.state, PROFILE_ITRS, 1e-6, method=cls.method,
+                                  draws=gen.manual_seed(4))
+
+        window()                                 # captures the window's graphs
+        launches, busy_us, idle = _profile_window(torch, window, PROFILE_ITRS)
         say("sampling", method=cls.method, N=N_MAIN, S=S_MAIN, draws=SAMPLING_DRAWS,
             size=coreset.size(), counts=int(cts.sum()), err=f"{err:.6e}",
             build_s=f"{t:.4f}", ms_per_draw=f"{1e3 * t / SAMPLING_DRAWS:.4f}",
             launches_per_draw=launches, device_busy_us_per_draw=busy_us, idle_share=idle,
             host_reads_per_draw=f"{syncs / SAMPLING_DRAWS:.3f}", host_read_sites=sites,
-            select_launches=gs.launches + ps.launches, card=repr(smi))
+            select_launches=gs.launches + ps.launches, graphs_captured=caps,
+            capture_s=f"{cap_s:.4f}", card=repr(smi))
         if int(cts.sum()) != SAMPLING_DRAWS or int(sn.state.itr) != SAMPLING_DRAWS:
             raise AssertionError(f"sampling {cls.method}: {int(cts.sum())} counts after "
                                  f"{int(sn.state.itr)} of {SAMPLING_DRAWS} draws")
@@ -1634,6 +1856,7 @@ def phase_poisson(torch, smi):
     from bayesian_coresets_tpu_torch.mcmc import weighted
     from bayesian_coresets_tpu_torch.models import poisson
     from bayesian_coresets_tpu_torch.ops import giga_select as gs
+    from bayesian_coresets_tpu_torch.ops import snnls
 
     dev = torch.device("cuda")
     d = 2
@@ -1644,19 +1867,19 @@ def phase_poisson(torch, smi):
                                   + 0.05 * torch.randn((n, d), generator=g, device=g.device))
     projector = bc.BlackBoxProjector(sampler, S_MAIN, poisson.log_likelihood,
                                      generator=torch.Generator(device=dev).manual_seed(1))
-    gs.launches = 0
+    gs.launches = snnls.itrs_run = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     coreset = bc.HilbertCoreset(Z, projector, select_dtype=torch.int8, max_active=1024)
     coreset.build(POIS_M)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
-    launches, itr = gs.launches, int(coreset.snnls.state.itr)
+    launches, ran, itr = gs.launches, snnls.itrs_run, int(coreset.snnls.state.itr)
     err = coreset.error() / float(coreset.snnls.consts.bnorm)
     wts, pts, _ = coreset.get()
-    if launches != itr or itr == 0 or wts.size == 0 or not np.isfinite(wts).all():
-        raise AssertionError(f"poisson: {launches} select launches for {itr} iterations, "
-                             f"{wts.size} atoms")
+    _ran_check("poisson", launches, ran, itr, coreset.reached_numeric_limit)
+    if wts.size == 0 or not np.isfinite(wts).all():
+        raise AssertionError(f"poisson: {wts.size} atoms, or weights not finite")
     zc, wc = torch.as_tensor(pts, device=dev), torch.as_tensor(wts, device=dev)
     _, t, res = weighted.run(poisson, zc, wc, POIS_DRAWS,
                              torch.Generator(device=dev).manual_seed(5), d=d,
@@ -1766,6 +1989,7 @@ def phase_streamed(torch, smi):
     import bayesian_coresets_tpu_torch as bc
     from bayesian_coresets_tpu_torch.models import logistic
     from bayesian_coresets_tpu_torch.ops import giga_select as gs
+    from bayesian_coresets_tpu_torch.ops import snnls
     from bayesian_coresets_tpu_torch.utils import profiling
 
     dev = torch.device("cuda")
@@ -1799,6 +2023,8 @@ def phase_streamed(torch, smi):
     launches, itr = gs.launches, int(coreset.snnls.state.itr)
     err = coreset.error() / bnorm
     wts, pts, idcs = coreset.get()
+    one_ms = _one_itr(torch, c8, "giga", (50, M_MAIN - 50), coreset.snnls.state, 1024,
+                      "streamed")
     rep = profiling.report()
     t_con, t_build = rep["construct"]["total_s"], rep["build"]["total_s"]
     say("streamed", N=STREAM_N, D=D_MAIN, S=S_MAIN, M=M_MAIN, chunk=STREAM_CHUNK, itr=itr,
@@ -1807,7 +2033,8 @@ def phase_streamed(torch, smi):
         err=f"{err:.6e}", data_s=f"{t_data:.3f}", construct_s=f"{t_con:.4f}",
         build_s=f"{t_build:.4f}", ms_per_itr=f"{1e3 * t_build / max(itr, 1):.4f}",
         points_per_s=f"{M_MAIN / (t_con + t_build):.2f}", peak_mem_GB=f"{peak / 1e9:.3f}",
-        f32_matrix_GB=f"{STREAM_N * S_MAIN * 4 / 1e9:.3f}", card=repr(smi))
+        f32_matrix_GB=f"{STREAM_N * S_MAIN * 4 / 1e9:.3f}",
+        one_itr_ms_per_itr=f"{one_ms:.4f}", one_itr_bit_identical=True, card=repr(smi))
     if launches != itr or itr != M_MAIN:
         raise AssertionError(f"streamed: {launches} select launches for {itr} iterations")
     if wts.size == 0 or not np.isfinite(wts).all() or (wts <= 0).any() \
@@ -1818,7 +2045,16 @@ def phase_streamed(torch, smi):
     if not peak < STREAM_MEM_MAX:
         raise AssertionError(f"streamed: peak allocation {peak / 1e9:.3f} GB, not below the "
                              f"{STREAM_MEM_MAX / 1e9} GB of an f32 (N, S) matrix")
-    _profile_build(torch, c8, "giga", "streamed_launches")
+    prof = _profile_build(torch, c8, "giga", "streamed_launches")
+    _profile_build(torch, c8, "giga", "streamed_launches", segment=1)
+    # the wscale fold gated on the device, a GIGA iteration's one O(N) pass
+    # where its plain version runs: the kernel and the plain version at N
+    fold = _hold_fold(torch, STREAM_N, "streamed_fold_kernel", smi)
+    itr_ms = prof["unprofiled_wall_ms_per_itr"]
+    say("streamed_fold", N=STREAM_N, itr_wall_ms=f"{itr_ms:.4f}",
+        plain_share_of_itr=f"{fold[False]['plain_ms'] / itr_ms:.4f}",
+        kernel_share_of_itr=f"{fold[False]['graph_ms'] / itr_ms:.4f}",
+        kernel_set_share_of_itr=f"{fold[True]['graph_ms'] / itr_ms:.4f}", card=repr(smi))
     select = _streamed_select(torch, c8)
     del coreset, c8, wts, pts
     torch.cuda.empty_cache()
@@ -1837,9 +2073,10 @@ def phase_streamed(torch, smi):
     del diff
     norm_rel = float(((cm.norms - cs.norms).abs() / cs.norms).max())
     e0 = st.error() / float(cs.bnorm)
+    snnls.itrs_run = 0
     mem.build(M_MAIN)
     st.build(M_MAIN)
-    q_launches = gs.launches
+    q_launches, q_ran = gs.launches, snnls.itrs_run
     e_mem, e_st = mem.error() / float(cm.bnorm), st.error() / float(cs.bnorm)
     say("streamed_quality", N=QUALITY_N, chunk=QUALITY_CHUNK, M=M_MAIN,
         int8_entries_differing=n_diff, max_int8_diff=max_diff, norms_max_rel=f"{norm_rel:.3e}",
@@ -1851,8 +2088,9 @@ def phase_streamed(torch, smi):
         raise AssertionError(f"streamed quality: norms differ by {norm_rel} relative")
     if not e_st < max(2.0 * e_mem, 0.05 * e0):       # tests/test_snnls.py:279's rule
         raise AssertionError(f"streamed quality: error/|b| {e_st} against in-memory {e_mem}")
-    if q_launches != int(st.snnls.state.itr) + int(mem.snnls.state.itr):
-        raise AssertionError(f"streamed quality: {q_launches} select launches")
+    _ran_check("streamed quality", q_launches, q_ran,
+               int(st.snnls.state.itr) + int(mem.snnls.state.itr),
+               st.reached_numeric_limit or mem.reached_numeric_limit, length=128)
     quality = {"V": cs.V.cpu().numpy(), "norms": cs.norms.cpu().numpy(),
                "w": st.snnls.weights(), "err_in_memory": e_mem, "err0": e0, "err": e_st,
                "itr": int(st.snnls.state.itr)}
@@ -1936,6 +2174,7 @@ def phase_wide_build(torch, smi):
             raise AssertionError(f"wide build: a {c.Vsel.dtype} select copy of {row_bytes}-byte "
                                  "rows, not V itself past 48 KB")
         bnorm = float(c.bnorm)
+        caps0, cap_s0 = _graph_counts()
         coreset.build(1)
         err1 = coreset.error() / bnorm
         torch.cuda.synchronize()
@@ -1943,16 +2182,23 @@ def phase_wide_build(torch, smi):
         coreset.build(WIDE_BUILD_M - 1)
         torch.cuda.synchronize()
         t_build = time.perf_counter() - t0
+        caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
         launches, itr = gs.launches, int(coreset.snnls.state.itr)
         err = coreset.error() / bnorm
         peak = torch.cuda.max_memory_allocated()
         wts, pts, _ = coreset.get()
+        one_ms = _one_itr(torch, c, method, (1, WIDE_BUILD_M - 1), coreset.snnls.state, 1024,
+                          f"wide build {method}")
+        if method == "giga" and wts.size != WIDE_GIGA_ATOMS:
+            raise AssertionError(f"wide build giga: {wts.size} atoms, expected "
+                                 f"{WIDE_GIGA_ATOMS}")
         say("wide_build", method=method, N=N_MAIN, S=WIDE_BUILD_S, row_bytes=row_bytes,
             M=WIDE_BUILD_M, itr=itr, size=wts.size, done=coreset.reached_numeric_limit,
             launches=launches, select_launches_per_itr=f"{launches / max(itr, 1):.3f}",
             err1=f"{err1:.6e}", err=f"{err:.6e}", projection_s=f"{t_proj:.4f}",
             ms_per_itr=f"{1e3 * t_build / (WIDE_BUILD_M - 1):.4f}",
-            peak_mem_GB=f"{peak / 1e9:.3f}", card=repr(smi))
+            graphs_captured=caps, capture_s=f"{cap_s:.4f}", one_itr_ms_per_itr=f"{one_ms:.4f}",
+            one_itr_bit_identical=True, peak_mem_GB=f"{peak / 1e9:.3f}", card=repr(smi))
         if launches != itr or itr != WIDE_BUILD_M:
             raise AssertionError(f"wide build {method}: {launches} select launches for {itr} "
                                  "iterations")
@@ -1968,8 +2214,9 @@ def phase_wide_build(torch, smi):
                    "slots": _slots(coreset.snnls.state),
                    "ms_per_itr": 1e3 * t_build / (WIDE_BUILD_M - 1)}
         bound_ms, _ = _select_bound(torch, c.Vsel, WIDE_BUILD_S)
-        _profile_build(torch, c, method, "wide_build_launches", select_bound_ms=bound_ms,
-                       card=smi)
+        for segment in (None, 1):
+            _profile_build(torch, c, method, "wide_build_launches", select_bound_ms=bound_ms,
+                           card=smi, segment=segment)
         del coreset, c
     return total, ref
 
@@ -2022,6 +2269,7 @@ def _exp_logistic(gs, ps):
     """logistic_poisson GIGA-OPT at the reference's logistic settings."""
     import numpy as np
     from bayesian_coresets_tpu_torch.experiments import logistic_poisson, results
+    from bayesian_coresets_tpu_torch.ops import snnls
 
     with _in_temp_dir() as tmp:
         rng = np.random.default_rng(EXP_SEED)
@@ -2033,11 +2281,13 @@ def _exp_logistic(gs, ps):
         prev = os.environ.get("BC_DATA_DIR")
         os.environ["BC_DATA_DIR"] = str(tmp / "data")
         try:
-            gs.launches = ps.launches = 0
+            gs.launches = ps.launches = snnls.itrs_run = 0
+            caps0, cap_s0 = _graph_counts()
             t0 = time.perf_counter()
             info = logistic_poisson.main(["run"] + EXP_LP_ARGV)
             t = time.perf_counter() - t0
-            launches, packed = gs.launches, ps.launches
+            launches, packed, ran = gs.launches, ps.launches, snnls.itrs_run
+            caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
         finally:
             if prev is None:
                 del os.environ["BC_DATA_DIR"]
@@ -2059,13 +2309,12 @@ def _exp_logistic(gs, ps):
               full_rhat=f"{float(table['full_rhat'][0]):.4f}",
               full_ess=f"{float(table['full_ess'][0]):.1f}",
               dense_retries=info["dense_retries"], max_weight=f"{wts.max():.6g}",
-              max_weight_over_N=f"{wts.max() / EXP_N:.4g}",
+              max_weight_over_N=f"{wts.max() / EXP_N:.4g}", iterations_run=ran,
+              graphs_captured=caps, capture_s=f"{cap_s:.3f}",
               **{f"{k}_s": f"{v:.3f}" for k, v in sec.items()})
     if packed:
         raise AssertionError("logistic_poisson: the packed select kernel was launched")
-    if launches != itr or itr == 0:
-        raise AssertionError(f"logistic_poisson: {launches} select launches for {itr} "
-                             "iterations")
+    _ran_check("logistic_poisson", launches, ran, itr, coreset.reached_numeric_limit)
     if not rkl[-1] < rkl[0]:
         raise AssertionError(f"logistic_poisson: rKL at M_max {rkl[-1]} not below {rkl[0]}")
     if not (table["csizes"] > 0).all():
@@ -2082,18 +2331,21 @@ def _exp_logistic(gs, ps):
 
 def _exp_simple_lr(gs):
     from bayesian_coresets_tpu_torch.experiments import simple_lr
+    from bayesian_coresets_tpu_torch.ops import snnls
 
-    gs.launches = 0
+    gs.launches = snnls.itrs_run = 0
+    caps0, cap_s0 = _graph_counts()
     t0 = time.perf_counter()
     kl, coreset = simple_lr.main(verbose=False)
     t = time.perf_counter() - t0
-    launches, itr = gs.launches, int(coreset.snnls.state.itr)
+    caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
+    launches, ran, itr = gs.launches, snnls.itrs_run, int(coreset.snnls.state.itr)
     wts, _, _ = coreset.get()
     say("experiments", driver="simple_lr", seconds=f"{t:.3f}", select_launches=launches,
-        iterations=itr, kl=f"{kl:.6g}", size=wts.size, max_weight=f"{wts.max():.6g}",
+        iterations=itr, iterations_run=ran, kl=f"{kl:.6g}", size=wts.size,
+        max_weight=f"{wts.max():.6g}", graphs_captured=caps, capture_s=f"{cap_s:.3f}",
         N=10000, D=10, projection_dim=500, M=500, reduced="none")
-    if launches != itr or itr == 0:
-        raise AssertionError(f"simple_lr: {launches} select launches for {itr} iterations")
+    _ran_check("simple_lr", launches, ran, itr, coreset.reached_numeric_limit)
     if not (kl >= 0.0 and kl < float("inf")):
         raise AssertionError(f"simple_lr: KL {kl}")
     return launches
@@ -2107,18 +2359,22 @@ def _exp_linear_regression(gs):
     import numpy as np
     import torch
     from bayesian_coresets_tpu_torch.experiments import linear_regression, results
+    from bayesian_coresets_tpu_torch.ops import snnls
 
     out = {}
     for dev in ("cuda", "cpu"):
         with _in_temp_dir():
-            gs.launches = 0
+            gs.launches = snnls.itrs_run = 0
+            caps0, cap_s0 = _graph_counts()
             t0 = time.perf_counter()
             coreset = linear_regression.main(["run", "--alg", "GIGA-OPT-EXACT",
                                               "--device", dev])
             t = time.perf_counter() - t0
-            out[dev] = (t, gs.launches, coreset, results.load_matching({}, folder="results/"))
-    t, launches, coreset, card = out["cuda"]
-    t_cpu, cpu_launches, cpu_coreset, cpu = out["cpu"]
+            out[dev] = (t, gs.launches, coreset, results.load_matching({}, folder="results/"),
+                        snnls.itrs_run, [a - b for a, b in zip(_graph_counts(),
+                                                               (caps0, cap_s0))])
+    t, launches, coreset, card, ran, (caps, cap_s) = out["cuda"]
+    t_cpu, cpu_launches, cpu_coreset, cpu, _, _ = out["cpu"]
     itr, cpu_itr = int(coreset.snnls.state.itr), int(cpu_coreset.snnls.state.itr)
     Vsel = coreset.snnls.consts.Vsel
     hold_err = _hold_driver_select(torch, coreset, "linear_regression select")
@@ -2143,10 +2399,11 @@ def _exp_linear_regression(gs):
               select_held=f"{Vsel.dtype}:{tuple(Vsel.shape)}", select_max_abs_err=hold_err,
               select_ms_per_launch=f"{sel_ms:.4f}", select_bound_ms=f"{sel_bound:.4f}",
               select_share_of_bound=f"{sel_bound / sel_ms:.3f}",
-              select_ms_in_run=f"{sel_ms * launches:.2f}")
-    if launches != itr or itr == 0 or cpu_launches:
-        raise AssertionError(f"linear_regression: {launches} select launches for {itr} "
-                             f"iterations, {cpu_launches} on the CPU")
+              select_ms_in_run=f"{sel_ms * launches:.2f}", iterations_run=ran,
+              graphs_captured=caps, capture_s=f"{cap_s:.3f}")
+    _ran_check("linear_regression", launches, ran, itr, coreset.reached_numeric_limit)
+    if cpu_launches:
+        raise AssertionError(f"linear_regression: {cpu_launches} select launches on the CPU")
     if not np.array_equal(card["csizes"][below], cpu["csizes"][below]):
         raise AssertionError("linear_regression: card and CPU coreset sizes differ below "
                              f"proj_dim: {card['csizes']} against {cpu['csizes']}")
@@ -2169,19 +2426,26 @@ def _exp_synthetic_vectors(gs):
     import numpy as np
     import torch
     from bayesian_coresets_tpu_torch.experiments import results, synthetic_vectors
+    from bayesian_coresets_tpu_torch.ops import snnls
+
+    ran = {}
 
     def run(alg, extra):
         with _in_temp_dir():
-            gs.launches = 0
+            gs.launches = snnls.itrs_run = 0
+            caps0, cap_s0 = _graph_counts()
             t0 = time.perf_counter()
             coreset = synthetic_vectors.main(["run", "--alg", alg] + extra)
             t = time.perf_counter() - t0
+            ran.update(itrs=snnls.itrs_run, graphs=[a - b for a, b in zip(
+                _graph_counts(), (caps0, cap_s0))])
             return t, gs.launches, coreset, results.load_matching({}, folder="results/")
 
     total, hold_err, dim = 0, 0.0, 100          # the driver's default data_dim
     for alg, extra in (("GIGA", []), ("FW", []),
                        ("OMP", ["--coreset_size_max", str(EXP_OMP_M)])):
         t, launches, coreset, table = run(alg, extra)
+        card_ran, (caps, cap_s) = ran["itrs"], ran["graphs"]
         itr = int(coreset.snnls.state.itr)
         _finite_columns(table, f"synthetic_vectors {alg}")
         err = table["err"]
@@ -2217,10 +2481,11 @@ def _exp_synthetic_vectors(gs):
         _exp_line(f"synthetic_vectors_{alg}", t, launches, itr, table, ("err", "csize"),
                   f"coreset_size_max:1000->{EXP_OMP_M}" if extra else "none",
                   data_num=10000, data_dim=dim, sizes=table.nrows,
-                  ms_per_itr=f"{1e3 * float(table['cput'][-1]) / max(itr, 1):.4f}", **cpu_kv)
-        if launches != itr or itr == 0:
-            raise AssertionError(f"synthetic_vectors {alg}: {launches} select launches for "
-                                 f"{itr} iterations")
+                  ms_per_itr=f"{1e3 * float(table['cput'][-1]) / max(itr, 1):.4f}",
+                  iterations_run=card_ran, graphs_captured=caps, capture_s=f"{cap_s:.3f}",
+                  **cpu_kv)
+        _ran_check(f"synthetic_vectors {alg}", launches, card_ran, itr,
+                   coreset.reached_numeric_limit, length=4 if alg == "OMP" else 64)
         if not err[-1] < err[0]:
             raise AssertionError(f"synthetic_vectors {alg}: error {err[-1]} at M_max not "
                                  f"below {err[0]}")
@@ -3031,6 +3296,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: run from a checkout of the repository "
                          "(bayesian_coresets_tpu_torch/ not found beside this script)")
     sys.path.insert(0, str(ROOT))
+    t_start = time.perf_counter()
     smi = phase_device(torch)
     phase_build()
     max_err, (k_ms, p_ms, k_bound, k_bound_by, k_lib) = phase_select(torch)
@@ -3087,6 +3353,7 @@ def main() -> int:
         raise AssertionError("the port imported pandas or matplotlib")
     if not native.SOURCE.resolve().is_relative_to(ROOT / "bayesian_coresets_tpu_torch"):
         raise AssertionError(f"the port builds from {native.SOURCE}, outside its package")
+    say("elapsed", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [
         {"name": "giga_select", "route": "cuda",
          "source": "bayesian_coresets_tpu_torch/csrc/giga_select.cu",
@@ -3103,7 +3370,14 @@ def main() -> int:
          "source": "bayesian_coresets_tpu_torch/csrc/giga_select.cu",
          "replaces": "bayesian_coresets_tpu/ops/pallas_kernels.py:110",
          "launches": proj_launches[name], **proj_line[name]}
-        for name in ("giga_dots", "giga_score_select")]}), flush=True)
+        for name in ("giga_dots", "giga_score_select")] + [
+        {"name": "fold_scale", "route": "cuda",
+         "source": "bayesian_coresets_tpu_torch/csrc/fold_scale.cu",
+         "replaces": "bayesian_coresets_tpu/ops/snnls.py:698",
+         "launches": ref6["fold_launches"], "max_abs_err": 0.0,
+         "ms": ref6["fold"]["ms"], "plain_ms": ref6["fold"]["plain_ms"],
+         "bound_ms": ref6["fold"]["bound_ms"], "bound_by": ref6["fold"]["bound_by"],
+         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -134,9 +134,11 @@ def test_solver_build_on_card_matches_cpu(method, itrs, rtol, cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("method", ["importance", "uniform"])
 def test_sampling_build_reads_only_done(method, cuda_device):
-    """A sampling build launches no select kernel and reads one flag per
-    draw (``done``, which a support overflow latches) and nothing else in
-    the loop; without support slots it reads nothing in the loop at all."""
+    """A sampling build in one-iteration segments launches no select kernel
+    and reads one pair per draw (``itr`` and ``done``, which a support
+    overflow latches) and nothing else in the loop; without support slots
+    it reads nothing in the loop at all (replayed segments:
+    test_replayed_build_reads_once_per_segment)."""
     rng = np.random.default_rng(2)
     A = torch.as_tensor(rng.normal(size=(64, 2000)).astype(np.float32), device=cuda_device)
     c = snnls.make_consts(A, A.sum(dim=1), sampling=method)
@@ -145,10 +147,9 @@ def test_sampling_build_reads_only_done(method, cuda_device):
     for K, per_draw in ((512, 1), (0, 0)):
         gen = torch.Generator(device=cuda_device).manual_seed(3)
         s, syncs = _syncs(lambda: snnls.build(c, snnls.init_state(c, K), 80, 1e-6,
-                                              method=method, draws=gen))
+                                              method=method, draws=gen, segment=1))
         in_loop = [x for x in syncs if "ops/snnls.py" in x]
-        # outside the loop: the state's itr and done on entry, the carried
-        # scale's initial 1.0 and the new itr written to the card
+        # outside the loop: the state's itr and done on entry
         assert len(in_loop) - 80 * per_draw <= 4, syncs
         assert len(in_loop) == len(syncs)
         assert s.w.is_cuda and float(s.cts.sum()) == 80 and bool((s.w >= 0).all())
@@ -1103,3 +1104,252 @@ def test_score_kernel_back_to_back_on_one_workspace(kind, cuda_device):
     torch.cuda.synchronize()
     assert [int(g) for g in got] == [want[r % 5] for r in range(100)]
     assert int(dead_out[0]) == 0 and float(dead_out[1]) == -np.inf
+
+
+# ---------------------------------------------------------------------------
+# The build loop and the FISTA solve as replayed CUDA graphs (ops/graphs.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_KINDS = ["int8", "bfloat16", "float32", "int8_resident"]
+GRAPH_METHODS = ["giga", "frankwolfe", "orthopursuit", "importance", "uniform"]
+
+
+def _graph_consts(kind, method, dev, n=3000, S=256, seed=1):
+    """Constants on the card: a select copy of ``kind``, or int8-resident."""
+    from bayesian_coresets_tpu_torch.parallel import quantize_chunk
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(S, n)).astype(np.float32)
+    A *= rng.uniform(0.2, 3.0, size=n).astype(np.float32)
+    At = torch.as_tensor(A, device=dev)
+    sampling = method if method in ("importance", "uniform") else None
+    if kind == "int8_resident":
+        q, nrm, bsum = quantize_chunk(At.T.contiguous(), n)
+        return snnls.make_consts_quantized(q, nrm, bsum.float(), sampling=sampling)
+    return snnls.make_consts(At, At.sum(dim=1), sampling=sampling,
+                             select_dtype=getattr(torch, kind))
+
+
+def _same_state(a, b):
+    for name in snnls.SNNLSState._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        if x.is_floating_point():
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), name
+
+
+def _gen(dev, method, seed=3):
+    return torch.Generator(device=dev).manual_seed(seed) \
+        if method in ("importance", "uniform") else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", GRAPH_KINDS)
+@pytest.mark.parametrize("method", GRAPH_METHODS)
+def test_replayed_build_equals_one_iteration_segments(method, kind, cuda_device):
+    """From iteration 50 (mid-segment) to a mid-segment end, replayed graphs
+    against one-iteration segments on the card: the state bit for bit, the
+    select launched once per iteration (replays counted), and a sampling
+    build's generator left where the eager draws leave it."""
+    from bayesian_coresets_tpu_torch.ops import graphs
+    c = _graph_consts(kind, method, cuda_device)
+    head, span = (20, 30) if method == "orthopursuit" else (50, 100)
+    s0 = snnls.build(c, snnls.init_state(c, 256), head, 1e-6, method=method,
+                     draws=_gen(cuda_device, method, 2), segment=1)
+    g1, g2 = _gen(cuda_device, method), _gen(cuda_device, method)
+    ref = snnls.build(c, s0, span, 1e-6, method=method, draws=g1, segment=1)
+    before, ran, caps = gs.launches, snnls.itrs_run, graphs.captures
+    out = snnls.build(c, s0, span, 1e-6, method=method, draws=g2)
+    torch.cuda.synchronize()
+    assert int(ref.itr) == head + span and not bool(ref.done)
+    _same_state(out, ref)
+    assert snnls.itrs_run - ran == span and graphs.captures > caps
+    select = method in ("giga", "frankwolfe", "orthopursuit")
+    assert gs.launches - before == (span if select else 0)
+    if g1 is not None:
+        assert torch.equal(g1.get_state(), g2.get_state())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["giga", "importance"])
+def test_replayed_build_continues_a_replayed_one(method, cuda_device):
+    """Two replayed builds (70 + 90) against the same two builds in
+    one-iteration segments (a build ends by folding the carried scale into
+    the weights, so it is not one build of 160); the second replays the
+    first's graphs where it can."""
+    from bayesian_coresets_tpu_torch.ops import graphs
+    c = _graph_consts("int8", method, cuda_device)
+    g = _gen(cuda_device, method)
+    ref = snnls.build(c, snnls.init_state(c, 256), 70, 1e-6, method=method, draws=g,
+                      segment=1)
+    ref = snnls.build(c, ref, 90, 1e-6, method=method, draws=g, segment=1)
+    g = _gen(cuda_device, method)
+    s = snnls.build(c, snnls.init_state(c, 256), 70, 1e-6, method=method, draws=g)
+    caps = graphs.captures
+    s = snnls.build(c, s, 90, 1e-6, method=method, draws=g)
+    _same_state(s, ref)
+    # 0..70 = 64 + 6 (a tail); 70..160 = 58 (a head) + 32 (a tail): two new graphs
+    assert graphs.captures - caps == 2
+
+
+@pytest.mark.cuda
+def test_replayed_builds_on_two_streams(cuda_device):
+    """Builds on two streams, each with graphs and a workspace of its own,
+    interleaved: each equals the one-iteration build."""
+    c = _graph_consts("int8", "giga", cuda_device)
+    ref = snnls.build(c, snnls.init_state(c, 256), 150, 1e-6, segment=1)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for _ in range(2):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(snnls.build(c, snnls.init_state(c, 256), 150, 1e-6))
+    torch.cuda.synchronize()
+    for out in outs:
+        _same_state(out, ref)
+
+
+@pytest.mark.cuda
+def test_repeated_replayed_builds_hold_their_memory(cuda_device):
+    """Once captured, repeated builds replay the same graphs and allocate
+    nothing that stays."""
+    from bayesian_coresets_tpu_torch.ops import graphs
+    c = _graph_consts("int8", "giga", cuda_device)
+    snnls.build(c, snnls.init_state(c, 256), 150, 1e-6)
+    torch.cuda.synchronize()
+    mem, caps = torch.cuda.memory_allocated(), graphs.captures
+    for _ in range(5):
+        out = snnls.build(c, snnls.init_state(c, 256), 150, 1e-6)
+        del out
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == mem and graphs.captures == caps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["giga", "frankwolfe", "orthopursuit", "uniform"])
+def test_replayed_latch_inside_a_segment(method, cuda_device):
+    """A support overflow latches ``done`` inside the first segment (OMP,
+    whose segments hold 4 iterations: max_active=2, so the third atom
+    latches; else 3): the state is the one-iteration run's, and the select
+    launched once per iteration the segment ran, the gated ones included."""
+    c = _graph_consts("int8", method, cuda_device)
+    length, K = (4, 2) if method == "orthopursuit" else (64, 3)
+    ref = snnls.build(c, snnls.init_state(c, K), 100, 1e-6, method=method,
+                      draws=_gen(cuda_device, method), segment=1)
+    before, ran = gs.launches, snnls.itrs_run
+    out = snnls.build(c, snnls.init_state(c, K), 100, 1e-6, method=method,
+                      draws=_gen(cuda_device, method))
+    torch.cuda.synchronize()
+    _same_state(out, ref)
+    assert bool(out.done) and int(out.itr) < length and snnls.itrs_run - ran == length
+    assert gs.launches - before == (0 if method == "uniform" else length)
+
+
+@pytest.mark.cuda
+def test_replayed_build_reads_once_per_segment(cuda_device):
+    """A replayed GIGA build of 150 from 0 (segments 64 + 64 + 22) reads the
+    state's (itr, done) on entry and one pair per segment, nothing more."""
+    c = _graph_consts("int8", "giga", cuda_device)
+    snnls.build(c, snnls.init_state(c, 256), 150, 1e-6)         # captures
+    state = snnls.init_state(c, 256)
+    torch.cuda.synchronize()
+    _, syncs = _syncs(lambda: snnls.build(c, state, 150, 1e-6))
+    assert len(syncs) == 1 + 3, syncs
+
+
+@pytest.mark.cuda
+def test_replayed_build_refuses_a_draw_source(cuda_device):
+    class Source:
+        def index(self, cdf):
+            return torch.zeros(1, dtype=torch.int64, device=cdf.device)
+
+    c = _graph_consts("float32", "importance", cuda_device)
+    with pytest.raises(ValueError, match="segment=1"):
+        snnls.build(c, snnls.init_state(c, 16), 10, 1e-6, method="importance", draws=Source())
+    s = snnls.build(c, snnls.init_state(c, 16), 10, 1e-6, method="importance",
+                    draws=Source(), segment=1)
+    assert float(s.cts[0]) == 10
+
+
+@pytest.mark.cuda
+def test_capture_raises_on_a_host_read(cuda_device):
+    """No fallback: a host read inside a capture raises."""
+    from bayesian_coresets_tpu_torch.ops import graphs
+    x = torch.ones(4, device=cuda_device)
+    with pytest.raises(RuntimeError):
+        graphs.Graph(lambda: x.sum().item(), graphs.side_stream(x.device),
+                     torch.cuda.graph_pool_handle())
+
+
+@pytest.mark.cuda
+def test_optimize_replayed_equals_the_uncaptured_solve(cuda_device):
+    """optimize_active through its graph against the same solve run
+    uncaptured on the card, bit for bit; a second active set of the same
+    padded size replays the graph."""
+    from bayesian_coresets_tpu_torch.ops import graphs
+    c = _graph_consts("int8", "giga", cuda_device)
+    s = snnls.build(c, snnls.init_state(c, 256), 40, 1e-6)
+    for size in (int(s.size), int(s.size) - 5):
+        idcs = torch.zeros(64, dtype=torch.int32, device=cuda_device)
+        idcs[:size] = s.idcs[:size]
+        caps = graphs.captures
+        out, ok = snnls.optimize_active(c, s, idcs, size, 1e-6)
+        w, xw, done, ok2 = snnls._optimize_core(c, s.w, s.xw, s.done, idcs, size, 1e-6, 512)
+        torch.cuda.synchronize()
+        assert torch.equal(out.w.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(out.xw.view(torch.int32), xw.view(torch.int32))
+        assert bool(out.done) == bool(done) and bool(ok) == bool(ok2)
+        assert graphs.captures - caps == (1 if size == int(s.size) else 0)
+
+
+@pytest.mark.cuda
+def test_optimize_facade_replays_fista(cuda_device):
+    """SparseNNLS.optimize("fista") on the card: one graph per padded size,
+    the cost not raised."""
+    from bayesian_coresets_tpu_torch.ops import graphs
+    rng = np.random.default_rng(4)
+    A = rng.normal(size=(128, 2000)).astype(np.float32)
+    g = snnls.GIGA(torch.as_tensor(A, device=cuda_device),
+                   torch.as_tensor(A.sum(axis=1), device=cuda_device), max_active=128)
+    g.build(30)
+    e0 = g.error()
+    caps, reps = graphs.captures, graphs.replays
+    g.optimize()
+    assert graphs.captures - caps == 1 and graphs.replays - reps == 1
+    assert g.error() <= e0 * (1 + 1e-6) and not g.reached_numeric_limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", [True, False])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 1000, (1 << 20) + 3])
+def test_fold_kernel_matches_plain(n, flag, cuda_device):
+    """The gated fold kernel against its plain version, on a 16-byte aligned
+    vector and on one 4 bytes off (the kernel's scalar path): bit for bit,
+    one launch each."""
+    from bayesian_coresets_tpu_torch.ops import fold_scale as fs
+    rng = np.random.default_rng(n)
+    w0 = torch.as_tensor(rng.uniform(0.0, 3.0, size=n + 1).astype(np.float32),
+                         device=cuda_device)
+    f = torch.tensor(flag, device=cuda_device)
+    s = torch.tensor(np.float32(3e-11), device=cuda_device)
+    for wk in (w0[:n].clone(), w0.clone()[1:]):
+        wp = wk.clone()
+        before = fs.launches
+        fs.fold_scale(wk, f, s)
+        fs.fold_scale_ref(wp, f, s)
+        torch.cuda.synchronize()
+        assert fs.launches == before + 1
+        assert torch.equal(wk.view(torch.int32), wp.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_replayed_build_launches_the_fold_once_per_iteration(cuda_device):
+    """GIGA and Frank-Wolfe launch the fold kernel once per iteration run,
+    replays counted; OMP and the sampling solvers never."""
+    from bayesian_coresets_tpu_torch.ops import fold_scale as fs
+    for method, per in (("giga", 1), ("frankwolfe", 1), ("orthopursuit", 0), ("uniform", 0)):
+        c = _graph_consts("int8", method, cuda_device)
+        before, ran = fs.launches, snnls.itrs_run
+        snnls.build(c, snnls.init_state(c, 256), 70, 1e-6, method=method,
+                    draws=_gen(cuda_device, method))
+        assert fs.launches - before == per * (snnls.itrs_run - ran) == per * 70

@@ -171,7 +171,7 @@ def test_wscale_fold_step_matches_jax():
     st = tsn._giga_step(tc, raw_t, aux_t, 1e-6)
     fold_commit = bool(st.fold & st.commit)
     assert fold_commit
-    w2, xw2, _, _, aux2 = tsn._carried_commit(raw_t, st, fold_commit)
+    w2, xw2, _, _, aux2 = tsn._carried_commit(raw_t, st)
     assert float(aux2.wscale) == 1.0 == float(out[8].wscale)
     np.testing.assert_allclose(w2.numpy(), np.asarray(out[0]), rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(xw2.numpy(), np.asarray(out[1]), rtol=1e-4, atol=1e-5)
