@@ -11,7 +11,7 @@ from .draws import Draws
 from .hmc import hmc_kernel
 from .integrators import (IntegratorState, kinetic, leapfrog, mass_mul,
                           sample_momentum, value_and_grad)
-from .nuts import NUTSInfo, nuts_kernel
+from .nuts import NUTSInfo, Transitions, nuts_kernel
 from .sample import MCMCResult, run_nuts
 from .weighted import run, weighted_logdensity
 
@@ -25,6 +25,7 @@ __all__ = [
     "Draws",
     "nuts_kernel",
     "NUTSInfo",
+    "Transitions",
     "hmc_kernel",
     "run_nuts",
     "MCMCResult",

@@ -6,6 +6,13 @@ once.  :class:`Draws` is backed by a ``torch.Generator`` and is what the
 samplers use.  Any object with the same methods serves: the tests give the
 kernels a source that replays, role by role, the draws ``jax.random`` makes
 from a key, so that one transition can be held against the JAX kernel.
+
+NUTS takes its draws where the host's reads cannot move them: per
+doubling, when it begins, the direction, the uniform of the proposal
+across doublings and one (2^j, C) block of leaf uniforms, whether or not
+the subtree runs to its end.  So a transition consumes the generator
+alike whether its leaves run one at a time with a read after each or in
+segments of several (replayed CUDA graphs, ``nuts.py``).
 """
 
 from __future__ import annotations
@@ -14,26 +21,37 @@ import torch
 
 
 class Draws:
-    """Draws from ``gen``, made on its device and moved to ``device``."""
+    """Draws from ``gen``, made on its device, which must be the chains'
+    device: a copy from another device inside a captured CUDA graph would
+    replay one set of draws forever, so a CPU generator driving CUDA chains
+    raises (and so does a CUDA generator driving CPU chains)."""
 
     def __init__(self, gen: torch.Generator):
         self.gen = gen
 
+    def _on(self, device) -> torch.device:
+        device, gd = torch.device(device), self.gen.device
+        if gd.type != device.type or None not in (gd.index, device.index) \
+                and gd.index != device.index:
+            raise ValueError(f"the generator is on {gd}, the chains on {device}: give the "
+                             "sampler a torch.Generator on the chains' device")
+        return gd
+
     def _rand(self, n: int, device) -> torch.Tensor:
-        return torch.rand((n,), generator=self.gen, device=self.gen.device).to(device)
+        return torch.rand((n,), generator=self.gen, device=self._on(device))
 
     def momentum(self, shape, dtype, device) -> torch.Tensor:
         """Standard normals (C, d) behind the momentum."""
-        return torch.randn(shape, generator=self.gen, dtype=dtype,
-                           device=self.gen.device).to(device)
+        return torch.randn(shape, generator=self.gen, dtype=dtype, device=self._on(device))
 
     def direction(self, n: int, device) -> torch.Tensor:
         """(C,) bool: extend the NUTS trajectory forward in time."""
         return self._rand(n, device) < 0.5
 
-    def leaf_uniform(self, n: int, device) -> torch.Tensor:
-        """(C,) uniforms of the multinomial proposal within a subtree."""
-        return self._rand(n, device)
+    def leaf_uniforms(self, L: int, n: int, device) -> torch.Tensor:
+        """(L, C) uniforms of the multinomial proposal within a subtree of
+        L leaves, row k for leaf k."""
+        return torch.rand((L, n), generator=self.gen, device=self._on(device))
 
     def tree_uniform(self, n: int, device) -> torch.Tensor:
         """(C,) uniforms of the biased proposal across doublings."""
@@ -45,8 +63,7 @@ class Draws:
 
     def num_steps(self, n: int, high: int, device) -> torch.Tensor:
         """(C,) int64 trajectory lengths, uniform in [1, high]."""
-        return torch.randint(1, high + 1, (n,), generator=self.gen,
-                             device=self.gen.device).to(device)
+        return torch.randint(1, high + 1, (n,), generator=self.gen, device=self._on(device))
 
 
 class BlockDraws:
@@ -68,8 +85,8 @@ class BlockDraws:
     def direction(self, n: int, device) -> torch.Tensor:
         return self._block(self.source.direction(self.C, device), n)
 
-    def leaf_uniform(self, n: int, device) -> torch.Tensor:
-        return self._block(self.source.leaf_uniform(self.C, device), n)
+    def leaf_uniforms(self, L: int, n: int, device) -> torch.Tensor:
+        return self.source.leaf_uniforms(L, self.C, device)[:, self.lo:self.lo + n]
 
     def tree_uniform(self, n: int, device) -> torch.Tensor:
         return self._block(self.source.tree_uniform(self.C, device), n)

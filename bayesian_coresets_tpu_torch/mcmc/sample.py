@@ -16,6 +16,11 @@ batch merge, the median reasonable step) from the chains of every rank,
 gathered by one (C, ...) exchange each, so each rank computes what one
 process computes.  Per-chain adaptation exchanges nothing else, and the
 results are gathered once at the end.
+
+On a CUDA device without ``comm`` the transitions replay captured CUDA
+graphs (:class:`.nuts.Transitions`), which give what the direct
+transitions (``graphs=False``) give, bit for bit; the adaptation between
+transitions and the step-size searches at window boundaries run directly.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from .adapt import (
 )
 from .draws import BlockDraws, as_draws
 from .integrators import IntegratorState, mass_chol, value_and_grad
-from .nuts import nuts_kernel
+from .nuts import Transitions
 
 
 class MCMCResult(NamedTuple):
@@ -74,7 +79,8 @@ def run_nuts(logdensity_fn: Callable, init_params: torch.Tensor, gen,
              num_warmup: int = 1000, num_samples: int = 1000,
              max_depth: int = 10, target_accept: float = 0.8,
              pooled_adaptation: bool = False,
-             dense_mass: bool = False, comm=None) -> MCMCResult:
+             dense_mass: bool = False, comm=None, segment: int | None = None,
+             graphs: bool | None = None) -> MCMCResult:
     """Sample with NUTS.  ``logdensity_fn``: batched, (C, d) -> (C,);
     ``init_params``: (num_chains, d); ``gen``: a ``torch.Generator`` (or a
     draw source).  Returns all chains.
@@ -90,6 +96,13 @@ def run_nuts(logdensity_fn: Callable, init_params: torch.Tensor, gen,
     and ``logdensity_fn`` are this rank's block of ``comm.world`` equal
     blocks of chains, ``gen`` starts alike on every rank, and every rank
     returns the result of all chains (see the module docstring).
+
+    ``graphs`` (default: on a CUDA device without ``comm``) replays each
+    transition's pieces as CUDA graphs, drawing from ``gen`` (then a
+    ``torch.Generator`` on the chains' device); ``graphs=False`` runs them
+    directly, the reference the graphs are held to.  ``segment``: the
+    leaves between two host reads (:class:`.nuts.Transitions`); every
+    value gives the same draws.
     """
     draws = as_draws(gen)
     if comm is None:
@@ -112,14 +125,14 @@ def run_nuts(logdensity_fn: Callable, init_params: torch.Tensor, gen,
     da = da_init(_reasonable_step(vg, state, inv_mass, chol, draws, pooled, gather, comm))
     wbatch = () if pooled else (C,)
     wf = welford_init(d, dtype, dense=dense_mass, batch=wbatch, device=dev)
+    kernel = Transitions(vg, draws, max_depth, segment, graphs, comm)
 
     # one metric and factor per segment; at window boundaries swap in the
     # new metric, re-search a reasonable step under it, restart dual
     # averaging and Welford (Stan semantics, adapt.build_segments)
     for length, slow, boundary in segments:
         for _ in range(length):
-            state, info = nuts_kernel(vg, draws, state, torch.exp(da.log_step), inv_mass,
-                                      max_depth, inv_mass_chol=chol, comm=comm)
+            state, info = kernel(state, torch.exp(da.log_step), inv_mass, chol)
             acc = gather(info.accept_prob).mean() if pooled else info.accept_prob
             da = da_update(da, acc, target=target_accept)
             if slow:
@@ -136,8 +149,7 @@ def run_nuts(logdensity_fn: Callable, init_params: torch.Tensor, gen,
     step_size = torch.exp(da.log_step_avg)
     zs, accepts, divs, depths = [], [], [], []
     for _ in range(num_samples):
-        state, info = nuts_kernel(vg, draws, state, step_size, inv_mass, max_depth,
-                                  inv_mass_chol=chol, comm=comm)
+        state, info = kernel(state, step_size, inv_mass, chol)
         zs.append(state.z)
         accepts.append(info.accept_prob)
         divs.append(info.diverging)

@@ -88,7 +88,7 @@ def run(model, z: torch.Tensor, wts: torch.Tensor, n_samples: int, gen: torch.Ge
         target_accept: float = 0.9, init: torch.Tensor | None = None,
         pooled_adaptation: bool = False, num_warmup: int | None = None,
         precondition: bool = True, f64_logdensity: bool = False,
-        dense_mass: bool = False, mesh=None):
+        dense_mass: bool = False, mesh=None, graphs: bool | None = None):
     """Weighted-posterior NUTS with the reference driver's conventions.
 
     ``n_samples`` kept draws per chain after ``num_warmup`` warmup steps
@@ -116,11 +116,18 @@ def run(model, z: torch.Tensor, wts: torch.Tensor, n_samples: int, gen: torch.Ge
     makes all the chain inits from ``gen``, which must start alike on every
     rank, and returns every chain's draws; the sampled distribution is
     unchanged (``parallel/mcmc.py``).
+    ``graphs``: how the transitions run (``sample.run_nuts``; by default as
+    replayed CUDA graphs on a card, ``graphs=False`` for the direct
+    reference); sharded chains run directly.
     ``gen`` is a ``torch.Generator`` on the data's device.
     Returns (samples (num_chains * n_samples, d), wall seconds, MCMCResult).
     """
     if mesh is not None:
         from ..parallel.mcmc import run_nuts_sharded
+
+        if graphs:
+            raise ValueError("sharded chains run their transitions directly (graphs=True "
+                             "needs mesh=None)")
 
         def sampler(logdensity_fn, init_params, gen, **kw):
             return run_nuts_sharded(logdensity_fn, init_params, gen, mesh, **kw)
@@ -131,6 +138,8 @@ def run(model, z: torch.Tensor, wts: torch.Tensor, n_samples: int, gen: torch.Ge
     kw = dict(num_warmup=num_warmup or n_samples, num_samples=n_samples,
               max_depth=max_depth, target_accept=target_accept,
               pooled_adaptation=pooled_adaptation, dense_mass=dense_mass)
+    if mesh is None:
+        kw["graphs"] = graphs
     lap = fit_laplace(model, z, wts, d) if (precondition and init is None) else None
     if lap is not None:
         mu, A = lap.mu, lap.USig                      # Sig = A @ A.T

@@ -1,23 +1,31 @@
-"""Capture and replay of CUDA graphs: the build loop and the FISTA solve
-as device programs.
+"""Capture and replay of CUDA graphs: the build loop, the FISTA solve and
+NUTS's tree as device programs.
 
 The JAX package runs a whole Hilbert build as one device program
-(``bayesian_coresets_tpu/ops/snnls.py::build_core``, a ``lax.while_loop``)
-and the FISTA re-solve as a ``fori_loop`` inside a jitted function, so the
-host launches nothing per iteration.  On a CUDA device the port gets the
+(``bayesian_coresets_tpu/ops/snnls.py::build_core``, a ``lax.while_loop``),
+the FISTA re-solve as a ``fori_loop`` inside a jitted function, and a NUTS
+run as one jitted program of scans over nested while loops
+(``bayesian_coresets_tpu/mcmc/sample.py``, ``mcmc/nuts.py``), so the host
+launches nothing per iteration or leaf.  On a CUDA device the port gets the
 same from captured CUDA graphs: :mod:`.snnls` captures a segment of build
 iterations, or one solve, once and replays it, and the host reads back one
-pair of values per segment instead of one or more per iteration.
+pair of values per segment instead of one or more per iteration;
+:mod:`..mcmc.nuts` replays a transition's pieces (its start, a doubling's
+start, a segment of leaves, a doubling's merge) and reads one flag per
+segment.
 
-- **One :class:`Graphs` per (constants, static key, caller stream).**  It
-  holds static buffers that carry the state through its replays (copied in
-  before them and out after), the graphs themselves, keyed by the caller
-  (a segment's length and whether it begins with the refresh; a solve's
-  padded size), and one memory pool that they share: they run one after
-  the other on one stream, and each copies what it keeps into the static
-  buffers, so one graph's scratch may be another's.  It is dropped with
-  the constants' ``V`` (a weak key) and rebuilt when any other tensor of
-  the constants, or the generator, is not the one it was captured with.
+- **One :class:`Graphs` per static state.**  It holds static buffers that
+  carry the state through its replays (copied in before them and out
+  after; nested tuples of tensors), the graphs themselves, keyed by the
+  caller (a segment's length and whether it begins with the refresh; a
+  solve's padded size; a NUTS piece), and one memory pool that they share:
+  they run one after the other on one stream, and each copies what it
+  keeps into the static buffers, so one graph's scratch may be another's.
+  A build's are cached per (constants, static key, caller stream) by
+  :func:`graphs_for`: dropped with the constants' ``V`` (a weak key) and
+  rebuilt when any other tensor of the constants, or the generator, is not
+  the one it was captured with.  A NUTS run holds its own for the run's
+  length, made on its first transition's carry.
 - **Capture stream.**  Each caller stream has a side stream of its own,
   made and warmed once before its first capture: the select kernels'
   workspace for that stream (:func:`.giga_select.workspace`) and its
@@ -30,6 +38,11 @@ pair of values per segment instead of one or more per iteration.
   default generator registers itself), so every replay draws what the same
   calls would draw eagerly and advances the generator by the whole graph's
   draws.
+- **Warm-up.**  A :class:`Graphs` made with ``warm=True`` runs each key's
+  work once directly on the capture stream before it captures it (the
+  next time): lazy state that autograd or a library makes at first use is
+  made outside any capture.  The direct run is the same work on the same
+  buffers, so it gives what a replay gives.
 - **Launch counts.**  The kernels' counters (:mod:`.giga_select`'s and
   :mod:`.fold_scale`'s) count wrapper calls, and a replay makes none: each
   graph keeps the launches that its capture recorded (and takes them back
@@ -126,19 +139,32 @@ class Graph:
                 setattr(m, k, getattr(m, k) + d)
 
 
-class Graphs:
-    """The graphs of one (constants, static key, caller stream), their
-    static buffers ``static``, constants derived once (``derived``), and
-    their shared memory pool."""
+def _tensors(tree):
+    """The tensors of a nested tuple, in order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif tree is not None:
+        for t in tree:
+            yield from _tensors(t)
 
-    def __init__(self, tensors, static, derived, gen):
+
+class Graphs:
+    """The graphs of one static state (for a build: of one (constants,
+    static key, caller stream), the ``tensors`` they were captured with),
+    their static buffers ``static``, constants derived once (``derived``),
+    and their shared memory pool.  ``warm``: run each key's work once
+    directly before capturing it."""
+
+    def __init__(self, tensors, static, derived, gen, warm: bool = False):
         self.refs = tuple(weakref.ref(t) for t in tensors)
         self.gen = gen
         self.static = static
         self.derived = derived
-        self.stream = side_stream(static[0].device)
+        self.stream = side_stream(next(_tensors(static)).device)
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: dict = {}
+        self.warm = warm
+        self.warmed: set = set()
 
     def holds(self, tensors, gen) -> bool:
         return self.gen is gen and len(self.refs) == len(tensors) \
@@ -146,9 +172,17 @@ class Graphs:
 
     def run(self, key, fn) -> None:
         """Replay the graph of ``key``, capturing ``fn()`` first if there
-        is none yet."""
+        is none yet (with ``warm``, running it directly the first time)."""
         g = self.graphs.get(key)
         if g is None:
+            if self.warm and key not in self.warmed:
+                self.warmed.add(key)
+                caller = torch.cuda.current_stream(self.stream.device)
+                self.stream.wait_stream(caller)
+                with torch.cuda.stream(self.stream):
+                    fn()
+                caller.wait_stream(self.stream)
+                return
             g = Graph(fn, self.stream, self.pool, () if self.gen is None else (self.gen,))
             self.graphs[key] = g
         g.replay()
@@ -171,8 +205,28 @@ def graphs_for(tensors, key, gen, make_static, make_derived=lambda: None) -> Gra
 
 
 def copy_into(static, values) -> None:
-    """Write ``values`` into the static buffers (skipping those that are
-    the buffers themselves, which the work updated in place)."""
+    """Write ``values`` into the static buffers, nested tuples alike,
+    skipping those that are the buffers themselves (which the work updated
+    in place).  A value may be another buffer only if that one is written
+    after it."""
+    if isinstance(static, torch.Tensor):
+        if values is not static:
+            static.copy_(values)
+        return
+    if static is None:
+        return
     for buf, v in zip(static, values):
-        if v is not buf:
-            buf.copy_(v)
+        copy_into(buf, v)
+
+
+def empty_like(tree):
+    """Uninitialized buffers shaped as the tensors of the nested tuple
+    ``tree`` (None stays None), each with its tensor's strides where those
+    are dense (a factor from ``cholesky`` is column-major, and a solve
+    against a row-major copy rounds otherwise), else contiguous."""
+    if isinstance(tree, torch.Tensor):
+        return torch.empty_like(tree)
+    if tree is None:
+        return None
+    return type(tree)(*(empty_like(t) for t in tree)) if hasattr(tree, "_fields") \
+        else type(tree)(empty_like(t) for t in tree)

@@ -71,7 +71,17 @@ script exits non-zero without printing the final result line):
    for finite samples, split R-hat <= 1.05, divergences <= 1% of the
    sampling transitions, every posterior mean within 0.25 posterior sd of
    the coreset's Laplace mode and within 0.05 sd of an importance-sampled
-   mean (f64, Laplace proposal);
+   mean (f64, Laplace proposal).  Its transitions replay CUDA graphs
+   (``mcmc/nuts.py::Transitions``; ms per transition, host reads and leaves
+   per transition, graphs captured and their capture and instantiate
+   seconds, peak allocation); then a short run (1024 chains x (20 + 20))
+   replayed and direct (``graphs=False``) from one seed must agree bit for
+   bit (``[nuts_parity]``), and a window of 20 transitions from the run's
+   last draws, direct and replayed, is timed and profiled as
+   ``scripts/profile_torch_nuts.py`` does it (``[nuts_window]``: wall ms,
+   device-busy ms and idle share per transition, kernels or graph nodes
+   per transition and per leaf, host reads, graphs, peak allocation; the
+   two states after it bit for bit);
 8. optimize: ``HilbertCoreset.optimize()`` (FISTA on the card, one
    captured CUDA graph) on phase 6's coreset, after NUTS has sampled it:
    the error must not rise and nothing may latch; the same solve again, a
@@ -240,6 +250,7 @@ N_MAIN, D_MAIN, S_MAIN, M_MAIN = 100_000, 10, 500, 500
 MAIN_ATOMS, FW_ATOMS, WIDE_GIGA_ATOMS, MAIN_ERR = 372, 443, 182, "4.479260e-02"
 N_PROBE, S_PROBE = 1 << 20, 512                 # probe_int4_pallas.py:30
 NUTS_CHAINS, NUTS_DRAWS = 1024, 150             # bench.py:54
+NUTS_SHORT, NUTS_WINDOW = 20, 20    # phase 7's replayed-against-direct run; profiled windows
 RHAT_MAX, DIV_SHARE_MAX = 1.05, 0.01
 # posterior means against the Laplace mode (which the logistic posterior's
 # skew puts ~0.2 sd away) and against an importance-sampled mean (exact up
@@ -1367,10 +1378,14 @@ def phase_nuts(torch, smi, wts, pts):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     nuts.host_reads = nuts.leaf_steps = 0
+    caps0, cap_s0 = _graph_counts()
+    inst0 = _instantiate_s()
     _, t, res = weighted.run(logistic, zc, wc, NUTS_DRAWS,
                              torch.Generator(device=dev).manual_seed(5),
                              num_chains=NUTS_CHAINS, target_accept=0.8, num_warmup=NUTS_DRAWS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9     # the sampler's own
+    caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
+    inst_s = _instantiate_s() - inst0
     transitions = 2 * NUTS_DRAWS
     samples = res.samples                                    # (chains, draws, d)
     if samples.shape != (NUTS_CHAINS, NUTS_DRAWS, zc.shape[1]):
@@ -1394,7 +1409,9 @@ def phase_nuts(torch, smi, wts, pts):
         mean_tree_depth=f"{float(res.tree_depth.mean()):.3f}",
         host_reads_per_transition=f"{nuts.host_reads / transitions:.2f}",
         leaf_steps_per_transition=f"{nuts.leaf_steps / transitions:.2f}",
-        peak_mem_GB=f"{peak_gb:.3f}", card=repr(smi))
+        ms_per_transition=f"{1e3 * t / transitions:.3f}", path="graphs",
+        segment=nuts.SEGMENT, graphs_captured=caps, capture_s=f"{cap_s:.4f}",
+        instantiate_s=f"{inst_s:.4f}", peak_mem_GB=f"{peak_gb:.3f}", card=repr(smi))
     say("nuts_moments", mean_minus_mode_sds=f"{off_mode:.4f}",
         mean_minus_is_mean_sds=f"{off_is:.4f}", is_ess=f"{is_ess:.0f}",
         sd_over_is_sd=f"{float(sd_ratio.min()):.4f}..{float(sd_ratio.max()):.4f}")
@@ -1409,6 +1426,82 @@ def phase_nuts(torch, smi, wts, pts):
                              "importance-sampled mean")
     if not np.isfinite(min_ess) or min_ess <= 0:
         raise AssertionError(f"nuts: min ESS {min_ess}")
+    _nuts_parity(torch, smi, zc, wc)
+    _nuts_windows(torch, smi, zc, wc, res)
+
+
+def _same_bits(torch, a, b) -> bool:
+    """Two nested results equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        if a.is_floating_point():
+            kind = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+            a, b = a.contiguous().view(kind), b.contiguous().view(kind)
+        return bool(torch.equal(a, b))
+    return all(_same_bits(torch, x, y) for x, y in zip(a, b, strict=True))
+
+
+def _nuts_parity(torch, smi, zc, wc):
+    """The phase's sampler at 1024 chains x (NUTS_SHORT + NUTS_SHORT), replayed
+    and direct (``graphs=False``) from one seed: samples and every field of
+    the result bit for bit, and the generator left at the same place."""
+    from bayesian_coresets_tpu_torch.mcmc import nuts, weighted
+    from bayesian_coresets_tpu_torch.models import logistic
+
+    out = []
+    for graphs in (None, False):
+        gen = torch.Generator(device=zc.device).manual_seed(7)
+        reads, leaves = nuts.host_reads, nuts.leaf_steps
+        _, t, r = weighted.run(logistic, zc, wc, NUTS_SHORT, gen, num_chains=NUTS_CHAINS,
+                               target_accept=0.8, num_warmup=NUTS_SHORT, graphs=graphs)
+        n = 2 * NUTS_SHORT
+        out.append((r, gen.get_state(), t, (nuts.host_reads - reads) / n,
+                    (nuts.leaf_steps - leaves) / n))
+    same = _same_bits(torch, out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+    say("nuts_parity", chains=NUTS_CHAINS, warmup=NUTS_SHORT, draws=NUTS_SHORT,
+        same_bits=same, graphs_s=f"{out[0][2]:.3f}", direct_s=f"{out[1][2]:.3f}",
+        graphs_reads_per_transition=f"{out[0][3]:.2f}",
+        direct_reads_per_transition=f"{out[1][3]:.2f}",
+        leaves_per_transition=f"{out[0][4]:.2f}", card=repr(smi))
+    if not same:
+        raise AssertionError("nuts: the replayed run differs from the direct one")
+
+
+def _load_script(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _nuts_windows(torch, smi, zc, wc, res):
+    """A window of NUTS_WINDOW transitions from the run's last draws with its
+    adapted step sizes and metrics, direct and replayed, as
+    scripts/profile_torch_nuts.py measures them (the first window makes the
+    graphs, the second is timed, the third repeats it under the profiler):
+    one line each, and the kernels that take the most device time; the
+    states after them must agree bit for bit."""
+    from bayesian_coresets_tpu_torch.models import logistic
+
+    prof = _load_script("profile_torch_nuts")
+    vg, state, step, inv_mass = prof.u_space(torch, logistic, zc, wc, zc.shape[1], res)
+    ref, ref_state = prof.window_stats(torch, vg, state, step, inv_mass, NUTS_WINDOW)
+    rep, rep_state = prof.window_stats(torch, vg, state, step, inv_mass, NUTS_WINDOW,
+                                       graphs=True)
+    same = prof.same_state(torch, rep_state, ref_state)
+    for s in (ref, rep):
+        say("nuts_window", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                              for k, v in s.items() if k != "top_kernels"},
+            window=NUTS_WINDOW, same_bits=same, card=repr(smi))
+        for name, us, calls in s["top_kernels"][:5]:
+            print(f"    {s['path']}: {us:.1f} us and {calls:.1f} calls a transition: {name}")
+    if not same:
+        raise AssertionError("nuts: the replayed window differs from the direct one")
+    for key in ("device_busy_ms_per_transition", "idle_share"):
+        if rep[key] is None:
+            raise AssertionError(f"nuts: the profiler recorded no device time ({key})")
 
 
 def phase_optimize(torch, coreset):
@@ -1853,7 +1946,7 @@ def phase_poisson(torch, smi):
     import numpy as np
     import bayesian_coresets_tpu_torch as bc
     from bayesian_coresets_tpu_torch import mcmc
-    from bayesian_coresets_tpu_torch.mcmc import weighted
+    from bayesian_coresets_tpu_torch.mcmc import nuts, weighted
     from bayesian_coresets_tpu_torch.models import poisson
     from bayesian_coresets_tpu_torch.ops import giga_select as gs
     from bayesian_coresets_tpu_torch.ops import snnls
@@ -1881,9 +1974,14 @@ def phase_poisson(torch, smi):
     if wts.size == 0 or not np.isfinite(wts).all():
         raise AssertionError(f"poisson: {wts.size} atoms, or weights not finite")
     zc, wc = torch.as_tensor(pts, device=dev), torch.as_tensor(wts, device=dev)
+    reads, leaves = nuts.host_reads, nuts.leaf_steps
+    caps0, _ = _graph_counts()
     _, t, res = weighted.run(poisson, zc, wc, POIS_DRAWS,
                              torch.Generator(device=dev).manual_seed(5), d=d,
                              num_chains=POIS_CHAINS, target_accept=0.8, num_warmup=POIS_DRAWS)
+    n = 2 * POIS_DRAWS
+    reads, leaves = (nuts.host_reads - reads) / n, (nuts.leaf_steps - leaves) / n
+    caps = _graph_counts()[0] - caps0
     samples = res.samples
     if samples.shape != (POIS_CHAINS, POIS_DRAWS, d) or not torch.isfinite(samples).all():
         raise AssertionError(f"poisson nuts: samples {tuple(samples.shape)} or not finite")
@@ -1897,7 +1995,9 @@ def phase_poisson(torch, smi):
     off = float(((mean - full.mu).abs() / full_sd).max())
     say("poisson", N=N_MAIN, S=S_MAIN, M=POIS_M, itr=itr, atoms=wts.size, launches=launches,
         err=f"{err:.6e}", build_s=f"{t_build:.4f}", chains=POIS_CHAINS, warmup=POIS_DRAWS,
-        draws=POIS_DRAWS, nuts_s=f"{t:.3f}",
+        draws=POIS_DRAWS, nuts_s=f"{t:.3f}", ms_per_transition=f"{1e3 * t / n:.3f}",
+        host_reads_per_transition=f"{reads:.2f}", leaf_steps_per_transition=f"{leaves:.2f}",
+        nuts_graphs_captured=caps,
         samples_per_s=f"{POIS_CHAINS * POIS_DRAWS / t:.1f}", max_rhat=f"{rhat:.4f}",
         divergences=divs, mean=",".join(f"{v:.4f}" for v in mean.tolist()),
         sd=",".join(f"{v:.5f}" for v in sd.tolist()),

@@ -499,17 +499,38 @@ def _gauss_logp(device):
     return lambda th: -0.5 * torch.sum((th @ prec) * th, dim=-1)
 
 
+class _CpuDraws(mcmc.Draws):
+    """A draw source that draws on the CPU and moves the draws to the chains'
+    device (a test's replay source: a ``Draws`` itself refuses a generator
+    on another device than the chains)."""
+
+    def _on(self, device):
+        return self.gen.device
+
+    def momentum(self, shape, dtype, device):
+        return super().momentum(shape, dtype, "cpu").to(device)
+
+    def direction(self, n, device):
+        return super().direction(n, "cpu").to(device)
+
+    def leaf_uniforms(self, L, n, device):
+        return super().leaf_uniforms(L, n, "cpu").to(device)
+
+    def tree_uniform(self, n, device):
+        return super().tree_uniform(n, "cpu").to(device)
+
+
 @pytest.mark.cuda
 def test_nuts_transition_on_card_matches_cpu(cuda_device):
-    """The same draws (a CPU generator, moved to each device) give the same
-    batched transition on the card as on the CPU."""
+    """The same draws (made on the CPU, moved to each device by a draw
+    source) give the same batched transition on the card as on the CPU."""
     z = torch.as_tensor(np.random.default_rng(0).normal(size=(64, 2)).astype(np.float32))
     out = []
     for dev in (torch.device("cpu"), cuda_device):
         vg = integrators.value_and_grad(_gauss_logp(dev))
         zd = z.to(dev)
         st = integrators.IntegratorState(zd, torch.zeros_like(zd), *vg(zd))
-        st, info = nuts.nuts_kernel(vg, mcmc.Draws(torch.Generator().manual_seed(1)), st,
+        st, info = nuts.nuts_kernel(vg, _CpuDraws(torch.Generator().manual_seed(1)), st,
                                     0.4, torch.ones(64, 2, device=dev), max_depth=8)
         out.append((st.z.cpu(), info.num_steps.cpu()))
     np.testing.assert_array_equal(out[0][1].numpy(), out[1][1].numpy())
@@ -1353,3 +1374,164 @@ def test_replayed_build_launches_the_fold_once_per_iteration(cuda_device):
         snnls.build(c, snnls.init_state(c, 256), 70, 1e-6, method=method,
                     draws=_gen(cuda_device, method))
         assert fs.launches - before == per * (snnls.itrs_run - ran) == per * 70
+
+
+# ------------------------------------------- NUTS as replayed CUDA graphs
+
+NUTS_COV = [[2.0, 1.2, 0.0], [1.2, 1.5, 0.3], [0.0, 0.3, 0.5]]
+
+
+def _same_tensors(a, b):
+    """Nested results equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.is_floating_point():
+            a, b = a.contiguous().view(torch.int32 if a.element_size() == 4 else torch.int64), \
+                b.contiguous().view(torch.int32 if b.element_size() == 4 else torch.int64)
+        assert torch.equal(a, b)
+        return
+    for x, y in zip(a, b, strict=True):
+        _same_tensors(x, y)
+
+
+def _nuts_pair(fn, dev, **kw):
+    """``fn(gen, graphs)`` replayed and direct, each from a fresh generator:
+    both results and both generators' states after."""
+    out = []
+    for graphs in (None, False):
+        gen = torch.Generator(device=dev).manual_seed(7)
+        out.append((fn(gen, graphs), gen.get_state()))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense,pooled,segment", [
+    (False, False, None), (False, False, 2), (False, False, 4), (True, False, None),
+    (False, True, None), (True, True, 4)])
+def test_replayed_nuts_equals_direct(dense, pooled, segment, cuda_device):
+    """run_nuts through replayed graphs against the direct transitions
+    (graphs=False) on the card: samples, acceptance, divergences, step
+    sizes, metrics and depths bit for bit (through a metric window and its
+    boundary), and the generator left at the same place."""
+    from bayesian_coresets_tpu_torch.ops import graphs
+    prec = torch.linalg.inv(torch.tensor(NUTS_COV, device=cuda_device))
+    logp = lambda th: -0.5 * torch.sum((th @ prec) * th, dim=-1)  # noqa: E731
+    init = torch.as_tensor(np.random.default_rng(1).normal(size=(64, 3)).astype(np.float32),
+                           device=cuda_device)
+    caps = graphs.captures
+    (rep, g1), (ref, g2) = _nuts_pair(lambda gen, gr: mcmc.run_nuts(
+        logp, init, gen, num_warmup=150, num_samples=20, max_depth=6, pooled_adaptation=pooled,
+        dense_mass=dense, segment=segment, graphs=gr), cuda_device)
+    torch.cuda.synchronize()
+    assert graphs.captures > caps
+    _same_tensors(rep, ref)
+    assert torch.equal(g1, g2)
+
+
+def _logistic_coreset(dev, n=2000, d=5, m=64, seed=0):
+    from bayesian_coresets_tpu_torch.models import logistic
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z = logistic.gen_synthetic(gen, n, d)
+    idx = torch.randperm(n, generator=gen, device=dev)[:m]
+    return z[idx], torch.full((m,), n / m, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["logistic", "f64_island", "dense", "poisson", "max_depth"])
+def test_replayed_weighted_run_equals_direct(case, cuda_device):
+    """mcmc.weighted.run (the Laplace-preconditioned density, the f64
+    island, the dense metric, the Poisson model, a max_depth cut that most
+    trees reach) replayed against direct, bit for bit."""
+    from bayesian_coresets_tpu_torch.mcmc import weighted
+    from bayesian_coresets_tpu_torch.models import logistic, poisson
+    model = logistic
+    if case == "poisson":
+        model = poisson
+        gen = torch.Generator(device=cuda_device).manual_seed(3)
+        zc = poisson.gen_synthetic(gen, 2000)[:64]
+        wc = torch.full((64,), 2000 / 64, device=cuda_device)
+    else:
+        zc, wc = _logistic_coreset(cuda_device)
+    cut = case == "max_depth"
+    kw = dict(num_chains=32, num_warmup=40, max_depth=2 if cut else 8, d=zc.shape[1] - 1
+              if case == "poisson" else None, f64_logdensity=case == "f64_island",
+              dense_mass=case == "dense", target_accept=0.99 if cut else 0.8)
+    (rep, g1), (ref, g2) = _nuts_pair(lambda gen, gr: weighted.run(
+        model, zc, wc, 20, gen, graphs=gr, **kw), cuda_device)
+    _same_tensors(rep[0], ref[0])
+    _same_tensors(rep[2], ref[2])
+    assert torch.equal(g1, g2)
+    if cut:
+        assert float(ref[2].tree_depth.max()) == 2.0
+
+
+@pytest.mark.cuda
+def test_replayed_nuts_captures_are_bounded(cuda_device):
+    """The graphs a run captures do not grow with its transitions: at most
+    the start, the merge, one per doubling index and one per segment
+    length (segments of 4 leaves: lengths 1, 2 and 4)."""
+    from bayesian_coresets_tpu_torch.ops import graphs
+    prec = torch.linalg.inv(torch.tensor(NUTS_COV, device=cuda_device))
+    logp = lambda th: -0.5 * torch.sum((th @ prec) * th, dim=-1)  # noqa: E731
+    counts = []
+    for n in (10, 60):
+        caps = graphs.captures
+        mcmc.run_nuts(logp, torch.zeros((16, 3), device=cuda_device),
+                      torch.Generator(device=cuda_device).manual_seed(2), num_warmup=n,
+                      num_samples=n, max_depth=8, segment=4)
+        counts.append(graphs.captures - caps)
+    assert 0 < counts[0] <= counts[1] <= 2 + 8 + 3, counts
+
+
+@pytest.mark.cuda
+def test_replayed_nuts_reads_only_its_flags(cuda_device):
+    """Once its graphs exist, a replayed transition synchronizes only where
+    it reads a flag (``nuts.host_reads``)."""
+    prec = torch.linalg.inv(torch.tensor(NUTS_COV, device=cuda_device))
+    vg = integrators.value_and_grad(lambda th: -0.5 * torch.sum((th @ prec) * th, dim=-1))
+    z = torch.zeros((32, 3), device=cuda_device)
+    st = integrators.IntegratorState(z, torch.zeros_like(z), *vg(z))
+    kern = mcmc.Transitions(vg, torch.Generator(device=cuda_device).manual_seed(0), 6, 2)
+    step, im = torch.full((32,), 0.3, device=cuda_device), torch.ones((32, 3), device=cuda_device)
+    for _ in range(30):
+        st, _ = kern(st, step, im)
+    torch.cuda.synchronize()
+    reads = nuts.host_reads
+    (st, info), syncs = _syncs(lambda: kern(st, step, im))
+    assert len(syncs) == nuts.host_reads - reads, syncs
+
+
+@pytest.mark.cuda
+def test_cpu_generator_with_cuda_chains_raises(cuda_device):
+    z = torch.zeros((4, 2), device=cuda_device)
+    for graphs in (None, False):
+        with pytest.raises(ValueError, match="chains' device"):
+            mcmc.run_nuts(_gauss_logp(cuda_device), z, torch.Generator(), num_warmup=2,
+                          num_samples=2, graphs=graphs)
+    with pytest.raises(ValueError, match="graphs=False"):
+        mcmc.run_nuts(_gauss_logp(cuda_device), z, _CpuDraws(torch.Generator()),
+                      num_warmup=2, num_samples=2)
+
+
+@pytest.mark.cuda
+def test_replayed_weighted_run_on_the_main_coreset(cuda_device):
+    """weighted NUTS on the main path's coreset (bench.py's flagship build:
+    N=100k, D=10, S=500, int8 select, M=500), 256 chains x (30 + 30):
+    replayed and direct, bit for bit."""
+    from bayesian_coresets_tpu_torch.mcmc import weighted
+    from bayesian_coresets_tpu_torch.models import logistic
+    n, d = 100_000, 10
+    Z = logistic.gen_synthetic(torch.Generator(device=cuda_device).manual_seed(0), n, d)
+    proj = bc.BlackBoxProjector(
+        lambda g, k, w, p: 0.1 * torch.randn((k, d), generator=g, device=g.device), 500,
+        logistic.log_likelihood, generator=torch.Generator(device=cuda_device).manual_seed(1))
+    c = bc.HilbertCoreset(Z, proj, select_dtype=torch.int8, max_active=1024)
+    c.build(500)
+    wts, pts, _ = c.get()
+    zc, wc = torch.as_tensor(pts, device=cuda_device), torch.as_tensor(wts, device=cuda_device)
+    (rep, g1), (ref, g2) = _nuts_pair(lambda gen, gr: weighted.run(
+        logistic, zc, wc, 30, gen, num_chains=256, target_accept=0.8, num_warmup=30,
+        graphs=gr), cuda_device)
+    _same_tensors(rep[0], ref[0])
+    _same_tensors(rep[2], ref[2])
+    assert torch.equal(g1, g2)

@@ -69,7 +69,8 @@ class JaxDraws:
     """Replays the draws of the JAX kernels from one key per chain.
 
     ``kind`` names whose keys: "nuts" (nuts.py:493, 503, 428: km for the
-    momentum; per doubling kd, ks, kb; per leaf ku split from ks), "hmc"
+    momentum; per doubling kd, ks, kb; per leaf ku split from ks, the
+    port asking for a doubling's leaves at once), "hmc"
     (hmc.py:35: km, ka, kj), or "direct" (adapt.find_reasonable_step_size
     draws the momentum from its key as it is)."""
 
@@ -101,12 +102,17 @@ class JaxDraws:
             out.append(jax.random.bernoulli(kd))
         return self._stack(out, device)
 
-    def leaf_uniform(self, n, device):
+    def leaf_uniforms(self, L, n, device):
+        """(L, n): row k the uniform of leaf k, from L successive splits of
+        each chain's ks (the JAX kernel splits ks once per leaf it takes)."""
         out = []
         for c in range(n):
-            self.ks[c], ku = jax.random.split(self.ks[c])
-            out.append(jax.random.uniform(ku))
-        return self._stack(out, device)
+            row = []
+            for _ in range(L):
+                self.ks[c], ku = jax.random.split(self.ks[c])
+                row.append(jax.random.uniform(ku))
+            out.append(np.stack([np.asarray(x) for x in row]))
+        return self._stack(out, device).T.contiguous()
 
     def tree_uniform(self, n, device):
         return self._stack([jax.random.uniform(kb) for kb in self.kb], device)
