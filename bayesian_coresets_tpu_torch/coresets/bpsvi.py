@@ -10,9 +10,13 @@ evaluates log-likelihood and datapoint-gradient projections.  The
 (reference bpsvi.py:53) is one ``torch.einsum``.  Nonnegativity holds on
 the weight block only (reference nn_idcs = arange(sz), bpsvi.py:58).
 
-The joint optimization is a Python loop of Adam steps that reads nothing
-back to the host; draws come from a ``torch.Generator`` on the data's
-device.
+The joint optimization is ``ops.opt.nn_opt``'s segments of Adam steps,
+which read nothing back to the host; on a CUDA device without a mesh they
+replay CUDA graphs (``graphs=None``, the default; ``graphs=False`` runs the
+same steps directly, bit for bit), one set per (data, family, generator,
+size, ``opt_itrs``, ``n_subsample_opt``), cached on the data tensor.  The
+initial rows (:func:`uniform_init_idcs`) are drawn outside the graphs.
+Draws come from a ``torch.Generator`` on the data's device.
 
 ``mesh=`` shards the data rows over the mesh's data axis, as SparseVI's
 does (:mod:`.sparsevi`): each Adam step sums the rank's own rows' feature
@@ -29,7 +33,7 @@ from ..ops.opt import nn_opt
 from ..utils import config
 from .coreset import Coreset
 from .projector import TangentFamily
-from .sparsevi import _data_vecs, _gather_pts, _vec_sum, data_block, resolve_family
+from .sparsevi import _data_vecs, _gather_pts, _graphs, _vec_sum, data_block, resolve_family
 
 
 def uniform_init_idcs(n: int, sz: int, gen: torch.Generator) -> torch.Tensor:
@@ -49,10 +53,12 @@ def _subsample_sum(data, family, ctx, gen, n_sub, comm=None):
 
 
 def bpsvi_build(data, init_idcs, gen, *, family: TangentFamily, n_sub_opt,
-                opt_itrs: int, step_sched, comm=None):
+                opt_itrs: int, step_sched, comm=None, graphs=None, segment=None):
     """Optimize a size-``len(init_idcs)`` pseudocoreset initialized at the
     given data rows (see :func:`uniform_init_idcs`); returns (wts, pts).
-    ``comm``: the data axis's exchanges, ``data`` this rank's block."""
+    ``comm``: the data axis's exchanges, ``data`` this rank's block.
+    ``graphs``, ``segment``: the Adam steps' (see ``ops.opt.nn_opt``;
+    sharded runs are direct)."""
     d = data.shape[1]
     n = data.shape[0] if comm is None else comm.n
     sz = init_idcs.shape[0]
@@ -81,7 +87,8 @@ def bpsvi_build(data, init_idcs, gen, *, family: TangentFamily, n_sub_opt,
     carry0 = (family.init_carry(wts0, pts0) if family.make_ctx_warm is not None
               else torch.zeros((0,), dtype=data.dtype, device=data.device))
     xf, _ = nn_opt(x0, grad_fn, gen, nn_mask=nn_mask, opt_itrs=opt_itrs,
-                   step_sched=step_sched, aux0=carry0)
+                   step_sched=step_sched, aux0=carry0, graphs=_graphs(graphs, comm),
+                   segment=segment, cache=((data,), ("bpsvi", family, n_sub_opt)))
     return xf[:sz], xf[sz:].reshape(sz, d)
 
 
@@ -105,14 +112,17 @@ class BatchPSVICoreset(Coreset):
     device) and so does the generator, seeded with ``seed``.  ``mesh``
     (``parallel.make_mesh``) shards the data rows over its data axis: every
     rank passes the same data, keeps its block, and calls every method.
+    ``graphs`` and ``segment`` go to the Adam steps (``ops.opt.nn_opt``:
+    by default replayed CUDA graphs on a CUDA device without a mesh).
     """
 
     comm = None
 
     def __init__(self, data, ll_projector, opt_itrs: int, n_subsample_opt=None,
                  step_sched=lambda i: 1.0 / (1.0 + i), seed: int = 0, device=None,
-                 mesh=None):
+                 mesh=None, graphs: bool | None = None, segment: int | None = None):
         super().__init__()
+        self.graphs, self.segment = graphs, segment
         self.data = config.as_tensor(data, config.default_dtype(), device)
         self.family = resolve_family(ll_projector)
         if self.family.project_grad is None:
@@ -136,7 +146,8 @@ class BatchPSVICoreset(Coreset):
         wts, pts = bpsvi_build(
             self.data, init_idcs, self._gen, family=self.family,
             n_sub_opt=self.n_subsample_opt, opt_itrs=self.opt_itrs,
-            step_sched=self.step_sched, comm=self.comm)
+            step_sched=self.step_sched, comm=self.comm, graphs=self.graphs,
+            segment=self.segment)
         self.wts = wts.cpu().numpy()
         self.pts = pts.cpu().numpy()
         self.idcs = -1 * np.ones(int(sz), dtype=np.int64)   # synthetic points

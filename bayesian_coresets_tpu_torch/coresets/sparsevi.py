@@ -11,10 +11,20 @@ context.  The coreset lives in fixed-capacity slot arrays (the slots past
 ``size`` are empty), so the shapes of every step stay fixed while the
 support grows.
 
-Where the JAX package runs ``lax.while_loop`` over ``lax.scan``, both loops
-are Python loops here.  ``size`` is a host integer: each select reads one
-flag back (whether a point was added; the slot write itself stays on the
-device), and no Adam step reads anything.  Draws come from a
+Where the JAX package runs ``lax.while_loop`` over ``lax.scan``, the
+selects are a Python loop here and each select's Adam steps are
+``ops.opt.nn_opt``'s segments.  ``size`` is a host integer between the
+selects: each select reads one flag back (whether a point was added; the
+slot write itself stays on the device).  The Adam steps read nothing: they
+take ``size`` as a device value (``arange(capacity) < size``) and the slots'
+points from a device tensor, so on a CUDA device without a mesh they
+replay CUDA graphs (``graphs=None``, the default; ``graphs=False`` runs the
+same steps directly, bit for bit) and one set of graphs serves every
+select of a build, and every build on the same (data, family, generator,
+capacity, ``opt_itrs``, ``n_subsample_opt``), cached on the data tensor.
+A family whose context refit reads the host cannot be captured (the
+capture raises): pass ``graphs=False`` for it (the linear-regression exact
+family's low-rank refit, an ``eigh``).  Draws come from a
 ``torch.Generator`` on the data's device (``gen`` below), which every
 context rebuild and subsample advances.
 Nothing divides by a Python scalar (CUDA would multiply by its reciprocal,
@@ -119,7 +129,8 @@ def _vec_sum(vecs: torch.Tensor, comm=None) -> torch.Tensor:
     return total if comm is None else comm.all_reduce(total, "sum")
 
 
-def _slot_mask(wts: torch.Tensor, size: int) -> torch.Tensor:
+def _slot_mask(wts: torch.Tensor, size) -> torch.Tensor:
+    """The filled slots: ``size`` a host integer or a 0-dim device tensor."""
     return torch.arange(wts.shape[0], device=wts.device) < size
 
 
@@ -133,7 +144,7 @@ def _init_carry(data, family: TangentFamily, wts, pts, size: int):
     return family.init_carry(torch.where(mask, wts, 0.0), pts)
 
 
-def _projections(data, family: TangentFamily, gen, w, pts, size: int, n_sub,
+def _projections(data, family: TangentFamily, gen, w, pts, size, n_sub,
                  carry, grad: bool = False, comm=None):
     """Reference _get_projection (sparsevi.py:23-42): rebuild the context,
     project a (sub)sample of the data (:func:`_data_vecs`) and the current
@@ -194,29 +205,56 @@ def _select(data, family, gen, wts, idcs, pts, size: int, n_sub_sel, carry, comm
     return wts, idcs, size, carry
 
 
-def _optimize(data, family, gen, wts, pts, size: int, n_sub_opt, opt_itrs,
-              step_sched, carry, comm=None):
-    """Re-solve all active weights; each Adam step rebuilds the context
-    (reference sparsevi.py:69-76), warm-starting from the carried state."""
-    mask = _slot_mask(wts, size)
+def _adam_grad(data, family, n_sub_opt, comm=None):
+    """The Adam step's gradient ``(w, gen, carry, (pts, size)) -> (grad,
+    carry)``: the slots' points and the slot count come in as device
+    values, as the JAX package's traced ``size`` (sparsevi.py:120 there)."""
 
-    def grad_fn(w, g, carry):
-        vecs, scale, _, _, corevecs, _, _, carry = _projections(
+    def grad_fn(w, g, carry, inputs):
+        pts, size = inputs
+        vecs, scale, _, _, corevecs, _, mask, carry = _projections(
             data, family, g, w, pts, size, n_sub_opt, carry, comm=comm)
         resid = scale * _vec_sum(vecs, comm) - torch.where(mask, w, 0.0) @ corevecs
         grad = (corevecs @ resid) * (-1.0 / vecs.shape[1])
         return torch.where(mask, grad, 0.0), carry
 
-    w, carry = nn_opt(wts, grad_fn, gen, nn_mask=None, opt_itrs=opt_itrs,
-                      step_sched=step_sched, aux0=carry)
-    return torch.where(mask, w, 0.0), carry
+    return grad_fn
+
+
+def _graphs(graphs, comm):
+    """Whether the Adam steps may replay graphs: never when sharded (a
+    collective of gloo cannot be captured)."""
+    if comm is None:
+        return graphs
+    if graphs:
+        raise ValueError("sharded SparseVI and BatchPSVI run their Adam steps directly; "
+                         "pass graphs=None or False with a mesh")
+    return False
+
+
+def _optimize(data, family, gen, wts, pts, size: int, n_sub_opt, opt_itrs,
+              step_sched, carry, comm=None, graphs=None, segment=None):
+    """Re-solve all active weights; each Adam step rebuilds the context
+    (reference sparsevi.py:69-76), warm-starting from the carried state.
+    The steps read the points and the slot count from device tensors, so
+    on a CUDA device without ``comm`` one set of replayed graphs
+    (``nn_opt``'s, cached on ``data``) serves every optimize with the same
+    (family, generator, capacity, ``opt_itrs``, ``n_sub_opt``)."""
+    size_t = torch.full((), int(size), dtype=torch.int64, device=wts.device)
+    w, carry = nn_opt(wts, _adam_grad(data, family, n_sub_opt, comm), gen, nn_mask=None,
+                      opt_itrs=opt_itrs, step_sched=step_sched, aux0=carry,
+                      inputs=(pts, size_t), graphs=_graphs(graphs, comm), segment=segment,
+                      cache=((data,), ("svi", family, n_sub_opt)))
+    return torch.where(_slot_mask(wts, size), w, 0.0), carry
 
 
 def svi_build(data, wts, idcs, size: int, gen, itrs: int, *, family: TangentFamily,
-              n_sub_sel, n_sub_opt, opt_itrs: int, step_sched, comm=None):
+              n_sub_sel, n_sub_opt, opt_itrs: int, step_sched, comm=None,
+              graphs=None, segment=None):
     """Run ``itrs`` select+optimize rounds; returns (wts, idcs, size).
     ``comm``: the data axis's exchanges, ``data`` this rank's block (see
-    the module's notes)."""
+    the module's notes).  ``graphs``, ``segment``: the Adam steps' (see
+    ``ops.opt.nn_opt``; sharded runs are direct)."""
     pts = _gather_pts(data, idcs, comm)
     carry = _init_carry(data, family, wts, pts, size)
     for _ in range(int(itrs)):
@@ -224,16 +262,16 @@ def svi_build(data, wts, idcs, size: int, gen, itrs: int, *, family: TangentFami
                                          n_sub_sel, carry, comm)
         pts = _gather_pts(data, idcs, comm)
         wts, carry = _optimize(data, family, gen, wts, pts, size, n_sub_opt,
-                               opt_itrs, step_sched, carry, comm)
+                               opt_itrs, step_sched, carry, comm, graphs, segment)
     return wts, idcs, size
 
 
 def svi_optimize(data, wts, idcs, size: int, gen, *, family, n_sub_opt,
-                 opt_itrs, step_sched, comm=None):
+                 opt_itrs, step_sched, comm=None, graphs=None, segment=None):
     pts = _gather_pts(data, idcs, comm)
     carry = _init_carry(data, family, wts, pts, size)
     wts, _ = _optimize(data, family, gen, wts, pts, size, n_sub_opt, opt_itrs,
-                       step_sched, carry, comm)
+                       step_sched, carry, comm, graphs, segment)
     return wts
 
 
@@ -278,7 +316,9 @@ class SparseVICoreset(Coreset):
 
     ``mesh`` (``parallel.make_mesh``) shards the data rows over its data
     axis (see the module's notes): every rank passes the same data, keeps
-    its block, and calls every method (they are collective).
+    its block, and calls every method (they are collective).  ``graphs``
+    and ``segment`` go to the Adam steps (``ops.opt.nn_opt``: by default
+    replayed CUDA graphs on a CUDA device without a mesh).
     """
 
     comm = None
@@ -286,8 +326,10 @@ class SparseVICoreset(Coreset):
     def __init__(self, data, ll_projector, n_subsample_select=None,
                  n_subsample_opt=None, opt_itrs: int = 100,
                  step_sched=lambda i: 1.0 / (1.0 + i), seed: int = 0,
-                 capacity: int | None = None, device=None, mesh=None):
+                 capacity: int | None = None, device=None, mesh=None,
+                 graphs: bool | None = None, segment: int | None = None):
         super().__init__()
+        self.graphs, self.segment = graphs, segment
         self.data = config.as_tensor(data, config.default_dtype(), device)
         n = self.data.shape[0]
         if mesh is not None:
@@ -352,14 +394,16 @@ class SparseVICoreset(Coreset):
             self.data, self._wts, self._idcs, self._size, self._gen, itrs,
             family=self.family, n_sub_sel=self.n_subsample_select,
             n_sub_opt=self.n_subsample_opt, opt_itrs=self.opt_itrs,
-            step_sched=self.step_sched, comm=self.comm)
+            step_sched=self.step_sched, comm=self.comm, graphs=self.graphs,
+            segment=self.segment)
         self._sync()
 
     def _optimize(self):
         self._wts = svi_optimize(
             self.data, self._wts, self._idcs, self._size, self._gen,
             family=self.family, n_sub_opt=self.n_subsample_opt,
-            opt_itrs=self.opt_itrs, step_sched=self.step_sched, comm=self.comm)
+            opt_itrs=self.opt_itrs, step_sched=self.step_sched, comm=self.comm,
+            graphs=self.graphs, segment=self.segment)
         self._sync()
 
     # relative slack for the CRN rollback check: with common random numbers

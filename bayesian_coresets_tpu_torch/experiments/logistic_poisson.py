@@ -81,6 +81,49 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def laplace_refits(model, dth: int, dev):
+    """The black-box projector's samplers, which refit a Laplace
+    approximation to the current weighted coreset (reference
+    main.py:156-163): ``(sampler, warm_sampler, init_carry)`` for
+    ``BlackBoxProjector``.  An empty coreset gives the prior N(0, I) (an
+    all-zero-weight coreset also yields the prior); the test is on the
+    points' shape, so it holds inside a captured graph.
+
+    The warm variant serves SparseVI's and BatchPSVI's Adam steps: each
+    refits the Laplace approximation, but weights move little per step, so
+    Newton from the carried previous mode needs ~3 damped iterations
+    instead of 20 from zero (quadratic convergence tracking a
+    slowly-moving optimum).  ``init_carry`` (run once per build entry)
+    does the full-depth solve.  No refit reads the host (the Cholesky
+    factors are NaN where they fail, as the JAX package's)."""
+    zeros_th = torch.zeros(dth, device=dev)
+
+    def prior_draws(gen, n):
+        return torch.randn((n, dth), generator=gen, device=gen.device).to(dev)
+
+    def sampler(gen, n, w, p):
+        if p.numel() == 0:
+            return prior_draws(gen, n)
+        lap = laplace_approx(p, w, zeros_th, grad_fn=model.grad_th_log_joint,
+                             hess_fn=model.hess_th_log_joint, num_iters=20)
+        return sample_laplace(gen, lap, n)
+
+    def init_carry(w, p):
+        if p.numel() == 0:
+            return zeros_th
+        return laplace_approx(p, w, zeros_th, grad_fn=model.grad_th_log_joint,
+                              hess_fn=model.hess_th_log_joint, num_iters=25).mu
+
+    def warm_sampler(gen, n, w, p, mode):
+        if p.numel() == 0:
+            return prior_draws(gen, n), mode
+        lap = laplace_approx(p, w, mode, grad_fn=model.grad_th_log_joint,
+                             hess_fn=model.hess_th_log_joint, num_iters=3)
+        return sample_laplace(gen, lap, n), lap.mu
+
+    return sampler, warm_sampler, init_carry
+
+
 def run(arguments):
     """Returns a dict: ``coreset`` (the coreset built), ``seconds`` (wall
     seconds by stage: ``data``, ``full_nuts``, ``laplace``, ``build``,
@@ -181,37 +224,7 @@ def run(arguments):
     sampler_opt = lambda gen, n, w, p: sample_laplace(gen, lap_opt, n)
     sampler_real = lambda gen, n, w, p: sample_laplace(gen, lap_real, n)
 
-    def prior_draws(gen, n):
-        return torch.randn((n, dth), generator=gen, device=gen.device).to(dev)
-
-    def sampler_bb(gen, n, w, p):
-        # refit a Laplace approximation to the current weighted coreset
-        # (reference main.py:156-163); empty coreset -> prior N(0, I)
-        # (an all-zero-weight coreset also yields the prior)
-        if p.numel() == 0:
-            return prior_draws(gen, n)
-        lap = laplace_approx(p, w, zeros_th, grad_fn=model.grad_th_log_joint,
-                             hess_fn=model.hess_th_log_joint, num_iters=20)
-        return sample_laplace(gen, lap, n)
-
-    # warm-start variant for the SparseVI inner loop: each of the opt_itrs
-    # Adam steps refits the Laplace approximation, but weights move little
-    # per step, so Newton from the carried previous mode needs ~3 damped
-    # iterations instead of 20 from zero (quadratic convergence tracking a
-    # slowly-moving optimum).  init_carry (run once per build entry) does
-    # the full-depth solve.
-    def init_carry_bb(w, p):
-        if p.numel() == 0:
-            return zeros_th
-        return laplace_approx(p, w, zeros_th, grad_fn=model.grad_th_log_joint,
-                              hess_fn=model.hess_th_log_joint, num_iters=25).mu
-
-    def sampler_bb_warm(gen, n, w, p, mode):
-        if p.numel() == 0:
-            return prior_draws(gen, n), mode
-        lap = laplace_approx(p, w, mode, grad_fn=model.grad_th_log_joint,
-                             hess_fn=model.hess_th_log_joint, num_iters=3)
-        return sample_laplace(gen, lap, n), lap.mu
+    sampler_bb, sampler_bb_warm, init_carry_bb = laplace_refits(model, dth, dev)
 
     def projector(sampler, warm=False):
         kw = (dict(grad_loglikelihood=model.grad_z_log_likelihood,

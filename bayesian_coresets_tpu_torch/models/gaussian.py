@@ -31,6 +31,20 @@ def _randn(gen: torch.Generator, shape, like: torch.Tensor) -> torch.Tensor:
                        device=gen.device).to(like.device)
 
 
+def cholesky(a: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of ``a`` (or of each matrix of a batch); where
+    the factorization fails, NaN on and below the diagonal and 0 above, as
+    JAX's ``cholesky`` returns it.  ``torch.linalg.cholesky`` reads the
+    error code back to raise, which synchronizes a CUDA device and cannot
+    run inside a captured CUDA graph; this reads nothing.  The factor keeps
+    ``cholesky``'s column-major layout (the mask of the strictly upper
+    triangle is made column-major too)."""
+    L, info = torch.linalg.cholesky_ex(a)
+    d = a.shape[-1]
+    above = torch.ones((d, d), dtype=torch.bool, device=a.device).tril(-1).mT
+    return torch.where((info == 0)[..., None, None] | above, L, torch.nan)
+
+
 def log_likelihood(x: torch.Tensor, th: torch.Tensor, Siginv: torch.Tensor,
                    logdetSig) -> torch.Tensor:
     """(n, S) log-densities for x (n, d) and th (S, d) (model_gaussian.py:4-11)."""
@@ -99,7 +113,7 @@ def weighted_post(th0, Sig0inv, Siginv, x, w) -> WeightedPost:
     Siginv sum_i w_i x_i.  Zero total weight gives the prior."""
     d = th0.shape[0]
     prec = Sig0inv + torch.sum(w) * Siginv
-    LSigInv = torch.linalg.cholesky(prec)
+    LSigInv = cholesky(prec)
     eye = torch.eye(d, dtype=LSigInv.dtype, device=LSigInv.device)
     USig = torch.linalg.solve_triangular(LSigInv, eye, upper=False).T
     mu = USig @ (USig.T @ _weighted_rhs(th0, Sig0inv, Siginv, x, w))
@@ -112,7 +126,7 @@ def sample_weighted_post(gen: torch.Generator, th0, Sig0inv, Siginv, x, w,
     Cholesky Prec = L L^T, the mean by two triangular solves, and samples
     mu + L^{-T} eps (no dense inverse)."""
     d = th0.shape[0]
-    L = torch.linalg.cholesky(Sig0inv + torch.sum(w) * Siginv)
+    L = cholesky(Sig0inv + torch.sum(w) * Siginv)
     rhs = _weighted_rhs(th0, Sig0inv, Siginv, x, w)
     y = torch.linalg.solve_triangular(L, rhs[:, None], upper=False)
     mu = torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]

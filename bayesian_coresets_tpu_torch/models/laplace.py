@@ -14,6 +14,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from .gaussian import cholesky
+
 
 class LaplaceResult(NamedTuple):
     mu: torch.Tensor       # mode of the weighted log-joint (d,)
@@ -45,13 +47,13 @@ def laplace_approx(
         if diag:
             th = th + g / (-h + damping)
         else:
-            L = torch.linalg.cholesky(-h + damping * eye)
+            L = cholesky(-h + damping * eye)
             th = th + torch.cholesky_solve(g[:, None], L)[:, 0]
     h = hess_fn(z, th[None, :], wts)[0]
     if diag:
         lsiginv = torch.sqrt(-h)
         return LaplaceResult(th, 1.0 / lsiginv, lsiginv)
-    LSigInv = torch.linalg.cholesky(-h)
+    LSigInv = cholesky(-h)
     USig = torch.linalg.solve_triangular(LSigInv, eye, upper=False).T
     return LaplaceResult(th, USig, LSigInv)
 

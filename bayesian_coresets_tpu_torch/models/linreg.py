@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from .gaussian import WeightedPost, _atleast_2d, _randn, kl_divergence  # noqa: F401
+from .gaussian import WeightedPost, _atleast_2d, _randn, cholesky, kl_divergence  # noqa: F401
 
 _LOG2PI = 1.8378770664093453
 
@@ -39,8 +39,12 @@ def _split(z: torch.Tensor):
 
 def _scalar(v, like: torch.Tensor) -> torch.Tensor:
     """``v`` (a number or a tensor) as a 0-dim tensor of ``like``'s dtype on
-    its device, so that the CPU and the card divide alike."""
-    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+    its device, so that the CPU and the card divide alike.  A number is
+    filled in on the device (a copy of it from the host would synchronize,
+    and cannot run inside a captured CUDA graph)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype=like.dtype, device=like.device)
+    return torch.full((), float(v), dtype=like.dtype, device=like.device)
 
 
 def log_likelihood(z: torch.Tensor, th: torch.Tensor, sigsq) -> torch.Tensor:
@@ -83,7 +87,7 @@ def weighted_post(th0, Sig0inv, sigsq, z, w) -> WeightedPost:
     x, y = _split(z)
     d = th0.shape[0]
     sw = torch.sqrt(torch.clamp_min(w, 0.0))
-    L0 = torch.linalg.cholesky(Sig0inv)                  # Sig0inv = L0 L0^T
+    L0 = cholesky(Sig0inv)                               # Sig0inv = L0 L0^T
     srt = torch.sqrt(_scalar(sigsq, x))
     B = torch.cat([sw[:, None] * x / srt, L0.T], dim=0)
     c = torch.cat([sw * y / srt, L0.T @ th0], dim=0)
@@ -118,7 +122,7 @@ class LowRankBasis(NamedTuple):
 def lowrank_basis(th0, Sig0inv, sigsq) -> LowRankBasis:
     th0, Sig0inv = th0.double(), Sig0inv.double()
     d = th0.shape[0]
-    L0 = torch.linalg.cholesky(Sig0inv)
+    L0 = cholesky(Sig0inv)
     eye = torch.eye(d, dtype=L0.dtype, device=L0.device)
     L0inv = torch.linalg.solve_triangular(L0, eye, upper=False)
     return LowRankBasis(L0inv, L0inv.T.contiguous(), Sig0inv @ th0, _scalar(sigsq, L0))

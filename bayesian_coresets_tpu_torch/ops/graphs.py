@@ -1,5 +1,5 @@
-"""Capture and replay of CUDA graphs: the build loop, the FISTA solve and
-NUTS's tree as device programs.
+"""Capture and replay of CUDA graphs: the build loop, the FISTA solve,
+NUTS's tree and projected Adam's steps as device programs.
 
 The JAX package runs a whole Hilbert build as one device program
 (``bayesian_coresets_tpu/ops/snnls.py::build_core``, a ``lax.while_loop``),
@@ -12,7 +12,8 @@ iterations, or one solve, once and replays it, and the host reads back one
 pair of values per segment instead of one or more per iteration;
 :mod:`..mcmc.nuts` replays a transition's pieces (its start, a doubling's
 start, a segment of leaves, a doubling's merge) and reads one flag per
-segment.
+segment; :mod:`.opt` replays segments of Adam steps (the JAX package's
+``lax.scan`` in ``nn_opt``) and reads nothing.
 
 - **One :class:`Graphs` per static state.**  It holds static buffers that
   carry the state through its replays (copied in before them and out
@@ -188,11 +189,13 @@ class Graphs:
         g.replay()
 
 
-def graphs_for(tensors, key, gen, make_static, make_derived=lambda: None) -> Graphs:
+def graphs_for(tensors, key, gen, make_static, make_derived=lambda: None,
+               warm: bool = False) -> Graphs:
     """The :class:`Graphs` of the constants ``tensors`` (the first one the
     anchor, whose death drops them) under ``key`` on the current stream;
-    made, with ``make_static()`` and ``make_derived()``, where there is
-    none or it was captured with other tensors or generator ``gen``."""
+    made, with ``make_static()``, ``make_derived()`` and ``warm``, where
+    there is none or it was captured with other tensors or generator
+    ``gen``."""
     anchor = tensors[0]
     key = tuple(key) + (torch.cuda.current_stream(anchor.device).cuda_stream,)
     by_key = _cache.get(anchor)
@@ -200,7 +203,7 @@ def graphs_for(tensors, key, gen, make_static, make_derived=lambda: None) -> Gra
         by_key = _cache.setdefault(anchor, {})
     entry = by_key.get(key)
     if entry is None or not entry.holds(tensors, gen):
-        entry = by_key[key] = Graphs(tensors, make_static(), make_derived(), gen)
+        entry = by_key[key] = Graphs(tensors, make_static(), make_derived(), gen, warm)
     return entry
 
 
@@ -230,3 +233,14 @@ def empty_like(tree):
         return None
     return type(tree)(*(empty_like(t) for t in tree)) if hasattr(tree, "_fields") \
         else type(tree)(empty_like(t) for t in tree)
+
+
+def clone(tree):
+    """Copies of the tensors of the nested tuple ``tree`` (None stays
+    None): a state taken out of the static buffers."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if tree is None:
+        return None
+    return type(tree)(*(clone(t) for t in tree)) if hasattr(tree, "_fields") \
+        else type(tree)(clone(t) for t in tree)

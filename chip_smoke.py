@@ -91,19 +91,26 @@ script exits non-zero without printing the final result line):
    d=200, S=100, 50 Adam steps per select, M=30, 32 slots, the posterior
    basis sampler, step 1/(1+i)), black-box and with the exact Gaussian
    family, and the scaled arm of scripts/bench_svi_tpu.py:134-135 (N=100k,
-   1024-row subsamples): build seconds after a warm-up build, points/s, µs
-   and kernel launches per Adam step, host reads per build; each checked
-   for finite nonnegative weights, unique indices, size <= M, one host read
-   per select and none per Adam step, and rKL (f64 host closed form) within
-   1.5x the largest of three seeds of the JAX package at the same config on
-   a CPU;
+   1024-row subsamples).  Each build runs twice, its Adam steps replayed
+   as CUDA graphs (``ops/opt.py``, the default) and direct
+   (``graphs=False``), each after a warm-up build of its own (the
+   replayed one captures): weights, indices, points and the generator's
+   state after must agree bit for bit.  Each path prints build seconds,
+   µs per Adam step, host reads per build and where, graphs captured and
+   their capture and instantiate seconds, and a profiled window of one
+   optimize (50 Adam steps: µs, graph nodes or kernels and device-busy µs
+   per step, idle share); each checked for finite nonnegative weights,
+   unique indices, size <= M, one host read per select and none per Adam
+   step, and rKL (f64 host closed form) within 1.5x the largest of three
+   seeds of the JAX package at the same config on a CPU;
 10. SparseVI card against CPU: the exact family at the canonical config on
    both, from the same data and basis: identical index sequences, weights
    within rtol 1e-3;
 11. BatchPSVI at scripts/bench_svi_tpu.py:138-157's config (N=100k, d=20,
-   S=200, sz=100, 20000-row subsamples, 500 joint Adam steps, black-box):
-   build seconds, µs and launches per joint step; finite, no host read,
-   and both rKL and error() below those of its initialization;
+   S=200, sz=100, 20000-row subsamples, 500 joint Adam steps, black-box),
+   replayed and direct as phase 9's builds (bit for bit, the same numbers
+   per path); finite, no host read, and both rKL and error() below those
+   of its initialization;
 12. Frank-Wolfe at full width: phase 6's data and projection,
    ``HilbertCoreset(snnls=FrankWolfe).build(500)``: one select launch per
    iteration, ms per iteration, error()/|b| at M (443 atoms), and as in
@@ -155,7 +162,16 @@ script exits non-zero without printing the final result line):
    and read through ``BC_DATA_DIR``, its NUTS draws and warm-up cut to
    EXP_MCMC and its 7 sizes to EXP_SIZES, checked through the port's
    ``load_matching`` (finite columns, rKL falling with M, nonempty
-   coresets, finite positive weights);
+   coresets, finite positive weights); then in the same directory (its
+   full-data chains cached) ``--alg SVI`` and ``--alg BPSVI``, their
+   sizes cut to 1, 10, 100 (each select, and each BatchPSVI size, is 100
+   Adam steps over the full data, replayed as CUDA graphs), each with an
+   ``[experiments]`` line of its own: seconds and their split (build,
+   NUTS), Adam steps run and build µs per step, the host reads made inside
+   the Adam steps (must be 0), graphs captured and their seconds,
+   ``reduced=``; checked for finite columns, nonempty coresets, finite
+   nonnegative weights, finite rKL, and for SVI rKL at M_max below rKL at
+   the first size;
    ``simple_lr`` at its defaults; ``linear_regression --alg GIGA-OPT-EXACT``
    at its defaults on the card and with ``--device cpu``, held together;
    ``synthetic_vectors`` at its defaults with GIGA and FW, and OMP at M=100.
@@ -208,9 +224,9 @@ script exits non-zero without printing the final result line):
    exchanges and bytes per iteration by axis (one (n_loc, 2) block of
    dots per select on the proj axis) and each rank's peak allocation.
 
-Phases 8-11 and 14 launch no hand-written kernel: the JAX package computes
-SparseVI, BatchPSVI, the re-solve and the sampling solvers with plain XLA
-ops.  On the card ``snnls.build`` replays CUDA graphs
+Phases 8-11 and 14, and phase 18's SparseVI and BatchPSVI runs, launch
+no hand-written kernel: the JAX package computes SparseVI, BatchPSVI, the
+re-solve and the sampling solvers with plain XLA ops.  On the card ``snnls.build`` replays CUDA graphs
 (``bayesian_coresets_tpu_torch/ops/graphs.py``), and a replay adds the
 select launches its capture recorded to the kernels' counts; phase 5's
 wide-row build (which reads each pick back) and the sharded builds of
@@ -268,7 +284,7 @@ JAX_RKL_MAX = {"canonical_blackbox": 1162.0726287995294,
                "canonical_exact": 542.2950201551715,
                "scaled_N100k_sub1024": 136240.48075067793}
 RKL_SLACK = 1.5
-PROFILE_STEPS = 10          # Adam steps in each profiled window
+PROFILE_STEPS = 50          # Adam steps in each profiled window (one of phase 9's optimizes)
 # rows of 4-48 KB, past the ring kernel's 4 KB: (dtype, n, S): 48 KB, 32 KB
 # and 32 KB int8 rows (the shapes where the ring kernel lost to its
 # library call or ran at 32-59% of its bound), 6 KB rows at phase 6's N,
@@ -313,6 +329,12 @@ EXP_LP_ARGV = ["--model", "lr", "--dataset", "synth_lr_N100k", "--alg", "GIGA-OP
                "--target_accept", "0.9", "--mcmc_chains", "8", "--trial", "1",
                "--mcmc_samples_full", str(EXP_MCMC), "--mcmc_samples_coreset", str(EXP_MCMC)]
 EXP_OMP_M = 100
+# logistic_poisson --alg SVI and --alg BPSVI: the same data and
+# settings (opt_itrs 100, step inv, the full data for every Adam step, as
+# the reference's drivers), the sizes cut to 1, 10, 100: every SparseVI
+# select, and every BatchPSVI size, is 100 Adam steps of ~2.1 ms (the
+# (N, S) = (100k, 500) projection of every step)
+EXP_ADAM_M, EXP_ADAM_SIZES, EXP_ADAM_OPT = 100, 3, 100
 # linear_regression GIGA-OPT-EXACT, card against CPU: the grid points whose
 # support is below proj_dim agree within EXP_LR_RTOL (f32 features, f64
 # metrics); past it the residual is rounding noise and both are held to the
@@ -1639,50 +1661,102 @@ def _profile_window(torch, fn, steps):
             f"{1.0 - busy * 1e-6 / wall:.4f}")
 
 
+def _adam_window(torch, fn, steps):
+    """A window of ``steps`` Adam steps (``fn()``), replayed or direct: run
+    twice first (for graphs, the warm-up and the capture), then timed and
+    profiled: (wall µs, kernels or graph nodes, device-busy µs per step,
+    idle share)."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, busy_us, idle = _profile_window(torch, fn, steps)
+    return f"{1e6 * wall / steps:.2f}", launches, busy_us, idle
+
+
+def _replayed_and_direct(torch, tag, run, steps, window, states):
+    """The same build replayed (``graphs=None``) and direct
+    (``graphs=False``), each after a warm-up build of its own (the
+    replayed one captures): seconds, host reads and where, graphs captured
+    and their capture and instantiate seconds; the results and the
+    generator's state after (``states(out)``) must agree bit for bit.
+    Then ``window(graphs)``'s replayed and direct windows.  Returns
+    (replayed output, the line's numbers)."""
+    out, kv = {}, {}
+    for graphs, path in ((None, "replayed"), (False, "direct")):
+        caps0, cap0, inst0 = _graph_counts() + (_instantiate_s(),)
+        run(2, graphs)                                      # warm-up (captures)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, syncs, sites = _count_syncs(torch, lambda: run(3, graphs))
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap0)))
+        out[path] = res
+        us, nodes, busy, idle = _adam_window(torch, lambda: window(graphs), PROFILE_STEPS)
+        kv.update({f"{path}_s": f"{t:.4f}", f"{path}_us_per_adam_step": f"{1e6 * t / steps:.2f}",
+                   f"{path}_host_reads": syncs, f"{path}_read_sites": sites,
+                   f"{path}_window_us_per_step": us, f"{path}_nodes_per_step": nodes,
+                   f"{path}_busy_us_per_step": busy, f"{path}_idle_share": idle,
+                   f"{path}_graphs_captured": caps, f"{path}_capture_s": f"{cap_s:.4f}",
+                   f"{path}_instantiate_s": f"{_instantiate_s() - inst0:.4f}"})
+    a, b = states(out["replayed"]), states(out["direct"])
+    if not all(_same_bits(torch, x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{tag}: the replayed Adam steps differ from the direct ones")
+    return out["replayed"], kv
+
+
 def _svi_arm(torch, smi, tag, N, n_sub, blackbox):
     import numpy as np
     from bayesian_coresets_tpu_torch.coresets import sparsevi
+    from bayesian_coresets_tpu_torch.ops import opt
 
     dev = torch.device("cuda")
     x = _gaussian_data(torch, N, SVI_D, dev)
     fam = _gaussian_family(torch, SVI_D, dev, SVI_S if blackbox else None)
     sched = lambda i: 1.0 / (1.0 + i)   # noqa: E731
+    gen = torch.Generator(device=dev)   # one per run: the graphs are kept per generator
 
-    def one(seed, M=SVI_M):
+    def run(seed, graphs):
         w0 = torch.zeros(SVI_CAP, device=dev)
         i0 = torch.full((SVI_CAP,), -1, dtype=torch.int64, device=dev)
-        return sparsevi.svi_build(x, w0, i0, 0, torch.Generator(device=dev).manual_seed(seed),
-                                  M, family=fam, n_sub_sel=n_sub, n_sub_opt=n_sub,
-                                  opt_itrs=SVI_OPT, step_sched=sched)
+        w, idcs, size = sparsevi.svi_build(
+            x, w0, i0, 0, gen.manual_seed(seed), SVI_M, family=fam, n_sub_sel=n_sub,
+            n_sub_opt=n_sub, opt_itrs=SVI_OPT, step_sched=sched, graphs=graphs)
+        return w, idcs, size, sparsevi._gather_pts(x, idcs), gen.get_state()
 
-    _, syncs, sites = _count_syncs(torch, lambda: one(2))   # warm-up build
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    w, idcs, size = one(3)
-    torch.cuda.synchronize()
-    t = time.perf_counter() - t0
-    pts = sparsevi._gather_pts(x, idcs)
-    carry = sparsevi._init_carry(x, fam, w, pts, size)
-    launches, busy_us, idle = _profile_window(torch, lambda: sparsevi._optimize(
-        x, fam, torch.Generator(device=dev).manual_seed(4), w, pts, size, n_sub,
-        PROFILE_STEPS, sched, carry), PROFILE_STEPS)
+    built = {}
+
+    def window(graphs):                 # an optimize of the built coreset
+        w, idcs, size, pts, _ = built["out"]
+        carry = sparsevi._init_carry(x, fam, w, pts, size)
+        return sparsevi._optimize(x, fam, gen.manual_seed(4), w, pts, size, n_sub,
+                                  PROFILE_STEPS, sched, carry, graphs=graphs)
+
+    built["out"] = run(1, False)
+    (w, idcs, size, _, _), kv = _replayed_and_direct(
+        torch, f"svi {tag}", run, SVI_M * SVI_OPT, window,
+        lambda o: (o[0], o[1], o[3], o[4], torch.tensor([o[2]])))
+    t = float(kv["replayed_s"])
     wn, ix = w[:size].cpu().numpy(), idcs[:size].cpu().numpy()
     xh = x.cpu().numpy()
     rkl = _rkl64(xh, wn, xh[ix])
-    steps = SVI_M * (1 + SVI_OPT)
     say("svi", arm=tag, N=N, d=SVI_D, S=SVI_S if blackbox else SVI_D + 1, M=SVI_M,
         opt_itrs=SVI_OPT, n_sub=n_sub, size=size, build_s=f"{t:.4f}",
-        points_per_s=f"{SVI_M / t:.2f}", us_per_adam_step=f"{1e6 * t / steps:.2f}",
-        launches_per_adam_step=launches, device_busy_us_per_adam_step=busy_us,
-        idle_share=idle, host_reads_per_build=syncs, host_read_sites=sites, rkl=f"{rkl:.4f}",
-        jax_cpu_rkl_max=JAX_RKL_MAX[tag], card=repr(smi))
+        points_per_s=f"{SVI_M / t:.2f}", segment=opt.SEGMENT, replayed_equals_direct="yes",
+        **kv, rkl=f"{rkl:.4f}", jax_cpu_rkl_max=JAX_RKL_MAX[tag], card=repr(smi))
     if not (np.isfinite(wn).all() and (wn >= 0).all()):
         raise AssertionError(f"svi {tag}: weights not finite and nonnegative: {wn}")
     if size > SVI_M or len(set(ix.tolist())) != size or size == 0:
         raise AssertionError(f"svi {tag}: {size} slots with indices {ix}")
-    if syncs != SVI_M:                      # one flag per select, none per Adam step
-        raise AssertionError(f"svi {tag}: {syncs} host reads in a build of {SVI_M} "
-                             f"selects ({sites})")
+    for path in ("replayed", "direct"):     # one flag per select, none per Adam step
+        if kv[f"{path}_host_reads"] != SVI_M:
+            raise AssertionError(f"svi {tag}: {kv[f'{path}_host_reads']} host reads in a "
+                                 f"{path} build of {SVI_M} selects "
+                                 f"({kv[f'{path}_read_sites']})")
     if not rkl <= RKL_SLACK * JAX_RKL_MAX[tag]:
         raise AssertionError(f"svi {tag}: rKL {rkl} above {RKL_SLACK} x the JAX "
                              f"package's {JAX_RKL_MAX[tag]}")
@@ -1737,45 +1811,45 @@ def phase_svi_parity(torch):
 def phase_bpsvi(torch, smi):
     import numpy as np
     from bayesian_coresets_tpu_torch.coresets import bpsvi
+    from bayesian_coresets_tpu_torch.ops import opt
 
     dev = torch.device("cuda")
     x = _gaussian_data(torch, BP_N, BP_D, dev)
     fam = _gaussian_family(torch, BP_D, dev, BP_S, grad=True)
     init = bpsvi.uniform_init_idcs(BP_N, BP_SZ, torch.Generator(device=dev).manual_seed(9))
     sched = lambda i: 1.0 / (1.0 + i)   # noqa: E731
+    gen = torch.Generator(device=dev)   # one per run: the graphs are kept per generator
 
-    def one(seed, steps):
-        return bpsvi.bpsvi_build(x, init, torch.Generator(device=dev).manual_seed(seed),
-                                 family=fam, n_sub_opt=BP_SUB, opt_itrs=steps, step_sched=sched)
+    def one(seed, steps, graphs=None):
+        w, p = bpsvi.bpsvi_build(x, init, gen.manual_seed(seed), family=fam, n_sub_opt=BP_SUB,
+                                 opt_itrs=steps, step_sched=sched, graphs=graphs)
+        return w, p, gen.get_state()
 
-    _, syncs, sites = _count_syncs(torch, lambda: one(2, 20))   # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    w, p = one(3, BP_STEPS)
-    torch.cuda.synchronize()
-    t = time.perf_counter() - t0
-    launches, busy_us, idle = _profile_window(torch, lambda: one(4, PROFILE_STEPS),
-                                              PROFILE_STEPS)
-    w0, p0 = one(3, 0)                                      # the initialization
-    gen = torch.Generator(device=dev).manual_seed(5)
-    state = gen.get_state()
+    (w, p, _), kv = _replayed_and_direct(
+        torch, "bpsvi", lambda seed, graphs: one(seed, BP_STEPS, graphs), BP_STEPS,
+        lambda graphs: one(4, PROFILE_STEPS, graphs), lambda o: o)
+    t = float(kv["replayed_s"])
+    w0, p0, _ = one(3, 0)                                   # the initialization
+    g = torch.Generator(device=dev).manual_seed(5)
+    state = g.get_state()
     errs = []
     for ww, pp in ((w0, p0), (w, p)):
-        gen.set_state(state)                                # the same draws for both
-        errs.append(float(bpsvi.bpsvi_error(x, ww, pp, gen, family=fam, n_sub=BP_SUB)))
+        g.set_state(state)                                  # the same draws for both
+        errs.append(float(bpsvi.bpsvi_error(x, ww, pp, g, family=fam, n_sub=BP_SUB)))
     xh = x.cpu().numpy()
     rkl0 = _rkl64(xh, w0.cpu().numpy(), p0.cpu().numpy())
     rkl = _rkl64(xh, w.cpu().numpy(), p.cpu().numpy())
     say("bpsvi", N=BP_N, d=BP_D, S=BP_S, sz=BP_SZ, n_sub=BP_SUB, steps=BP_STEPS,
         build_s=f"{t:.4f}", us_per_joint_step=f"{1e6 * t / BP_STEPS:.2f}",
-        launches_per_joint_step=launches, device_busy_us_per_joint_step=busy_us,
-        idle_share=idle, host_reads_warmup=syncs, host_read_sites=sites,
+        segment=opt.SEGMENT, replayed_equals_direct="yes", **kv,
         rkl_init=f"{rkl0:.4f}", rkl=f"{rkl:.4f}",
         err_init=f"{errs[0]:.4f}", err=f"{errs[1]:.4f}", card=repr(smi))
     if not (torch.isfinite(w).all() and torch.isfinite(p).all() and bool((w >= 0).all())):
         raise AssertionError("bpsvi: non-finite or negative result")
-    if syncs:
-        raise AssertionError(f"bpsvi: {syncs} host reads in a build ({sites})")
+    for path in ("replayed", "direct"):
+        if kv[f"{path}_host_reads"]:
+            raise AssertionError(f"bpsvi: {kv[f'{path}_host_reads']} host reads in a {path} "
+                                 f"build ({kv[f'{path}_read_sites']})")
     if not rkl < rkl0:
         raise AssertionError(f"bpsvi: rKL {rkl} not below its initialization's {rkl0}")
     if not errs[1] < errs[0]:
@@ -2365,12 +2439,12 @@ def _hold_driver_select(torch, coreset, label):
                       scale=lambda a, f: _f32_scale(torch, a, f))
 
 
-def _exp_logistic(gs, ps):
-    """logistic_poisson GIGA-OPT at the reference's logistic settings."""
+@contextlib.contextmanager
+def _logistic_data():
+    """A temporary working directory with phase 18's logistic data, read
+    through BC_DATA_DIR: the logistic runs share it, and the full-data
+    chains that the first run caches in it."""
     import numpy as np
-    from bayesian_coresets_tpu_torch.experiments import logistic_poisson, results
-    from bayesian_coresets_tpu_torch.ops import snnls
-
     with _in_temp_dir() as tmp:
         rng = np.random.default_rng(EXP_SEED)
         X = np.hstack([rng.normal(size=(EXP_N, EXP_D - 1)), np.ones((EXP_N, 1))])
@@ -2381,19 +2455,29 @@ def _exp_logistic(gs, ps):
         prev = os.environ.get("BC_DATA_DIR")
         os.environ["BC_DATA_DIR"] = str(tmp / "data")
         try:
-            gs.launches = ps.launches = snnls.itrs_run = 0
-            caps0, cap_s0 = _graph_counts()
-            t0 = time.perf_counter()
-            info = logistic_poisson.main(["run"] + EXP_LP_ARGV)
-            t = time.perf_counter() - t0
-            launches, packed, ran = gs.launches, ps.launches, snnls.itrs_run
-            caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
+            yield tmp
         finally:
             if prev is None:
                 del os.environ["BC_DATA_DIR"]
             else:
                 os.environ["BC_DATA_DIR"] = prev
-        table = results.load_matching({}, folder="results/")
+
+
+def _exp_logistic(gs, ps):
+    """logistic_poisson GIGA-OPT at the reference's logistic settings (in
+    ``_logistic_data``'s directory)."""
+    import numpy as np
+    from bayesian_coresets_tpu_torch.experiments import logistic_poisson, results
+    from bayesian_coresets_tpu_torch.ops import snnls
+
+    gs.launches = ps.launches = snnls.itrs_run = 0
+    caps0, cap_s0 = _graph_counts()
+    t0 = time.perf_counter()
+    info = logistic_poisson.main(["run"] + EXP_LP_ARGV)
+    t = time.perf_counter() - t0
+    launches, packed, ran = gs.launches, ps.launches, snnls.itrs_run
+    caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
+    table = results.load_matching({"alg": "GIGA-OPT"}, folder="results/")
     coreset = info["coreset"]
     itr = int(coreset.snnls.state.itr)
     wts, _, _ = coreset.get()
@@ -2427,6 +2511,108 @@ def _exp_logistic(gs, ps):
     if not (np.isfinite(wts).all() and (wts > 0).all()):
         raise AssertionError(f"logistic_poisson: weights not finite and positive: {wts}")
     return launches
+
+
+@contextlib.contextmanager
+def _adam_reads(torch):
+    """Counts the host reads made inside ``nn_opt``'s segments while the
+    block runs, and the Adam steps they ran directly (a replayed segment
+    runs no Python and cannot read; a capture raises on a read)."""
+    import collections
+    import warnings
+    from bayesian_coresets_tpu_torch.ops import opt
+
+    seg = opt._segment
+    counts = {"reads": 0, "direct_steps": 0, "sites": collections.Counter()}
+
+    def counted(grad_fn, gen, hyper, n, s, p):
+        if torch.cuda.is_current_stream_capturing():
+            return seg(grad_fn, gen, hyper, n, s, p)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = seg(grad_fn, gen, hyper, n, s, p)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        for w in caught:
+            if "called a synchronizing CUDA operation" in str(w.message):
+                counts["reads"] += 1
+                counts["sites"][f"{Path(w.filename).name}:{w.lineno}"] += 1
+        counts["direct_steps"] += n
+        return out
+
+    opt._segment = counted
+    try:
+        yield counts
+    finally:
+        opt._segment = seg
+
+
+def _exp_logistic_adam(torch, alg):
+    """logistic_poisson ``--alg SVI`` or ``BPSVI`` at the reference's
+    logistic settings, in ``_logistic_data``'s directory (whose full-data
+    chains the GIGA-OPT run cached), with the sizes cut (each SparseVI
+    select and each BatchPSVI size is 100 Adam steps)."""
+    import numpy as np
+    from bayesian_coresets_tpu_torch.experiments import logistic_poisson, results
+    from bayesian_coresets_tpu_torch.ops import opt
+
+    argv = list(EXP_LP_ARGV)
+    for flag, v in (("--alg", alg), ("--coreset_size_max", str(EXP_ADAM_M)),
+                    ("--coreset_num_sizes", str(EXP_ADAM_SIZES))):
+        argv[argv.index(flag) + 1] = v
+    opt.steps_run = 0
+    caps0, cap_s0 = _graph_counts()
+    inst0 = _instantiate_s()
+    t0 = time.perf_counter()
+    with _adam_reads(torch) as reads:
+        info = logistic_poisson.main(["run"] + argv)
+    t = time.perf_counter() - t0
+    steps = opt.steps_run
+    caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
+    table = results.load_matching({"alg": alg}, folder="results/")
+    wts, _, _ = info["coreset"].get()
+    sec = info["seconds"]
+    name = f"logistic_poisson_{alg}"
+    _finite_columns(table, name)
+    rkl = table["rklw"]
+    Ms = [int(m) for m in table["Ms"]]
+    want = (Ms[-1] if alg == "SVI" else len(Ms)) * EXP_ADAM_OPT    # selects; builds
+    say("experiments", driver=name, seconds=f"{t:.3f}", N=EXP_N, D=EXP_D,
+        Ms=",".join(map(str, Ms)), adam_steps=steps,
+        adam_steps_direct=reads["direct_steps"],
+        build_us_per_adam_step=f"{1e6 * sec['build'] / max(steps, 1):.2f}",
+        host_reads_in_adam_steps=reads["reads"],
+        host_reads_per_adam_step=f"{reads['reads'] / max(steps, 1):.4f}",
+        read_sites=",".join(f"{k}*{v}" for k, v in reads["sites"].items()) or "none",
+        graphs_captured=caps, capture_s=f"{cap_s:.3f}",
+        instantiate_s=f"{_instantiate_s() - inst0:.3f}", segment=opt.SEGMENT,
+        rklw=",".join(f"{v:.5g}" for v in rkl),
+        csizes=",".join(str(int(c)) for c in table["csizes"]),
+        **{f"{k}_at_Mmax": f"{float(table[k][-1]):.6g}"
+           for k in ("fklw", "mu_errs", "Sig_errs", "Fs", "rhats", "esses")},
+        dense_retries=info["dense_retries"], max_weight=f"{wts.max():.6g}",
+        build_share=f"{sec['build'] / t:.4f}",
+        nuts_share=f"{(sec['full_nuts'] + sec['coreset_nuts']) / t:.4f}",
+        **{f"{k}_s": f"{v:.3f}" for k, v in sec.items()},
+        reduced=f"coreset_size_max:1000->{EXP_ADAM_M},coreset_num_sizes:7->{EXP_ADAM_SIZES},"
+                f"mcmc_samples_full:10000->{EXP_MCMC},mcmc_samples_coreset:10000->{EXP_MCMC}")
+    if steps != want:
+        raise AssertionError(f"{name}: {steps} Adam steps, expected {want}")
+    if reads["reads"]:
+        raise AssertionError(f"{name}: {reads['reads']} host reads in the Adam steps "
+                             f"({dict(reads['sites'])})")
+    if not caps:
+        raise AssertionError(f"{name}: no graph was captured: the Adam steps did not replay")
+    if not (table["csizes"] > 0).all():
+        raise AssertionError(f"{name}: empty coresets {table['csizes']}")
+    if not (np.isfinite(wts).all() and (wts >= 0).all() and wts.size):
+        raise AssertionError(f"{name}: weights not finite and nonnegative: {wts}")
+    if alg == "SVI" and not rkl[-1] < rkl[0]:
+        raise AssertionError(f"{name}: rKL at M_max {rkl[-1]} not below {rkl[0]}")
+    if not np.isfinite(rkl).all():
+        raise AssertionError(f"{name}: rKL not finite: {rkl}")
 
 
 def _exp_simple_lr(gs):
@@ -2601,7 +2787,13 @@ def phase_experiments(torch, smi):
     from bayesian_coresets_tpu_torch.ops import packed_select as ps
 
     say("experiments", start="phase 18", card=repr(smi))
-    total = _exp_logistic(gs, ps)
+    with _logistic_data():
+        total = _exp_logistic(gs, ps)
+        before = gs.launches
+        for alg in ("SVI", "BPSVI"):
+            _exp_logistic_adam(torch, alg)
+        if gs.launches != before or ps.launches:
+            raise AssertionError("logistic SVI or BPSVI launched a select kernel")
     total += _exp_simple_lr(gs)
     lr_launches, lr_err = _exp_linear_regression(gs)
     sv_launches, sv_err = _exp_synthetic_vectors(gs)

@@ -15,7 +15,11 @@ summed dots) against their plain versions and against the fused select;
 rows of 4-48 KB (past the ring kernel's limit) through the select and its
 dots-only mode at every dtype, and the score kernel at row counts off its
 block and grid, on views off 16-byte alignment, with ties at the first
-and last rows and 100 calls back to back.
+and last rows and 100 calls back to back; builds, NUTS and SparseVI's and
+BatchPSVI's Adam steps replayed as CUDA graphs against their direct runs,
+bit for bit (the Adam steps on the exact, basis, logistic warm-Laplace and
+linear-regression black-box families, tails, resumed builds), a capture
+that raises on a host read, and posterior refits that read nothing.
 
 Every test here needs a card and skips without one.  This file imports no
 JAX, so it also runs where JAX is absent; there, skip the JAX conftest:
@@ -628,23 +632,35 @@ def test_bpsvi_joint_step_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_svi_and_bpsvi_builds_stay_on_the_card(cuda_device):
+@pytest.mark.parametrize("kind", ["basis", "logistic"])
+def test_svi_and_bpsvi_builds_stay_on_the_card(kind, cuda_device):
     """No Adam step reads back: an SVI build reads one flag per select and
-    nothing else, a BPSVI build nothing at all."""
-    x = torch.as_tensor((1.0 + np.random.default_rng(2).normal(size=(500, 5))).astype(np.float32))
-    x = x.to(cuda_device)
-    fam = _bb_family(cuda_device, 5)
+    nothing else, a BPSVI build nothing at all, directly (``graphs=False``)
+    and replayed (after a first build has captured the graphs: a capture
+    synchronizes), for the Gaussian basis sampler and the logistic
+    driver's warm Laplace refit (its Cholesky factors read nothing)."""
+    if kind == "basis":
+        x = torch.as_tensor((1.0 + np.random.default_rng(2).normal(size=(500, 5)))
+                            .astype(np.float32)).to(cuda_device)
+        fam = _bb_family(cuda_device, 5)
+    else:
+        x, fam = _logistic_problem(cuda_device, n=500)
     w0 = torch.zeros(16, device=cuda_device)
     i0 = torch.full((16,), -1, dtype=torch.int64, device=cuda_device)
-    (w, i, size), syncs = _syncs(lambda: sparsevi.svi_build(
-        x, w0, i0, 0, torch.Generator(device=cuda_device), 6, family=fam, n_sub_sel=128,
-        n_sub_opt=128, opt_itrs=15, step_sched=lambda i: 1.0 / (1.0 + i)))
+    gen = torch.Generator(device=cuda_device)
+    for graphs in (False, None, None):
+        (w, i, size), syncs = _syncs(lambda: sparsevi.svi_build(
+            x, w0, i0, 0, gen, 6, family=fam, n_sub_sel=128, n_sub_opt=128, opt_itrs=15,
+            step_sched=lambda i: 1.0 / (1.0 + i), graphs=graphs))
     assert w.is_cuda and i.is_cuda and 0 < size <= 6
     assert len(syncs) == 6 and all("coresets/sparsevi.py" in s for s in syncs), syncs
     init = bpsvi.uniform_init_idcs(500, 8, torch.Generator(device=cuda_device))
-    (w, p), syncs = _syncs(lambda: bpsvi.bpsvi_build(
-        x, init, torch.Generator(device=cuda_device), family=fam, n_sub_opt=128,
-        opt_itrs=25, step_sched=lambda i: 1.0 / (1.0 + i)))
+    for graphs in (False, None, None, None):
+        (w, p), syncs = _syncs(lambda: bpsvi.bpsvi_build(
+            x, init, gen, family=fam, n_sub_opt=128, opt_itrs=25,
+            step_sched=lambda i: 1.0 / (1.0 + i), graphs=graphs))
+        if graphs is False:
+            assert syncs == []
     assert w.is_cuda and p.is_cuda and syncs == []
 
 
@@ -1535,3 +1551,263 @@ def test_replayed_weighted_run_on_the_main_coreset(cuda_device):
     _same_tensors(rep[0], ref[0])
     _same_tensors(rep[2], ref[2])
     assert torch.equal(g1, g2)
+
+
+# ---------------------------------------------------------------------------
+# SparseVI's and BatchPSVI's Adam steps as replayed CUDA graphs (ops/opt.py)
+# ---------------------------------------------------------------------------
+
+
+def _logistic_problem(dev, n=2000, d=6, S=64):
+    """Logistic data and the logistic_poisson driver's black-box family
+    with its warm Laplace refit (``laplace_refits``)."""
+    from bayesian_coresets_tpu_torch.experiments.logistic_poisson import laplace_refits
+    from bayesian_coresets_tpu_torch.models import logistic
+    Z = logistic.gen_synthetic(torch.Generator(device=dev).manual_seed(5), n, d)
+    sampler, warm, init = laplace_refits(logistic, d, dev)
+    fam = bc.coresets.blackbox_family(sampler, S, logistic.log_likelihood,
+                                      logistic.grad_z_log_likelihood, warm_sampler=warm,
+                                      init_carry=init)
+    return Z, fam
+
+
+def _linreg_blackbox(dev):
+    """The linear_regression driver's black-box family: samples of the
+    QR refit of the coreset's weighted posterior."""
+    from bayesian_coresets_tpu_torch.models import linreg
+    z, _ = _linreg_exact(dev)
+    d = z.shape[1] - 1
+    mu0, S0 = torch.zeros(d, device=dev), torch.eye(d, device=dev)
+
+    def sampler(g, n, w, p):
+        if p.numel() == 0:
+            w, p = torch.zeros(1, device=dev), torch.zeros((1, d + 1), device=dev)
+        return linreg.sample_weighted_post(g, mu0, S0, 0.7, p, w, n)
+
+    return z, bc.coresets.blackbox_family(sampler, 32, lambda p, th: linreg.log_likelihood(
+        p, th, 0.7), lambda p, th: linreg.grad_x_log_likelihood(p, th, 0.7))
+
+
+def _svi_family(kind, dev):
+    if kind == "exact":
+        return _svi_problem(dev)
+    if kind == "basis":
+        return _svi_problem(dev)[0], _bb_family(dev, 12)
+    if kind == "linreg":
+        return _linreg_blackbox(dev)
+    return _logistic_problem(dev)
+
+
+def _same_tensors_bits(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["exact", "basis", "logistic", "linreg"])
+def test_svi_replayed_equals_direct(kind, cuda_device):
+    """SparseVI through replayed graphs (segments of 10 of 23 steps: two
+    whole ones and a tail of 3) against ``graphs=False``: weights, indices,
+    size, points and the generator's state bit for bit, after a build from
+    empty, a build resumed from that coreset and ``optimize()``; the
+    second build replays the first's graphs."""
+    from bayesian_coresets_tpu_torch.ops import graphs
+    x, fam = _svi_family(kind, cuda_device)
+    out = {}
+    for mode in (False, None):
+        c = bc.SparseVICoreset(x, fam, opt_itrs=23, capacity=16, seed=3, graphs=mode,
+                               segment=10, n_subsample_select=256, n_subsample_opt=256)
+        steps = []
+        for act in (lambda: c.build(4), lambda: c.build(3), c.optimize):
+            caps = graphs.captures
+            act()
+            steps.append((c._wts.clone(), c._idcs.clone(), c._size, c._gen.get_state(),
+                          graphs.captures - caps))
+        out[mode] = steps, c.get()
+    (ref, (rw, rp, ri)), (rep, (w, p, i)) = out[False], out[None]
+    for a, b in zip(rep, ref):
+        _same_tensors_bits(a[0], b[0])
+        assert torch.equal(a[1], b[1]) and a[2] == b[2] and torch.equal(a[3], b[3])
+    assert [r[4] for r in ref] == [0, 0, 0]
+    assert rep[0][4] >= 1 and rep[1][4] == 0 and rep[2][4] == 0
+    assert np.array_equal(w.view(np.int32), rw.view(np.int32)) and np.array_equal(i, ri)
+    assert np.array_equal(np.asarray(p, np.float32).view(np.int32),
+                          np.asarray(rp, np.float32).view(np.int32))
+    assert 3 <= ri.size <= 7 and np.isfinite(rw).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["basis", "logistic"])
+def test_bpsvi_replayed_equals_direct(kind, cuda_device):
+    """BatchPSVI through replayed graphs (segments of 10 of 23 steps)
+    against ``graphs=False``, three times on one facade (the first build
+    captures the whole segment, the second the tail, the third replays
+    only): weights, points and the generator's state bit for bit."""
+    from bayesian_coresets_tpu_torch.ops import graphs
+    x, fam = (_svi_problem(cuda_device)[0], _bb_family(cuda_device, 12)) if kind == "basis" \
+        else _logistic_problem(cuda_device)
+    out = {}
+    for mode in (False, None):
+        c = bc.BatchPSVICoreset(x, fam, opt_itrs=23, n_subsample_opt=256, seed=2,
+                                graphs=mode, segment=10)
+        runs = []
+        for _ in range(3):
+            caps = graphs.captures
+            c.build(6)
+            runs.append((c.wts, c.pts, c._gen.get_state(), graphs.captures - caps))
+        out[mode] = runs
+    for a, b in zip(out[None], out[False]):
+        assert np.array_equal(a[0].view(np.int32), b[0].view(np.int32))
+        assert np.array_equal(a[1].view(np.int32), b[1].view(np.int32))
+        assert torch.equal(a[2], b[2])
+    assert [r[3] for r in out[None]] == [1, 1, 0] and [r[3] for r in out[False]] == [0, 0, 0]
+    assert np.isfinite(out[None][2][0]).all() and (out[None][2][0] >= 0).all()
+
+
+@pytest.mark.cuda
+def test_nn_opt_segments_replayed_equal_direct(cuda_device):
+    """nn_opt alone, uncached: every segment length replayed against the
+    direct steps, bit for bit, with a carried state and fresh draws."""
+    t = torch.as_tensor(np.random.default_rng(3).normal(size=64).astype(np.float32),
+                        device=cuda_device)
+
+    def grad_fn(x, g, aux):
+        return x - t + 0.1 * torch.randn(x.shape, generator=g, device=g.device), aux + x
+
+    def run(graphs, segment):
+        gen = torch.Generator(device=cuda_device).manual_seed(1)
+        x, aux = nn_opt(torch.zeros(64, device=cuda_device), grad_fn, gen, opt_itrs=37,
+                        aux0=torch.zeros(64, device=cuda_device), graphs=graphs,
+                        segment=segment)
+        return x, aux, gen.get_state()
+
+    ref = run(False, 1)
+    for segment in (1, 5, 10, 37, 50):
+        x, aux, st = run(None, segment)
+        _same_tensors_bits(x, ref[0])
+        _same_tensors_bits(aux, ref[1])
+        assert torch.equal(st, ref[2])
+
+
+_EIGH_CAPTURE = """
+import sys
+import torch
+sys.path.insert(0, "tests")
+from test_torch_cuda import _linreg_exact
+from bayesian_coresets_tpu_torch.coresets import sparsevi
+dev = torch.device("cuda")
+x, fam = _linreg_exact(dev)
+try:                                    # 4 slots <= d = 6: the low-rank refit
+    sparsevi.svi_build(x, torch.zeros(4, device=dev),
+                       torch.full((4,), -1, dtype=torch.int64, device=dev), 0,
+                       torch.Generator(device=dev), 2, family=fam, n_sub_sel=None,
+                       n_sub_opt=None, opt_itrs=20, step_sched=lambda i: 1.0 / (1.0 + i),
+                       segment=5)
+except RuntimeError as e:
+    print("capture raised:", str(e)[:200])
+    sys.exit(3)
+"""
+
+
+@pytest.mark.cuda
+def test_a_failed_adam_capture_raises(cuda_device):
+    """No fallback: a gradient that reads the host runs its first segment
+    (the warm-up) and raises at its capture; the linear-regression exact
+    family's low-rank refit (an eigh) is such a family, which runs with
+    graphs=False.  Its capture runs in a process of its own: a cuSOLVER
+    call that failed inside a capture leaves the process's handle
+    unusable (CUSOLVER_STATUS_EXECUTION_FAILED at the next eigh)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    t = torch.ones(8, device=cuda_device)
+
+    def grad_fn(x, g):
+        return x - t * float(x.sum() > -1.0)
+
+    with pytest.raises(RuntimeError):
+        nn_opt(torch.zeros(8, device=cuda_device), grad_fn,
+               torch.Generator(device=cuda_device), opt_itrs=20, segment=5)
+    with pytest.raises(ValueError, match="graphs=False"):
+        nn_opt(torch.zeros(8), grad_fn, torch.Generator(), opt_itrs=4, graphs=True)
+    with pytest.raises(ValueError, match="torch.Generator"):
+        nn_opt(torch.zeros(8, device=cuda_device), grad_fn, torch.Generator(), opt_itrs=4)
+    r = subprocess.run([sys.executable, "-c", _EIGH_CAPTURE], capture_output=True, text=True,
+                       cwd=Path(__file__).resolve().parents[1], timeout=300)
+    assert r.returncode == 3 and "capture raised" in r.stdout, r.stdout + r.stderr[-2000:]
+
+
+def _linreg_exact(dev, n=400, d=6):
+    from bayesian_coresets_tpu_torch.models import linreg
+    rng = np.random.default_rng(8)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = (X @ np.arange(1, d + 1) + rng.normal(size=n)).astype(np.float32)
+    z = torch.as_tensor(np.hstack([X, y[:, None]]), device=dev)
+    bV = torch.linalg.eigh(z[:, :-1].T @ z[:, :-1])[1][:, -3:].contiguous()
+    return z, bc.linreg_tangent_family(torch.zeros(d, device=dev), torch.eye(d, device=dev),
+                                       1.0, bV)
+
+
+@pytest.mark.cuda
+def test_linreg_exact_svi_reads_only_its_eigh(cuda_device):
+    """The linear-regression exact family's low-rank refit runs directly
+    (``linear_regression --alg SVI-EXACT`` passes graphs=False): its host
+    reads are the select's one flag per select and the refit's eigh, one
+    set per context refit (the select's and every Adam step's)."""
+    from bayesian_coresets_tpu_torch.models import linreg
+    x, fam = _linreg_exact(cuda_device)
+    selects, steps = 3, 7
+    (w, i, size), syncs = _syncs(lambda: sparsevi.svi_build(      # 4 slots <= d = 6
+        x, torch.zeros(4, device=cuda_device),
+        torch.full((4,), -1, dtype=torch.int64, device=cuda_device), 0,
+        torch.Generator(device=cuda_device), selects, family=fam, n_sub_sel=None,
+        n_sub_opt=None, opt_itrs=steps, step_sched=lambda i: 1.0 / (1.0 + i), graphs=False))
+    assert 0 < size <= selects and bool(torch.isfinite(w).all())
+    import inspect
+    src, first = inspect.getsourcelines(linreg.weighted_post_lowrank)
+    eigh = first + next(k for k, line in enumerate(src) if "torch.linalg.eigh" in line)
+    flag = [s for s in syncs if "coresets/sparsevi.py" in s]
+    refit = [s for s in syncs if s.endswith(f"models/linreg.py:{eigh}")]
+    assert len(flag) == selects and len(flag) + len(refit) == len(syncs), syncs
+    refits = selects * (1 + steps)      # a cold family: each select's and each step's
+    assert refit and len(refit) % refits == 0, (len(refit), refits)
+
+
+@pytest.mark.cuda
+def test_refits_read_nothing_on_the_card(cuda_device):
+    """The posterior refits on SparseVI's and BatchPSVI's steps make no
+    synchronizing call (sync debug mode "error"), after a first call has
+    made cuSOLVER's handle; a factor that fails is NaN, as on the CPU."""
+    from bayesian_coresets_tpu_torch.models import laplace, linreg, logistic
+    dev = cuda_device
+    rng = np.random.default_rng(9)
+    z = torch.as_tensor(rng.normal(size=(50, 4)).astype(np.float32), device=dev)
+    w = torch.as_tensor(rng.uniform(0.5, 2.0, size=50).astype(np.float32), device=dev)
+    eye = torch.eye(4, device=dev)
+    g = torch.Generator(device=dev)
+    calls = {
+        "laplace": lambda: laplace.laplace_approx(z, w, torch.zeros(4, device=dev),
+                                                  logistic.grad_th_log_joint,
+                                                  logistic.hess_th_log_joint, num_iters=3),
+        "gaussian_post": lambda: gaussian.weighted_post(torch.zeros(4, device=dev), eye, eye,
+                                                        z, w),
+        "gaussian_sample": lambda: gaussian.sample_weighted_post(
+            g, torch.zeros(4, device=dev), eye, eye, z, w, 16),
+        "linreg_post": lambda: linreg.weighted_post(torch.zeros(3, device=dev), eye[:3, :3],
+                                                    1.0, z, w),
+        "linreg_sample": lambda: linreg.sample_weighted_post(
+            g, torch.zeros(3, device=dev), eye[:3, :3], 1.0, z, w, 16),
+    }
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    bad = laplace.laplace_approx(z, w, torch.zeros(4, device=dev), logistic.grad_th_log_joint,
+                                 lambda z, th, w: -logistic.hess_th_log_joint(z, th, w))
+    assert bool(torch.isnan(bad.mu).all()) and bool(torch.isnan(bad.USig).all())
