@@ -29,6 +29,13 @@ from . import results
 from .cli import (SELECT_DTYPES, coreset_size_grid, data_mesh, dispatch, make_parser, rank0,
                   step_sched, to_numpy)
 
+
+def realistic_subsample(gen: torch.Generator, N: int) -> torch.Tensor:
+    """The realistic projector's rows: sqrt(N) indices drawn with
+    replacement on ``gen``'s device (reference gaussian/main.py:96-113)."""
+    return torch.randint(0, N, (int(np.sqrt(N)),), generator=gen, device=gen.device)
+
+
 def run(arguments):
     """Returns the coreset built (None when the results already exist)."""
     mesh = data_mesh(arguments, "gaussian")
@@ -67,7 +74,7 @@ def run(arguments):
         return gaussian.sample_weighted_post(gen, mu0, Sig0inv, Siginv, x, ones, n)
 
     ghat = prng.fold_seed(arguments.trial, 1, device=dev)
-    xhat = x[torch.randint(0, N, (int(np.sqrt(N)),), generator=ghat, device=dev)]
+    xhat = x[realistic_subsample(ghat, N).to(dev)]
 
     def sampler_realistic(gen, n, wts, pts):
         return gaussian.sample_weighted_post(gen, mu0, Sig0inv, Siginv, xhat,

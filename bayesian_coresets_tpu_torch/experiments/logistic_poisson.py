@@ -227,7 +227,8 @@ def run(arguments):
     sampler_bb, sampler_bb_warm, init_carry_bb = laplace_refits(model, dth, dev)
 
     def projector(sampler, warm=False):
-        kw = (dict(grad_loglikelihood=model.grad_z_log_likelihood,
+        # the gradient with respect to the whole row, which BatchPSVI moves
+        kw = (dict(grad_loglikelihood=model.grad_row_log_likelihood,
                    warm_sampler=sampler_bb_warm, init_carry=init_carry_bb) if warm else {})
         return bc.BlackBoxProjector(sampler, S, model.log_likelihood,
                                     generator=prng.fold_seed(arguments.trial, 2, device=dev),

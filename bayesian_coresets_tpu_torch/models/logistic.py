@@ -95,6 +95,10 @@ def grad_z_log_likelihood(z: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
     return s[:, :, None] * _atleast_2d(th)[None, :, :]
 
 
+# the whole row is the (folded) datapoint, which BatchPSVI moves
+grad_row_log_likelihood = grad_z_log_likelihood
+
+
 def grad_th_log_prior(th: torch.Tensor) -> torch.Tensor:
     return -_atleast_2d(th)
 

@@ -107,6 +107,16 @@ def grad_z_log_likelihood(z: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
     return g[:, :, None] * _atleast_2d(th)[None, :, :]
 
 
+def grad_row_log_likelihood(z: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
+    """(n, S, d+1) gradient with respect to the whole row z = [x, y]: the
+    covariates' (``grad_z_log_likelihood``), then 0 for the count, which a
+    pseudo-point keeps.  BatchPSVI moves rows of z, and
+    ``grad_z_log_likelihood``'s d columns do not cover them (ROADMAP Queue
+    3 (m))."""
+    g = grad_z_log_likelihood(z, th)
+    return torch.cat([g, torch.zeros_like(g[:, :, :1])], dim=2)
+
+
 def grad_th_log_prior(th: torch.Tensor) -> torch.Tensor:
     return -_atleast_2d(th)
 

@@ -172,9 +172,20 @@ script exits non-zero without printing the final result line):
    ``reduced=``; checked for finite columns, nonempty coresets, finite
    nonnegative weights, finite rKL, and for SVI rKL at M_max below rKL at
    the first size;
+   then there ``--alg GIGA-REAL`` and ``--alg US``;
    ``simple_lr`` at its defaults; ``linear_regression --alg GIGA-OPT-EXACT``
    at its defaults on the card and with ``--device cpu``, held together;
-   ``synthetic_vectors`` at its defaults with GIGA and FW, and OMP at M=100.
+   ``synthetic_vectors`` at its defaults with GIGA and FW, OMP at M=100, and
+   US; ``linear_regression``'s SVI and SVI-EXACT (sizes cut to EXP_LR_SVI_M;
+   the exact family's Adam steps run directly, their host reads counted per
+   step), GIGA-OPT, GIGA-REAL, GIGA-REAL-EXACT (card against CPU) and US;
+   the Gaussian experiment's eight algorithms at its defaults, its two
+   exact-family GIGA runs on CPU-drawn data and subsample, card against
+   CPU; ``logistic_poisson --model poiss`` on N=100k Poisson rows made from
+   a seed (and a held-out set): GIGA-OPT, GIGA-REAL, US, then SVI and
+   BPSVI at sizes 1 and 10.  Every run with a select copy holds kernel 1 to
+   its plain version on it; every replayed Adam run makes no host read in
+   its Adam steps; sampled runs' rKL falls with M (not BatchPSVI's).
    One ``[experiments]`` line per driver (seconds, select launches,
    iterations, metrics at M_max, the split of logistic_poisson's time,
    the graphs captured and their capture seconds, ``reduced=``;
@@ -350,6 +361,45 @@ EXP_LR_TAIL = {"rklw": 50.0, "fklw": 50.0, "mu_errs": 0.5, "Sig_errs": 0.25}
 # rounding noise, and each run's error at M_max is held to its error at the
 # last size below data_dim
 EXP_SV_RTOL, EXP_SV_ATOL = 1e-4, 1e-6
+# phase 18's other configurations: every algorithm of each driver that the
+# runs above leave out, at the drivers' defaults but for the cuts that each
+# [experiments] line lists in reduced=.  The Gaussian experiment
+# (examples/gaussian/main.py's defaults): N=1000, d=200, proj_dim 100, M up to
+# 200 over 7 sizes, 100 Adam steps per SparseVI select or BatchPSVI size
+EXP_G_N, EXP_G_D, EXP_G_PROJ, EXP_G_M = 1000, 200, 100, 200
+# its exact-family GIGA runs, card against CPU on the same CPU-drawn data and
+# subsample (the driver draws both on its device): EXP_LR_RTOL below
+# proj_dim, and each run's metrics at M_max within these bounds, 6.8-7.8x the
+# larger of the two runs' values on a CPU (GIGA-REAL-EXACT's rKL 6.52, fKL
+# 6.37, mean error 0.0080; GIGA-OPT-EXACT's covariance error 0.037)
+EXP_G_TAIL = {"rklw": 50.0, "fklw": 50.0, "mu_errs": 0.05, "Sig_errs": 0.25}
+EXP_G_EXACT = ("GIGA-OPT-EXACT", "GIGA-REAL-EXACT")
+# linear_regression SVI and SVI-EXACT: 100 Adam steps per select over all
+# N=10000 rows, so M is cut (300 -> EXP_LR_SVI_M, its sizes to
+# EXP_LR_SVI_SIZES; the exact family's steps run directly, its eigh read)
+EXP_LR_SVI_M, EXP_LR_SVI_SIZES = 30, 4
+# linear_regression GIGA-REAL-EXACT, card against CPU as GIGA-OPT-EXACT
+# above; its tail bounds are 10-14x its values at M_max on a CPU (rKL 3.5e5,
+# fKL 3524, mean error 2.39, covariance error 0.22: the exact family fit to
+# the realistic subsample's 100 rows)
+EXP_LR_REAL_TAIL = {"rklw": 5e6, "fklw": 5e4, "mu_errs": 25.0, "Sig_errs": 2.5}
+# logistic_poisson --model poiss: N=EXP_N training rows and EXP_POIS_NT held
+# out (_poisson_data), the runs of EXP_LP_ARGV; SVI and BPSVI at sizes 1, 10
+EXP_LP_DATASETS = {"lr": "synth_lr_N100k", "poiss": "synth_poiss_N100k"}
+EXP_POIS_NT = 10_000
+EXP_POIS_ADAM_M, EXP_POIS_ADAM_SIZES = 10, 2
+# sampled runs draw their own numbers on the card, so they are held on the
+# quality that the reference's figures show, rKL falling with M: at M_max
+# below EXP_RKL_FALL x the first size's for logistic_poisson (its first size
+# is one atom and its rKL comes from 400 NUTS draws: SparseVI at sizes 1 and
+# 10 fell to 0.21 of it on an H100 with --model poiss, and to 0.53 on a CPU
+# with the logistic model at N=20k, so only the fall itself is held), and
+# below EXP_RKL_FALL_CLOSED x the first size's for the closed-form drivers
+# (their first size is the empty coreset) and for synthetic_vectors' error
+# (the largest ratios on an H100: 0.032, synthetic_vectors US; 0.0097, the
+# Gaussian GIGA-OPT); BatchPSVI rebuilds at each size and is held to finite
+# values only
+EXP_RKL_FALL, EXP_RKL_FALL_CLOSED = 1.0, 0.1
 # phase 19: the sharded paths on the one card.  (a) a 1-rank NCCL group at
 # phase 6's config; (b) two gloo ranks: build_sharded on phase 6's
 # projection, the N=1M stream of phase 16 (its chunk), and weighted NUTS on
@@ -2440,18 +2490,14 @@ def _hold_driver_select(torch, coreset, label):
 
 
 @contextlib.contextmanager
-def _logistic_data():
-    """A temporary working directory with phase 18's logistic data, read
-    through BC_DATA_DIR: the logistic runs share it, and the full-data
-    chains that the first run caches in it."""
+def _data_dir(name, **arrays):
+    """A temporary working directory whose ``data/name.npz`` holds
+    ``arrays``, read through BC_DATA_DIR: the runs of one dataset share it,
+    and the full-data chains that the first run caches in it."""
     import numpy as np
     with _in_temp_dir() as tmp:
-        rng = np.random.default_rng(EXP_SEED)
-        X = np.hstack([rng.normal(size=(EXP_N, EXP_D - 1)), np.ones((EXP_N, 1))])
-        y = np.where(rng.uniform(size=EXP_N) < 1.0 / (1.0 + np.exp(-X @ np.ones(EXP_D))),
-                     1.0, -1.0)
         (tmp / "data").mkdir()
-        np.savez(tmp / "data" / "synth_lr_N100k.npz", X=X, y=y)
+        np.savez(tmp / "data" / f"{name}.npz", **arrays)
         prev = os.environ.get("BC_DATA_DIR")
         os.environ["BC_DATA_DIR"] = str(tmp / "data")
         try:
@@ -2463,54 +2509,99 @@ def _logistic_data():
                 os.environ["BC_DATA_DIR"] = prev
 
 
-def _exp_logistic(gs, ps):
-    """logistic_poisson GIGA-OPT at the reference's logistic settings (in
-    ``_logistic_data``'s directory)."""
+def _logistic_data():
+    """``_data_dir`` with phase 18's logistic data."""
     import numpy as np
-    from bayesian_coresets_tpu_torch.experiments import logistic_poisson, results
-    from bayesian_coresets_tpu_torch.ops import snnls
+    rng = np.random.default_rng(EXP_SEED)
+    X = np.hstack([rng.normal(size=(EXP_N, EXP_D - 1)), np.ones((EXP_N, 1))])
+    y = np.where(rng.uniform(size=EXP_N) < 1.0 / (1.0 + np.exp(-X @ np.ones(EXP_D))),
+                 1.0, -1.0)
+    return _data_dir("synth_lr_N100k", X=X, y=y)
 
-    gs.launches = ps.launches = snnls.itrs_run = 0
-    caps0, cap_s0 = _graph_counts()
-    t0 = time.perf_counter()
-    info = logistic_poisson.main(["run"] + EXP_LP_ARGV)
-    t = time.perf_counter() - t0
-    launches, packed, ran = gs.launches, ps.launches, snnls.itrs_run
-    caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
-    table = results.load_matching({"alg": "GIGA-OPT"}, folder="results/")
+
+def _poisson_data():
+    """``_data_dir`` with phase 18's Poisson data: EXP_N training rows and
+    EXP_POIS_NT held out, EXP_D columns (N(0, 1) covariates, the intercept
+    last) and counts from the model's link, y ~ Poisson(softplus(x . theta))
+    (models/poisson.py::gen_synthetic), theta spreading gen_synthetic's unit
+    slope over the covariates (x . theta ~ N(0, 1)) with intercept 0."""
+    import numpy as np
+    rng = np.random.default_rng(EXP_SEED + 1)
+    theta = np.append(np.full(EXP_D - 1, (EXP_D - 1) ** -0.5), 0.0)
+
+    def rows(n):
+        X = np.hstack([rng.normal(size=(n, EXP_D - 1)), np.ones((n, 1))])
+        return X, rng.poisson(np.logaddexp(0.0, X @ theta)).astype(np.float64)
+
+    (X, y), (Xt, yt) = rows(EXP_N), rows(EXP_POIS_NT)
+    return _data_dir("synth_poiss_N100k", X=X, y=y, Xt=Xt, yt=yt)
+
+
+def _lp_argv(model, **flags):
+    """EXP_LP_ARGV for ``--model model`` (its dataset) with ``flags`` set."""
+    argv = list(EXP_LP_ARGV)
+    flags = {"model": model, "dataset": EXP_LP_DATASETS[model], **flags}
+    for k, v in flags.items():
+        argv[argv.index(f"--{k}") + 1] = str(v)
+    return argv
+
+
+def _exp_logistic(torch, gs, alg="GIGA-OPT", model="lr"):
+    """logistic_poisson ``--alg alg`` (GIGA-OPT, GIGA-REAL or US) at the
+    reference's logistic settings, in the directory of ``model``'s data
+    (``_logistic_data``, ``_poisson_data``; the first run there caches the
+    full-data chains).  Returns (select launches, the score error of kernel
+    1 held on the run's select copy; 0.0 for US)."""
+    import numpy as np
+    from bayesian_coresets_tpu_torch.experiments import logistic_poisson
+
+    name = "logistic_poisson" if (alg, model) == ("GIGA-OPT", "lr") else \
+        f"logistic_poisson_{'' if model == 'lr' else model + '_'}{alg}"
+    hilbert = alg != "US"
+    r = _drive(torch, gs, logistic_poisson.main, _lp_argv(model, alg=alg),
+               {"alg": alg, "model": model})
+    info, table, t, launches, ran = r["out"], r["table"], r["t"], r["launches"], r["ran"]
     coreset = info["coreset"]
-    itr = int(coreset.snnls.state.itr)
+    itr = int(coreset.snnls.state.itr) if hilbert else 0
     wts, _, _ = coreset.get()
-    _finite_columns(table, "logistic_poisson")
+    _finite_columns(table, name)
     rkl = table["rklw"]
     sec = info["seconds"]
-    _exp_line("logistic_poisson", t, launches, itr, table,
+    hold = {}
+    if hilbert:
+        Vsel = coreset.snnls.consts.Vsel
+        hold = dict(select_held=f"{Vsel.dtype}:{tuple(Vsel.shape)}",
+                    select_max_abs_err=_hold_driver_select(torch, coreset, f"{name} select"))
+    _exp_line(name, t, launches, itr, table,
               ("rklw", "fklw", "mu_errs", "Sig_errs", "Fs", "csizes", "rhats", "esses"),
               f"mcmc_samples_full:10000->{EXP_MCMC},mcmc_samples_coreset:10000->{EXP_MCMC},"
               f"coreset_num_sizes:7->{EXP_SIZES}",
-              N=EXP_N, D=EXP_D, Ms=",".join(str(int(m)) for m in table["Ms"]),
+              model=model, N=EXP_N, D=EXP_D, Ms=",".join(str(int(m)) for m in table["Ms"]),
               rklw=",".join(f"{v:.5g}" for v in rkl),
               full_rhat=f"{float(table['full_rhat'][0]):.4f}",
               full_ess=f"{float(table['full_ess'][0]):.1f}",
               dense_retries=info["dense_retries"], max_weight=f"{wts.max():.6g}",
               max_weight_over_N=f"{wts.max() / EXP_N:.4g}", iterations_run=ran,
-              graphs_captured=caps, capture_s=f"{cap_s:.3f}",
+              graphs_captured=r["caps"], capture_s=f"{r['cap_s']:.3f}",
+              instantiate_s=f"{r['inst_s']:.3f}", **hold,
               **{f"{k}_s": f"{v:.3f}" for k, v in sec.items()})
-    if packed:
-        raise AssertionError("logistic_poisson: the packed select kernel was launched")
-    _ran_check("logistic_poisson", launches, ran, itr, coreset.reached_numeric_limit)
-    if not rkl[-1] < rkl[0]:
-        raise AssertionError(f"logistic_poisson: rKL at M_max {rkl[-1]} not below {rkl[0]}")
+    if hilbert:
+        _ran_check(name, launches, ran, itr, coreset.reached_numeric_limit)
+    elif launches or ran:
+        raise AssertionError(f"{name}: {launches} select launches, {ran} solver iterations")
+    if not rkl[-1] < EXP_RKL_FALL * rkl[0]:
+        raise AssertionError(f"{name}: rKL at M_max {rkl[-1]} not below {EXP_RKL_FALL} x "
+                             f"{rkl[0]}")
     if not (table["csizes"] > 0).all():
-        raise AssertionError(f"logistic_poisson: empty coresets {table['csizes']}")
+        raise AssertionError(f"{name}: empty coresets {table['csizes']}")
     # GIGA-OPT on this data puts more than N on one atom in the JAX package
     # too (tests/test_torch_experiments.py::
     # test_logistic_giga_opt_puts_more_than_n_on_an_atom_in_both_packages,
     # on 10k of these rows), so the weights are held to be finite and
     # positive, and printed beside N
     if not (np.isfinite(wts).all() and (wts > 0).all()):
-        raise AssertionError(f"logistic_poisson: weights not finite and positive: {wts}")
-    return launches
+        raise AssertionError(f"{name}: weights not finite and positive: {wts}")
+    return launches, hold.get("select_max_abs_err", 0.0)
 
 
 @contextlib.contextmanager
@@ -2549,45 +2640,36 @@ def _adam_reads(torch):
         opt._segment = seg
 
 
-def _exp_logistic_adam(torch, alg):
+def _exp_logistic_adam(torch, gs, alg, model, M, sizes):
     """logistic_poisson ``--alg SVI`` or ``BPSVI`` at the reference's
-    logistic settings, in ``_logistic_data``'s directory (whose full-data
-    chains the GIGA-OPT run cached), with the sizes cut (each SparseVI
-    select and each BatchPSVI size is 100 Adam steps)."""
+    settings, in the directory of ``model``'s data (whose full-data chains
+    the GIGA-OPT run cached), with the sizes cut to ``sizes`` up to ``M``
+    (each SparseVI select and each BatchPSVI size is 100 Adam steps)."""
     import numpy as np
-    from bayesian_coresets_tpu_torch.experiments import logistic_poisson, results
+    from bayesian_coresets_tpu_torch.experiments import logistic_poisson
     from bayesian_coresets_tpu_torch.ops import opt
 
-    argv = list(EXP_LP_ARGV)
-    for flag, v in (("--alg", alg), ("--coreset_size_max", str(EXP_ADAM_M)),
-                    ("--coreset_num_sizes", str(EXP_ADAM_SIZES))):
-        argv[argv.index(flag) + 1] = v
-    opt.steps_run = 0
-    caps0, cap_s0 = _graph_counts()
-    inst0 = _instantiate_s()
-    t0 = time.perf_counter()
-    with _adam_reads(torch) as reads:
-        info = logistic_poisson.main(["run"] + argv)
-    t = time.perf_counter() - t0
-    steps = opt.steps_run
-    caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
-    table = results.load_matching({"alg": alg}, folder="results/")
+    r = _drive(torch, gs, logistic_poisson.main,
+               _lp_argv(model, alg=alg, coreset_size_max=M, coreset_num_sizes=sizes),
+               {"alg": alg, "model": model})
+    info, table, t, steps, reads, caps = (r[k] for k in ("out", "table", "t", "steps",
+                                                         "reads", "caps"))
     wts, _, _ = info["coreset"].get()
     sec = info["seconds"]
-    name = f"logistic_poisson_{alg}"
+    name = f"logistic_poisson_{'' if model == 'lr' else model + '_'}{alg}"
     _finite_columns(table, name)
     rkl = table["rklw"]
     Ms = [int(m) for m in table["Ms"]]
     want = (Ms[-1] if alg == "SVI" else len(Ms)) * EXP_ADAM_OPT    # selects; builds
-    say("experiments", driver=name, seconds=f"{t:.3f}", N=EXP_N, D=EXP_D,
+    say("experiments", driver=name, seconds=f"{t:.3f}", model=model, N=EXP_N, D=EXP_D,
         Ms=",".join(map(str, Ms)), adam_steps=steps,
         adam_steps_direct=reads["direct_steps"],
         build_us_per_adam_step=f"{1e6 * sec['build'] / max(steps, 1):.2f}",
         host_reads_in_adam_steps=reads["reads"],
         host_reads_per_adam_step=f"{reads['reads'] / max(steps, 1):.4f}",
         read_sites=",".join(f"{k}*{v}" for k, v in reads["sites"].items()) or "none",
-        graphs_captured=caps, capture_s=f"{cap_s:.3f}",
-        instantiate_s=f"{_instantiate_s() - inst0:.3f}", segment=opt.SEGMENT,
+        graphs_captured=caps, capture_s=f"{r['cap_s']:.3f}",
+        instantiate_s=f"{r['inst_s']:.3f}", segment=opt.SEGMENT,
         rklw=",".join(f"{v:.5g}" for v in rkl),
         csizes=",".join(str(int(c)) for c in table["csizes"]),
         **{f"{k}_at_Mmax": f"{float(table[k][-1]):.6g}"
@@ -2596,10 +2678,12 @@ def _exp_logistic_adam(torch, alg):
         build_share=f"{sec['build'] / t:.4f}",
         nuts_share=f"{(sec['full_nuts'] + sec['coreset_nuts']) / t:.4f}",
         **{f"{k}_s": f"{v:.3f}" for k, v in sec.items()},
-        reduced=f"coreset_size_max:1000->{EXP_ADAM_M},coreset_num_sizes:7->{EXP_ADAM_SIZES},"
+        reduced=f"coreset_size_max:1000->{M},coreset_num_sizes:7->{sizes},"
                 f"mcmc_samples_full:10000->{EXP_MCMC},mcmc_samples_coreset:10000->{EXP_MCMC}")
     if steps != want:
         raise AssertionError(f"{name}: {steps} Adam steps, expected {want}")
+    if r["launches"]:
+        raise AssertionError(f"{name}: {r['launches']} select launches")
     if reads["reads"]:
         raise AssertionError(f"{name}: {reads['reads']} host reads in the Adam steps "
                              f"({dict(reads['sites'])})")
@@ -2609,8 +2693,9 @@ def _exp_logistic_adam(torch, alg):
         raise AssertionError(f"{name}: empty coresets {table['csizes']}")
     if not (np.isfinite(wts).all() and (wts >= 0).all() and wts.size):
         raise AssertionError(f"{name}: weights not finite and nonnegative: {wts}")
-    if alg == "SVI" and not rkl[-1] < rkl[0]:
-        raise AssertionError(f"{name}: rKL at M_max {rkl[-1]} not below {rkl[0]}")
+    if alg == "SVI" and not rkl[-1] < EXP_RKL_FALL * rkl[0]:
+        raise AssertionError(f"{name}: rKL at M_max {rkl[-1]} not below {EXP_RKL_FALL} x "
+                             f"{rkl[0]}")
     if not np.isfinite(rkl).all():
         raise AssertionError(f"{name}: rKL not finite: {rkl}")
 
@@ -2637,95 +2722,22 @@ def _exp_simple_lr(gs):
     return launches
 
 
-def _exp_linear_regression(gs):
-    """linear_regression GIGA-OPT-EXACT at its defaults on the card, then
-    the same run with --device cpu in this process: the same rows; then
-    kernel 1 held to its plain version on the driver's select copy.
-    Returns (select launches, the hold's score error)."""
-    import numpy as np
-    import torch
-    from bayesian_coresets_tpu_torch.experiments import linear_regression, results
-    from bayesian_coresets_tpu_torch.ops import snnls
-
-    out = {}
-    for dev in ("cuda", "cpu"):
-        with _in_temp_dir():
-            gs.launches = snnls.itrs_run = 0
-            caps0, cap_s0 = _graph_counts()
-            t0 = time.perf_counter()
-            coreset = linear_regression.main(["run", "--alg", "GIGA-OPT-EXACT",
-                                              "--device", dev])
-            t = time.perf_counter() - t0
-            out[dev] = (t, gs.launches, coreset, results.load_matching({}, folder="results/"),
-                        snnls.itrs_run, [a - b for a, b in zip(_graph_counts(),
-                                                               (caps0, cap_s0))])
-    t, launches, coreset, card, ran, (caps, cap_s) = out["cuda"]
-    t_cpu, cpu_launches, cpu_coreset, cpu, _, _ = out["cpu"]
-    itr, cpu_itr = int(coreset.snnls.state.itr), int(cpu_coreset.snnls.state.itr)
-    Vsel = coreset.snnls.consts.Vsel
-    hold_err = _hold_driver_select(torch, coreset, "linear_regression select")
-    # the select's time per launch on the driver's own copy (412 MB, far
-    # past L2: a batch is as cold as the driver's launches)
-    from bayesian_coresets_tpu_torch.ops import _cuda_build
-    args = _driver_select_args(torch, coreset)
-    sel_ms, sel_bound, _ = _time_select(torch, _cuda_build.load_library(), args,
-                                        args[1].shape[0])
-    keys = ("rklw", "fklw", "mu_errs", "Sig_errs")
-    _finite_columns(card, "linear_regression")
-    below = cpu["csizes"] < 100          # the driver's default proj_dim
-    rel = {k: float(np.max(np.abs(card[k][below] - cpu[k][below]) / np.abs(cpu[k][below])))
-           for k in keys}
-    _exp_line("linear_regression", t, launches, itr, card, keys + ("csizes",), "none",
-              alg="GIGA-OPT-EXACT", N=10000, d=301, proj_dim=100, M=300,
-              cpu_seconds=f"{t_cpu:.3f}", cpu_iterations=cpu_itr,
-              **{f"cpu_{k}_at_Mmax": f"{float(cpu[k][-1]):.6g}" for k in keys},
-              **{f"max_rel_diff_{k}_below_proj_dim": f"{v:.3g}" for k, v in rel.items()},
-              csizes=",".join(str(int(c)) for c in card["csizes"]),
-              cpu_csizes=",".join(str(int(c)) for c in cpu["csizes"]),
-              select_held=f"{Vsel.dtype}:{tuple(Vsel.shape)}", select_max_abs_err=hold_err,
-              select_ms_per_launch=f"{sel_ms:.4f}", select_bound_ms=f"{sel_bound:.4f}",
-              select_share_of_bound=f"{sel_bound / sel_ms:.3f}",
-              select_ms_in_run=f"{sel_ms * launches:.2f}", iterations_run=ran,
-              graphs_captured=caps, capture_s=f"{cap_s:.3f}")
-    _ran_check("linear_regression", launches, ran, itr, coreset.reached_numeric_limit)
-    if cpu_launches:
-        raise AssertionError(f"linear_regression: {cpu_launches} select launches on the CPU")
-    if not np.array_equal(card["csizes"][below], cpu["csizes"][below]):
-        raise AssertionError("linear_regression: card and CPU coreset sizes differ below "
-                             f"proj_dim: {card['csizes']} against {cpu['csizes']}")
-    if max(rel.values()) > EXP_LR_RTOL:
-        raise AssertionError(f"linear_regression: card against CPU below proj_dim {rel}")
-    for k, bound in EXP_LR_TAIL.items():
-        for name, tab in (("card", card), ("cpu", cpu)):
-            if not 0.0 <= float(tab[k][-1]) <= bound:
-                raise AssertionError(f"linear_regression: {name} {k} at M_max "
-                                     f"{float(tab[k][-1])} outside [0, {bound}]")
-    return launches, hold_err
-
-
-def _exp_synthetic_vectors(gs):
+def _exp_synthetic_vectors(torch, gs):
     """synthetic_vectors at its defaults: GIGA and FW on the card and with
     --device cpu in this process (the same sizes and errors below
     data_dim), and kernel 1 held to its plain version on GIGA's select
     copy; OMP on the card at M=EXP_OMP_M.  Returns (select launches, the
     hold's score error)."""
     import numpy as np
-    import torch
-    from bayesian_coresets_tpu_torch.experiments import results, synthetic_vectors
-    from bayesian_coresets_tpu_torch.ops import snnls
+    from bayesian_coresets_tpu_torch.experiments import synthetic_vectors
 
     ran = {}
 
     def run(alg, extra):
         with _in_temp_dir():
-            gs.launches = snnls.itrs_run = 0
-            caps0, cap_s0 = _graph_counts()
-            t0 = time.perf_counter()
-            coreset = synthetic_vectors.main(["run", "--alg", alg] + extra)
-            t = time.perf_counter() - t0
-            ran.update(itrs=snnls.itrs_run, graphs=[a - b for a, b in zip(
-                _graph_counts(), (caps0, cap_s0))])
-            return t, gs.launches, coreset, results.load_matching({}, folder="results/")
+            r = _drive(torch, gs, synthetic_vectors.main, ["--alg", alg] + extra)
+        ran.update(itrs=r["ran"], graphs=[r["caps"], r["cap_s"]])
+        return r["t"], r["launches"], r["out"], r["table"]
 
     total, hold_err, dim = 0, 0.0, 100          # the driver's default data_dim
     for alg, extra in (("GIGA", []), ("FW", []),
@@ -2776,7 +2788,255 @@ def _exp_synthetic_vectors(gs):
             raise AssertionError(f"synthetic_vectors {alg}: error {err[-1]} at M_max not "
                                  f"below {err[0]}")
         total += launches
+    # US: uniform draws, no select; its error at M_max below EXP_RKL_FALL_CLOSED
+    # x its first size's
+    t, launches, coreset, table = run("US", [])
+    err = table["err"]
+    _finite_columns(table, "synthetic_vectors US")
+    _exp_line("synthetic_vectors_US", t, launches, int(coreset.snnls.state.itr), table,
+              ("err", "csize"), "none", data_num=10000, data_dim=dim, sizes=table.nrows,
+              iterations_run=ran["itrs"], graphs_captured=ran["graphs"][0],
+              capture_s=f"{ran['graphs'][1]:.3f}")
+    if launches:
+        raise AssertionError(f"synthetic_vectors US: {launches} select launches")
+    if not (table["csize"] > 0).all():
+        raise AssertionError(f"synthetic_vectors US: empty coresets {table['csize']}")
+    if not err[-1] < EXP_RKL_FALL_CLOSED * err[0]:
+        raise AssertionError(f"synthetic_vectors US: error {err[-1]} at M_max not below "
+                             f"{EXP_RKL_FALL_CLOSED} x {err[0]}")
     return total, hold_err
+
+
+@contextlib.contextmanager
+def _patched(obj, **attrs):
+    """``obj``'s attributes set to ``attrs`` while the block runs."""
+    old = {k: getattr(obj, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(obj, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(obj, k, v)
+
+
+def _drive(torch, gs, main, argv, match=None):
+    """One run of a driver's ``main(["run"] + argv)`` in the working
+    directory, with its select launches, solver iterations run, Adam steps,
+    graphs and the host reads inside its Adam steps counted, and the rows
+    of ``results/`` that match ``match`` (all by default)."""
+    from bayesian_coresets_tpu_torch.experiments import results
+    from bayesian_coresets_tpu_torch.ops import opt, snnls
+
+    gs.launches = snnls.itrs_run = opt.steps_run = 0
+    caps0, cap_s0 = _graph_counts()
+    inst0 = _instantiate_s()
+    t0 = time.perf_counter()
+    with _adam_reads(torch) as reads:
+        out = main(["run"] + argv)
+    t = time.perf_counter() - t0
+    caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
+    return dict(t=t, launches=gs.launches, ran=snnls.itrs_run, steps=opt.steps_run,
+                caps=caps, cap_s=cap_s, inst_s=_instantiate_s() - inst0, reads=reads,
+                out=out, table=results.load_matching(match or {}, folder="results/"))
+
+
+def _card_cpu_rel(card, cpu, keys, dim):
+    """The largest relative difference of each metric of a deterministic
+    run on the card from its ``--device cpu`` run, where the CPU's support
+    is below ``dim`` (the projection's width: past it the residual is
+    rounding noise)."""
+    import numpy as np
+    below = cpu["csizes"] < dim
+    return {k: float(np.max(np.abs(card[k][below] - cpu[k][below]) / np.abs(cpu[k][below])))
+            for k in keys}
+
+
+def _hold_card_cpu(name, card, cpu, rel, dim, tail):
+    """The same coreset sizes below ``dim``, the metrics there within
+    EXP_LR_RTOL (``rel``, from ``_card_cpu_rel``), and each run's metrics
+    at M_max within ``tail``'s bounds."""
+    import numpy as np
+    below = cpu["csizes"] < dim
+    if not np.array_equal(card["csizes"][below], cpu["csizes"][below]):
+        raise AssertionError(f"{name}: card and CPU coreset sizes differ below {dim}: "
+                             f"{card['csizes']} against {cpu['csizes']}")
+    if max(rel.values()) > EXP_LR_RTOL:
+        raise AssertionError(f"{name}: card against CPU below {dim}: {rel}")
+    for k, bound in tail.items():
+        for where, tab in (("card", card), ("cpu", cpu)):
+            if not 0.0 <= float(tab[k][-1]) <= bound:
+                raise AssertionError(f"{name}: {where} {k} at M_max {float(tab[k][-1])} "
+                                     f"outside [0, {bound}]")
+
+
+def _exp_closed_form(torch, gs, driver, alg, extra, reduced, dim, cpu_hold=None, **kv):
+    """One closed-form driver run (``gaussian`` or ``linear_regression``)
+    on the card, its ``[experiments]`` line and its checks: finite
+    metrics, nonempty coresets at every size past 0, and by algorithm
+    kernel 1 held on its select copy and one launch per iteration run
+    (GIGA), no launch (SparseVI, BatchPSVI, US), the Adam steps counted
+    and their host reads (none where they replay), rKL at M_max below
+    EXP_RKL_FALL_CLOSED x its first size's (not BatchPSVI, which rebuilds
+    at each size); with ``cpu_hold`` (the tail bounds) the same run with
+    ``--device cpu``, held by ``_hold_card_cpu``.  Returns (select
+    launches, the hold's score error, the coreset)."""
+    import bayesian_coresets_tpu_torch as bc
+    from bayesian_coresets_tpu_torch.ops import opt
+
+    name = f"{driver.__name__.rsplit('.', 1)[-1]}_{alg}"
+    with _in_temp_dir():
+        r = _drive(torch, gs, driver.main, ["--alg", alg] + extra)
+    coreset, table = r["out"], r["table"]
+    hilbert = isinstance(coreset, bc.HilbertCoreset)
+    itr = int(coreset.snnls.state.itr) if hilbert else 0
+    keys = ("rklw", "fklw", "mu_errs", "Sig_errs")
+    Ms = table["Ms"]
+    out = dict(Ms=",".join(str(int(m)) for m in Ms),
+               csizes=",".join(str(int(c)) for c in table["csizes"]),
+               rklw=",".join(f"{v:.5g}" for v in table["rklw"]),
+               build_s=f"{float(table['cputs'][-1]):.3f}", iterations_run=r["ran"],
+               graphs_captured=r["caps"], capture_s=f"{r['cap_s']:.3f}",
+               instantiate_s=f"{r['inst_s']:.3f}")
+    hold_err = 0.0
+    if hilbert:
+        Vsel = coreset.snnls.consts.Vsel
+        hold_err = _hold_driver_select(torch, coreset, f"{name} select")
+        out.update(select_held=f"{Vsel.dtype}:{tuple(Vsel.shape)}",
+                   select_max_abs_err=hold_err)
+    steps, reads = r["steps"], r["reads"]
+    if steps:
+        out.update(adam_steps=steps, adam_steps_direct=reads["direct_steps"],
+                   ms_per_adam_step=f"{1e3 * float(table['cputs'][-1]) / steps:.4f}",
+                   host_reads_in_adam_steps=reads["reads"],
+                   host_reads_per_adam_step=f"{reads['reads'] / steps:.4f}",
+                   read_sites=",".join(f"{k}*{v}" for k, v in reads["sites"].items())
+                   or "none", segment=opt.SEGMENT)
+    if cpu_hold is not None:
+        with _in_temp_dir():
+            c = _drive(torch, gs, driver.main, ["--alg", alg, "--device", "cpu"] + extra)
+        rel = _card_cpu_rel(table, c["table"], keys, dim)
+        out.update(cpu_seconds=f"{c['t']:.3f}",
+                   cpu_csizes=",".join(str(int(v)) for v in c["table"]["csizes"]),
+                   **{f"cpu_{k}_at_Mmax": f"{float(c['table'][k][-1]):.6g}" for k in keys},
+                   **{f"max_rel_diff_{k}_below_{dim}": f"{v:.3g}" for k, v in rel.items()})
+    _exp_line(name, r["t"], r["launches"], itr, table, keys + ("csizes",), reduced,
+              **kv, **out)
+    _finite_columns(table, name)
+    if cpu_hold is not None:
+        if c["launches"]:
+            raise AssertionError(f"{name}: {c['launches']} select launches on the CPU")
+        _hold_card_cpu(name, table, c["table"], rel, dim, cpu_hold)
+    if not (table["csizes"][Ms > 0] > 0).all():
+        raise AssertionError(f"{name}: empty coresets {table['csizes']}")
+    if hilbert:
+        _ran_check(name, r["launches"], r["ran"], itr, coreset.reached_numeric_limit)
+    elif r["launches"]:
+        raise AssertionError(f"{name}: {r['launches']} select launches")
+    # the drivers' opt_itrs Adam steps per SparseVI select, per BatchPSVI size
+    want = EXP_ADAM_OPT * {"SVI": int(Ms[-1]), "BPSVI": int((Ms > 0).sum())}.get(
+        alg.split("-")[0], 0)
+    if steps != want:
+        raise AssertionError(f"{name}: {steps} Adam steps, expected {want}")
+    if steps and not kv.get("direct"):
+        if reads["reads"]:
+            raise AssertionError(f"{name}: {reads['reads']} host reads in the Adam steps "
+                                 f"({dict(reads['sites'])})")
+        if not r["caps"]:
+            raise AssertionError(f"{name}: no graph was captured: the Adam steps did not "
+                                 "replay")
+    if steps and kv.get("direct") and reads["direct_steps"] != steps:
+        raise AssertionError(f"{name}: {reads['direct_steps']} of {steps} Adam steps direct")
+    rkl = table["rklw"]
+    if alg != "BPSVI" and not rkl[-1] < EXP_RKL_FALL_CLOSED * rkl[0]:
+        raise AssertionError(f"{name}: rKL at M_max {rkl[-1]} not below "
+                             f"{EXP_RKL_FALL_CLOSED} x {rkl[0]}")
+    return r["launches"], hold_err, coreset
+
+
+def _exp_gaussian(torch, gs):
+    """The Gaussian experiment's eight algorithms at its defaults; the
+    exact-family GIGA runs on data and a realistic subsample drawn on the
+    CPU (the driver draws both on its device), on the card and with
+    ``--device cpu``, held together.  Returns (select launches, the holds'
+    largest score error)."""
+    from bayesian_coresets_tpu_torch.experiments import gaussian as driver
+    from bayesian_coresets_tpu_torch.models import gaussian
+    from bayesian_coresets_tpu_torch.utils import prng
+
+    cpu = torch.device("cpu")
+    N, d, dim = EXP_G_N, EXP_G_D, EXP_G_PROJ
+    x = gaussian.gen_synthetic(prng.fold_seed(0, 0, device=cpu), N, d)
+    idx = driver.realistic_subsample(prng.fold_seed(0, 1, device=cpu), N)
+    total, err = 0, 0.0
+    for alg in driver.ALGS:
+        exact = alg in EXP_G_EXACT
+        with contextlib.ExitStack() as stack:
+            if exact:
+                stack.enter_context(_patched(gaussian, gen_synthetic=lambda g, n, d: x.to(
+                    g.device)))
+                stack.enter_context(_patched(driver, realistic_subsample=lambda g, n: idx.to(
+                    g.device)))
+            launches, e, _ = _exp_closed_form(
+                torch, gs, driver, alg, [], "none", dim,
+                cpu_hold=EXP_G_TAIL if exact else None, N=N, d=d, proj_dim=dim,
+                M=EXP_G_M, data="cpu_drawn_on_both" if exact else "the_driver's_own")
+        total, err = total + launches, max(err, e)
+    return total, err
+
+
+def _exp_linear_regression(torch, gs):
+    """linear_regression's seven algorithms at its defaults, SparseVI's
+    sizes cut (EXP_LR_SVI_*); the exact-family GIGA runs on the card and
+    with ``--device cpu``, held together, and kernel 1 timed on
+    GIGA-OPT-EXACT's select copy (``[experiments_select]``).  Returns
+    (select launches, the holds' largest score error)."""
+    from bayesian_coresets_tpu_torch.experiments import linear_regression as driver
+    from bayesian_coresets_tpu_torch.ops import _cuda_build
+
+    total, err = 0, 0.0
+    svi = ["--coreset_size_max", str(EXP_LR_SVI_M), "--coreset_num_sizes",
+           str(EXP_LR_SVI_SIZES)]
+    svi_cut = f"coreset_size_max:300->{EXP_LR_SVI_M},coreset_num_sizes:6->{EXP_LR_SVI_SIZES}"
+    for alg, extra, cut, kv in (("GIGA-OPT-EXACT", [], "none", {"cpu_hold": EXP_LR_TAIL}),
+                                ("SVI", svi, svi_cut, {}),
+                                ("SVI-EXACT", svi, svi_cut, {"direct": True}),
+                                ("GIGA-OPT", [], "none", {}),
+                                ("GIGA-REAL", [], "none", {}),
+                                ("GIGA-REAL-EXACT", [], "none",
+                                 {"cpu_hold": EXP_LR_REAL_TAIL}),
+                                ("US", [], "none", {})):
+        launches, e, coreset = _exp_closed_form(torch, gs, driver, alg, extra, cut, 100,
+                                                N=10000, d=301, proj_dim=100, **kv)
+        total, err = total + launches, max(err, e)
+        if alg == "GIGA-OPT-EXACT":
+            # the select's time per launch on the driver's own copy (412 MB,
+            # far past L2: a batch is as cold as the driver's launches)
+            args = _driver_select_args(torch, coreset)
+            ms, bound, _ = _time_select(torch, _cuda_build.load_library(), args,
+                                        args[1].shape[0])
+            Vsel = args[0]
+            say("experiments_select", driver=f"linear_regression_{alg}",
+                select=f"{Vsel.dtype}:{tuple(Vsel.shape)}", ms_per_launch=f"{ms:.4f}",
+                bound_ms=f"{bound:.4f}", share_of_bound=f"{bound / ms:.3f}",
+                ms_in_run=f"{ms * launches:.2f}")
+    return total, err
+
+
+def _exp_poisson(torch, gs):
+    """logistic_poisson ``--model poiss`` at phase 18's logistic settings on
+    ``_poisson_data``: GIGA-OPT (caching the full-data chains), GIGA-REAL,
+    US, then SparseVI and BatchPSVI at sizes cut to EXP_POIS_ADAM_SIZES up
+    to EXP_POIS_ADAM_M.  Returns (select launches, the holds' largest score
+    error)."""
+    total, err = 0, 0.0
+    with _poisson_data():
+        for alg in ("GIGA-OPT", "GIGA-REAL", "US"):
+            launches, e = _exp_logistic(torch, gs, alg, "poiss")
+            total, err = total + launches, max(err, e)
+        for alg in ("SVI", "BPSVI"):
+            _exp_logistic_adam(torch, gs, alg, "poiss", EXP_POIS_ADAM_M, EXP_POIS_ADAM_SIZES)
+    return total, err
 
 
 def phase_experiments(torch, smi):
@@ -2787,19 +3047,21 @@ def phase_experiments(torch, smi):
     from bayesian_coresets_tpu_torch.ops import packed_select as ps
 
     say("experiments", start="phase 18", card=repr(smi))
+    ps.launches = 0
     with _logistic_data():
-        total = _exp_logistic(gs, ps)
-        before = gs.launches
+        total, err = _exp_logistic(torch, gs)
         for alg in ("SVI", "BPSVI"):
-            _exp_logistic_adam(torch, alg)
-        if gs.launches != before or ps.launches:
-            raise AssertionError("logistic SVI or BPSVI launched a select kernel")
+            _exp_logistic_adam(torch, gs, alg, "lr", EXP_ADAM_M, EXP_ADAM_SIZES)
+        for alg in ("GIGA-REAL", "US"):
+            launches, e = _exp_logistic(torch, gs, alg)
+            total, err = total + launches, max(err, e)
     total += _exp_simple_lr(gs)
-    lr_launches, lr_err = _exp_linear_regression(gs)
-    sv_launches, sv_err = _exp_synthetic_vectors(gs)
+    for run in (_exp_synthetic_vectors, _exp_linear_regression, _exp_gaussian, _exp_poisson):
+        launches, e = run(torch, gs)
+        total, err = total + launches, max(err, e)
     if ps.launches:
         raise AssertionError("the experiment drivers launched the packed select kernel")
-    return total + lr_launches + sv_launches, max(lr_err, sv_err)
+    return total, err
 
 
 def _rank19(part: str, d: str, cfg: dict) -> dict:

@@ -19,7 +19,9 @@ and last rows and 100 calls back to back; builds, NUTS and SparseVI's and
 BatchPSVI's Adam steps replayed as CUDA graphs against their direct runs,
 bit for bit (the Adam steps on the exact, basis, logistic warm-Laplace and
 linear-regression black-box families, tails, resumed builds), a capture
-that raises on a host read, and posterior refits that read nothing.
+that raises on a host read, posterior refits that read nothing, and the
+``logistic_poisson --model poiss`` and ``linear_regression`` drivers'
+Adam steps replayed with no host read.
 
 Every test here needs a card and skips without one.  This file imports no
 JAX, so it also runs where JAX is absent; there, skip the JAX conftest:
@@ -43,6 +45,7 @@ from bayesian_coresets_tpu_torch.ops import packed_select as ps
 from bayesian_coresets_tpu_torch.ops import snnls
 from bayesian_coresets_tpu_torch.ops.opt import nn_opt
 from bayesian_coresets_tpu_torch.utils import interop
+from tiny_data import write_poisson
 
 torch.set_num_threads(1)
 
@@ -1811,3 +1814,53 @@ def test_refits_read_nothing_on_the_card(cuda_device):
     bad = laplace.laplace_approx(z, w, torch.zeros(4, device=dev), logistic.grad_th_log_joint,
                                  lambda z, th, w: -logistic.hess_th_log_joint(z, th, w))
     assert bool(torch.isnan(bad.mu).all()) and bool(torch.isnan(bad.USig).all())
+
+
+# ---------------------------------------------------------------------------
+# The experiment drivers' Adam steps on the card
+# ---------------------------------------------------------------------------
+
+
+_DRIVER_ADAM = {
+    "poisson": ["--model", "poiss", "--dataset", "synth_poiss", "--mcmc_samples_full", "32",
+                "--mcmc_samples_coreset", "32", "--mcmc_chains", "2", "--proj_dim", "32",
+                "--fs_samples", "16", "--max_treedepth", "8", "--ess_gate", "1"],
+    "linear_regression": ["--data_num", "1200", "--n_bases_per_scale", "5",
+                          "--proj_dim", "30"],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("driver,alg", [("poisson", "SVI"), ("poisson", "BPSVI"),
+                                        ("linear_regression", "SVI")])
+def test_driver_adam_steps_replay_without_host_reads(driver, alg, cuda_device, tmp_path,
+                                                     monkeypatch):
+    """``logistic_poisson --model poiss`` (its warm Laplace refits; BatchPSVI
+    with the whole row's gradient, ROADMAP Queue 3 (m)) and
+    ``linear_regression --alg SVI`` (the QR refit of the black-box sampler)
+    on the card through their ``main``: every Adam step runs, the steps
+    replay graphs, and the segments that run directly (each key's first,
+    before its capture) make no synchronizing call."""
+    from bayesian_coresets_tpu_torch.experiments import linear_regression, logistic_poisson
+    from bayesian_coresets_tpu_torch.ops import graphs, opt
+    monkeypatch.chdir(tmp_path)
+    main = logistic_poisson.main if driver == "poisson" else linear_regression.main
+    if driver == "poisson":
+        monkeypatch.setenv("BC_DATA_DIR", write_poisson(str(tmp_path / "data"), 400, 100))
+    seg, reads, direct = opt._segment, [], [0]
+
+    def counted(grad_fn, gen, hyper, n, s, p):
+        if torch.cuda.is_current_stream_capturing():
+            return seg(grad_fn, gen, hyper, n, s, p)
+        out, syncs = _syncs(lambda: seg(grad_fn, gen, hyper, n, s, p))
+        reads.extend(syncs)
+        direct[0] += n
+        return out
+
+    monkeypatch.setattr(opt, "_segment", counted)
+    opt.steps_run, caps = 0, graphs.captures
+    main(["run", "--alg", alg, "--coreset_size_max", "6", "--coreset_num_sizes", "2",
+          "--opt_itrs", "25"] + _DRIVER_ADAM[driver])
+    want = 25 * (6 if alg == "SVI" else 2)     # 6 selects; BatchPSVI's sizes 1 and 6
+    assert opt.steps_run == want and reads == [], (opt.steps_run, reads)
+    assert graphs.captures > caps and 0 < direct[0] < want
