@@ -22,11 +22,31 @@ segment; :mod:`.opt` replays segments of Adam steps (the JAX package's
   solve's padded size; a NUTS piece), and one memory pool that they share:
   they run one after the other on one stream, and each copies what it
   keeps into the static buffers, so one graph's scratch may be another's.
-  A build's are cached per (constants, static key, caller stream) by
-  :func:`graphs_for`: dropped with the constants' ``V`` (a weak key) and
-  rebuilt when any other tensor of the constants, or the generator, is not
-  the one it was captured with.  A NUTS run holds its own for the run's
-  length, made on its first transition's carry.
+  A NUTS run holds its own for the run's length, made on its first
+  transition's carry.
+- **One set per shape** (the JAX package's ``jax.jit`` of ``build``,
+  ``bayesian_coresets_tpu/ops/snnls.py:992``, compiled once per shape).
+  :func:`graphs_for` keys a build's or a re-solve's set by :func:`set_key`:
+  the caller's key (the method, ``tol``, ``matvec_k``, the carry's dtypes
+  and shapes), the caller stream, and the constants' :func:`layout` (each
+  tensor's dtype, shape and strides, and which of them are one tensor:
+  ``Vsel`` *is* ``V`` for f32 without a column pad).  Every constants of
+  that layout share the set's graphs, which read static copies of the
+  constants (:class:`Statics`, one buffer per distinct tensor, shared by
+  the sets of every key on that layout and stream).  Before a replay the
+  caller's constants are copied into them on the caller stream, unless
+  they are the ones copied in last (the same tensor objects, not written
+  since), and what the work derives from the constants alone (Frank-Wolfe's
+  norm sum, the sampling solvers' cdf) is made again into its static
+  buffers.  The constants passed in are only read.  The static copies and
+  their sets go when every constants that used them has (weak references
+  to each user's ``V``).  A set serves one generator: a build that draws
+  from another makes it again.
+- **Sets of their own.**  int8-resident constants (``V`` the int8 select
+  copy, up to 4.1 GB at N=8M) are not copied: their sets read the
+  constants themselves, hang off their ``V`` (a weak key) and are made
+  again when any other tensor of the constants is not the one they were
+  captured with.  ``nn_opt``'s sets hang off the data alike.
 - **Capture stream.**  Each caller stream has a side stream of its own,
   made and warmed once before its first capture: the select kernels'
   workspace for that stream (:func:`.giga_select.workspace`) and its
@@ -54,6 +74,7 @@ segment; :mod:`.opt` replays segments of Adam steps (the JAX package's
 
 from __future__ import annotations
 
+import functools
 import time
 import weakref
 
@@ -67,13 +88,15 @@ captures = 0        # graphs captured (since last set to 0)
 capture_s = 0.0     # seconds spent capturing them (recording the work)
 instantiate_s = 0.0     # seconds spent instantiating them
 replays = 0         # graph replays
+loads = 0           # constants copied into static copies (Statics.load)
 
 # the hand-written kernels' launch counters: (module, name)
 _COUNTERS = ((gs, "launches"), (gs, "dots_launches"), (gs, "score_launches"),
              (fs, "launches"))
 
 _sides: dict[tuple[int, int], torch.cuda.Stream] = {}
-_cache = WeakIdKeyDictionary()      # constants' V -> {key: Graphs}
+_own = WeakIdKeyDictionary()        # constants' V -> {key: Graphs}, sets of their own
+_statics: dict = {}                 # (caller stream, layout) -> Statics
 
 
 def _counts() -> tuple[int, ...]:
@@ -150,17 +173,21 @@ def _tensors(tree):
 
 
 class Graphs:
-    """The graphs of one static state (for a build: of one (constants,
-    static key, caller stream), the ``tensors`` they were captured with),
-    their static buffers ``static``, constants derived once (``derived``),
-    and their shared memory pool.  ``warm``: run each key's work once
-    directly before capturing it."""
+    """The graphs of one static state (for a build: of one :func:`set_key`;
+    a set of its own also remembers the ``tensors`` it was captured with),
+    their static buffers ``static``, values derived from the constants
+    (``derived``), the static copies of the constants that a shared set's
+    graphs read (``consts``; None for a set of its own), and their shared
+    memory pool.  ``warm``: run each key's work once directly before
+    capturing it."""
 
-    def __init__(self, tensors, static, derived, gen, warm: bool = False):
+    def __init__(self, tensors, static, derived, gen, warm: bool = False, consts=None):
         self.refs = tuple(weakref.ref(t) for t in tensors)
         self.gen = gen
         self.static = static
         self.derived = derived
+        self.derived_at = None      # the Statics.loads that ``derived`` was made at
+        self.consts = consts
         self.stream = side_stream(next(_tensors(static)).device)
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: dict = {}
@@ -189,22 +216,136 @@ class Graphs:
         g.replay()
 
 
-def graphs_for(tensors, key, gen, make_static, make_derived=lambda: None,
-               warm: bool = False) -> Graphs:
+def layout(tensors) -> tuple:
+    """What static copies of ``tensors`` must match, per tensor: its dtype,
+    shape and strides, and the position of the first earlier tensor that is
+    the same tensor (-1 if none), so that the copies keep that aliasing with
+    one buffer per distinct tensor.  Needs no CUDA."""
+    return tuple((t.dtype, tuple(t.shape), t.stride(),
+                  next((j for j in range(i) if tensors[j] is t), -1))
+                 for i, t in enumerate(tensors))
+
+
+def set_key(tensors, key, stream, shared: bool) -> tuple:
+    """The key of the graph set of the constants ``tensors`` under the
+    caller's ``key`` on the caller ``stream`` ((device index, handle)):
+    whether the set is shared, and for a shared one the constants'
+    :func:`layout`, so that every constants of one layout get one set (a
+    set of its own hangs off its constants instead).  Needs no CUDA."""
+    return (shared, tuple(key), stream) + ((layout(tensors),) if shared else ())
+
+
+class Statics:
+    """Static copies of constants of one layout on one caller stream, which
+    the graphs of every shared set on them (``sets``, by :func:`set_key`)
+    read, and the constants that have used them (``users``: weak
+    references to each one's anchor, whose death drops the copies once
+    none is left).  Needs no CUDA."""
+
+    def __init__(self, tensors, key):
+        self.key = key
+        aliases = [alias for *_, alias in layout(tensors)]
+        bufs = []
+        for t, alias in zip(tensors, aliases):
+            bufs.append(bufs[alias] if alias >= 0 else torch.empty_like(t))
+        self.tensors = tuple(bufs)
+        self.distinct = tuple(i for i, alias in enumerate(aliases) if alias < 0)
+        self.stamps = ()        # (weak reference, version) of each tensor copied in last
+        self.loads = 0          # copies made so far
+        self.sets: dict = {}
+        self.users: dict = {}
+
+    def use(self, anchor) -> None:
+        uid = id(anchor)
+        if uid not in self.users:
+            self.users[uid] = weakref.ref(anchor, functools.partial(_drop_user, self.key, uid))
+
+    def load(self, tensors) -> bool:
+        """Copy ``tensors`` into the static copies on the current stream,
+        unless they are the tensors copied in last and none has been
+        written since; returns whether it copied."""
+        global loads
+        if len(self.stamps) == len(tensors) and all(
+                r() is t and v == t._version for (r, v), t in zip(self.stamps, tensors)):
+            return False
+        for i in self.distinct:
+            self.tensors[i].copy_(tensors[i])
+        self.stamps = tuple((weakref.ref(t), t._version) for t in tensors)
+        self.loads += 1
+        loads += 1
+        return True
+
+
+def _drop_user(key, uid, ref) -> None:
+    """A user's anchor died: forget it, and drop the static copies and
+    their sets with the last one."""
+    if _statics is None:                # the interpreter is shutting down
+        return
+    st = _statics.get(key)
+    if st is not None and st.users.get(uid) is ref:
+        del st.users[uid]
+        if not st.users:
+            del _statics[key]
+
+
+def _statics_for(tensors, key) -> Statics:
+    """The :class:`Statics` under ``key``, made where there is none, with
+    ``tensors`` (anchored on the first) among its users and copied in."""
+    st = _statics.get(key)
+    if st is None:
+        st = _statics[key] = Statics(tensors, key)
+    st.use(tensors[0])
+    st.load(tensors)
+    return st
+
+
+def _stream(dev: torch.device) -> tuple[int, int]:
+    return dev.index, torch.cuda.current_stream(dev).cuda_stream
+
+
+def statics_of(tensors) -> Statics | None:
+    """The static copies that shared sets of ``tensors``' layout read on
+    the current stream, if there are any."""
+    return _statics.get((_stream(tensors[0].device), layout(tensors)))
+
+
+def graphs_for(tensors, key, gen, make_static, make_derived=lambda consts: None,
+               warm: bool = False, shared: bool = False) -> Graphs:
     """The :class:`Graphs` of the constants ``tensors`` (the first one the
-    anchor, whose death drops them) under ``key`` on the current stream;
-    made, with ``make_static()``, ``make_derived()`` and ``warm``, where
-    there is none or it was captured with other tensors or generator
-    ``gen``."""
+    anchor, the constants' ``V``) under ``key`` on the current stream, made
+    with ``make_static()`` and ``warm`` where there is none or it serves
+    another generator than ``gen``.  ``make_derived(constants)`` makes
+    ``derived`` from the constants the graphs read.
+
+    ``shared``: the set is shared by every constants of ``tensors``' layout
+    (:func:`set_key`) and its graphs read the static copies ``consts``
+    (:class:`Statics`), which ``tensors`` are copied into first where they
+    are not the ones copied in last; ``derived`` is then made again into
+    its buffers.  Otherwise the set is the constants' own: its graphs read
+    ``tensors`` themselves, and it is made again when any of them is not
+    the one it was captured with."""
     anchor = tensors[0]
-    key = tuple(key) + (torch.cuda.current_stream(anchor.device).cuda_stream,)
-    by_key = _cache.get(anchor)
-    if by_key is None:
-        by_key = _cache.setdefault(anchor, {})
-    entry = by_key.get(key)
-    if entry is None or not entry.holds(tensors, gen):
-        entry = by_key[key] = Graphs(tensors, make_static(), make_derived(), gen, warm)
-    return entry
+    k = set_key(tensors, key, _stream(anchor.device), shared)
+    if shared:
+        st = _statics_for(tensors, k[2:])
+        sets, consts, at = st.sets, st.tensors, st.loads
+    else:
+        sets = _own.get(anchor)
+        if sets is None:
+            sets = _own.setdefault(anchor, {})
+        consts, at = tensors, 0
+    e = sets.get(k)
+    if e is None or not e.holds(() if shared else tensors, gen):
+        e = sets[k] = Graphs(() if shared else tensors, make_static(), None, gen, warm,
+                             consts if shared else None)
+    if e.derived_at != at:
+        d = make_derived(consts)
+        if e.derived_at is None:
+            e.derived = d
+        else:
+            copy_into(e.derived, d)
+        e.derived_at = at
+    return e
 
 
 def copy_into(static, values) -> None:

@@ -1006,21 +1006,45 @@ def _graph_generator(draws, dev: torch.device) -> torch.Generator:
     return gen
 
 
+def _shares_graphs(consts: SNNLSConsts) -> bool:
+    """Whether replayed builds and re-solves of ``consts`` run in graph sets
+    shared by every constants of their layout, on static copies of the
+    constants (:func:`.graphs.graphs_for`).  int8-resident constants keep
+    sets of their own: a copy of their int8 matrix would halve the rows
+    that the mode exists to hold.  So do constants with a tensor that is
+    not contiguous, which no static copy could be guaranteed to match."""
+    return not _is_quantized(consts) and all(t.is_contiguous() for t in consts)
+
+
+def _build_key(method: str, tol: float, matvec_k: int, carry: _Carry) -> tuple:
+    """What a replayed build's graphs depend on besides the constants."""
+    return ("build", method, float(tol), int(matvec_k),
+            tuple((t.dtype, tuple(t.shape)) for t in carry))
+
+
+def _graph_set(consts: SNNLSConsts, key, gen, make_static, make_derived=lambda c: None):
+    """(the :class:`.graphs.Graphs` under ``key`` for ``consts``, the
+    constants its graphs read: static copies that ``consts`` were copied
+    into, or ``consts`` themselves for a set of their own)."""
+    e = graphs.graphs_for(tuple(consts), key, gen, make_static,
+                          lambda c: make_derived(SNNLSConsts(*c)), shared=_shares_graphs(consts))
+    return e, consts if e.consts is None else SNNLSConsts(*e.consts)
+
+
 def _replayer(consts: SNNLSConsts, carry: _Carry, method: str, tol: float, draws,
               matvec_k: int):
     """A step ``(c, n, refresh) -> c`` that replays the CUDA graph of an
     ``n``-iteration segment (captured at first use, one per (n, refresh))
-    on the static buffers of ``consts``' graphs, and those buffers with
-    ``carry`` copied in: the state lives there until it is copied out."""
+    of the graph set of ``consts``' layout (:func:`_graph_set`), on its
+    static buffers with ``carry`` copied in: the state lives there until it
+    is copied out."""
     gen = _graph_generator(draws, consts.V.device) if method in _SAMPLING else None
-    key = ("build", method, float(tol), int(matvec_k),
-           tuple((t.dtype, tuple(t.shape)) for t in carry))
-    e = graphs.graphs_for(tuple(consts), key, gen,
-                          lambda: _Carry(*(torch.empty_like(t) for t in carry)),
-                          lambda: _derived(consts, method))
+    e, sc = _graph_set(consts, _build_key(method, tol, matvec_k, carry), gen,
+                       lambda: _Carry(*(torch.empty_like(t) for t in carry)),
+                       lambda c: _derived(c, method))
     graphs.copy_into(e.static, carry)
     nsum, cdf = e.derived
-    p = _Problem(consts, method, tol, matvec_k, None, None if gen is None else Draws(gen),
+    p = _Problem(sc, method, tol, matvec_k, None, None if gen is None else Draws(gen),
                  cdf, None, nsum)
 
     def step(c, n, refresh):
@@ -1041,8 +1065,10 @@ def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
     device values alone, and the host reads one pair (``itr``, ``done``)
     after each segment (none in a sampling build without slots, which
     cannot latch).  ``segment`` is the segments' length.  By default, on a
-    CUDA device without ``comm``, segments of 64 iterations (OMP: 8) are
-    replayed as CUDA graphs (:mod:`.graphs`); on CPU tensors, in sharded
+    CUDA device without ``comm``, segments of 64 iterations (OMP: 4) are
+    replayed as CUDA graphs (:mod:`.graphs`), of one set per layout of the
+    constants, which every constants of that layout share (int8-resident
+    ones keep their own; :func:`_shares_graphs`); on CPU tensors, in sharded
     builds and with ``segment=1`` they are one iteration long and run
     directly; on CPU tensors any length runs directly.  Every length gives
     the same weights, atoms, ``itr`` and ``done`` bit for bit; when ``done``
@@ -1154,8 +1180,9 @@ def optimize_active(consts: SNNLSConsts, state: SNNLSState, idcs: torch.Tensor,
     (:mod:`.nnls`), a fixed number of steps with nothing read back (the
     JAX package's ``fori_loop``); on a CUDA device without ``comm`` it is
     one replayed CUDA graph per padded size (:mod:`.graphs`), with ``size``
-    an input.  Returns the new state and whether the cost did not rise: if
-    it rose, the weights are kept and ``done`` latches.  Sharded
+    an input, shared as a build's graphs are (:func:`_graph_set`).  Returns
+    the new state and whether the cost did not rise: if it rose, the
+    weights are kept and ``done`` latches.  Sharded
     (``comm``): the active rows and weights come in one (K, S + 1)
     exchange, the solve runs on every rank, and each writes its own rows.
     """
@@ -1167,12 +1194,12 @@ def optimize_active(consts: SNNLSConsts, state: SNNLSState, idcs: torch.Tensor,
     inputs = (state.w, state.xw, state.done, idcs.to(device=dev, dtype=torch.int32),
               torch.full((), int(size), dtype=torch.int32, device=dev))
     key = ("optimize", float(tol), int(num_iters), tuple((t.dtype, tuple(t.shape)) for t in inputs))
-    e = graphs.graphs_for(tuple(consts), key, None,
-                          lambda: [torch.empty_like(t) for t in inputs]
-                          + [torch.empty((), dtype=torch.bool, device=dev)])
+    e, sc = _graph_set(consts, key, None,
+                       lambda: [torch.empty_like(t) for t in inputs]
+                       + [torch.empty((), dtype=torch.bool, device=dev)])
     st = e.static                                   # w, xw, done, idcs, size, ok
     graphs.copy_into(st, inputs)
-    e.run(None, lambda: graphs.copy_into(st[:3] + st[5:], _optimize_core(consts, *st[:5], tol,
+    e.run(None, lambda: graphs.copy_into(st[:3] + st[5:], _optimize_core(sc, *st[:5], tol,
                                                                       num_iters)))
     w, xw, done, ok = (t.clone() for t in st[:3] + st[5:])
     return state._replace(w=w, xw=xw, done=done), ok

@@ -65,7 +65,15 @@ script exits non-zero without printing the final result line):
    the JAX package's ``lax.cond`` at ops/snnls.py:698), once per iteration
    run; it is held to its plain version at N=100k with the flag set and
    clear, bit for bit, and timed (direct, in a graph, plain) beside its
-   bound (``[fold_kernel]``);
+   bound (``[fold_kernel]``); then the build again on a fresh projection of
+   the same shape (the projector's generator seeded 2, as bench.py's fresh
+   keys) while the first coreset lives (``[main_rebuild]``): it must
+   capture no graph (one graph set per shape, its graphs reading static
+   copies of the constants, ``ops/graphs.py``), and its state must be its
+   own one-iteration build's bit for bit; it prints the copy of its
+   constants into the static copies (CUDA events, beside the bound of
+   moving them), projection and build seconds, points/s and the peak
+   allocation;
 7. NUTS on the coreset: ``mcmc.weighted.run`` on phase 6's coreset with
    1024 chains x (150 warmup + 150 draws) (bench.py:54, 319-322), checked
    for finite samples, split R-hat <= 1.05, divergences <= 1% of the
@@ -86,7 +94,9 @@ script exits non-zero without printing the final result line):
    captured CUDA graph) on phase 6's coreset, after NUTS has sampled it:
    the error must not rise and nothing may latch; the same solve again, a
    replay of that graph, timed beside the first call and its capture; then the exact host solver on the same active set must reach
-   the FISTA error within 1e-3;
+   the FISTA error within 1e-3; then ``optimize()`` on phase 6's rebuild
+   (``[optimize_rebuild]``), which captures nothing at the first's padded
+   size and must give the same solve's weights run uncaptured bit for bit;
 9. SparseVI at bench.py's canonical config (bench.py:211-231: N=1000,
    d=200, S=100, 50 Adam steps per select, M=30, 32 slots, the posterior
    basis sampler, step 1/(1+i)), black-box and with the exact Gaussian
@@ -1189,6 +1199,7 @@ def phase_main(torch, smi):
     coreset.build(M_MAIN - 50)
     torch.cuda.synchronize()
     t_b2 = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
     caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
     launches, fold_launches, ran = gs.launches, fs.launches, snnls.itrs_run
     itr = int(coreset.snnls.state.itr)
@@ -1216,7 +1227,7 @@ def phase_main(torch, smi):
         iterations_run=ran,
         err50=f"{err50:.6e}", err=f"{err:.6e}", graphs_captured=caps,
         capture_s=f"{cap_s:.4f}", one_itr_ms_per_itr=f"{one_ms:.4f}",
-        one_itr_bit_identical=True)
+        one_itr_bit_identical=True, build_peak_mem_GB=f"{build_peak / 1e9:.3f}")
     prof = _profile_build(torch, coreset.snnls.consts, "giga", "main_launches")
     _profile_build(torch, coreset.snnls.consts, "giga", "main_launches", segment=1)
     fold = _hold_fold(torch, N_MAIN, "fold_kernel", smi)
@@ -1228,7 +1239,107 @@ def phase_main(torch, smi):
         capture_s=f"{cap_s:.4f}", one_itr_ms_per_itr=f"{one_ms:.4f}",
         points_per_s=f"{M_MAIN / (t_proj + t_build):.2f}",
         peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}", card=repr(smi))
-    return launches, wts, pts, coreset, Z, projector, ref6
+    rebuild = _main_rebuild(torch, smi, Z, coreset)
+    return launches, wts, pts, coreset, Z, projector, ref6, rebuild
+
+
+def _main_rebuild(torch, smi, Z, coreset):
+    """Phase 6's build again on a fresh projection of the same shape (the
+    projector's generator seeded 2, as bench.py's fresh keys), while the
+    first coreset lives: its constants are copied into the static copies
+    that the first build's graph sets read, and no graph is captured (the
+    JAX package's one compilation per shape).  Its state is held bit for
+    bit against its own one-iteration build.  Returns (the coreset, its
+    select launches)."""
+    import numpy as np
+    import bayesian_coresets_tpu_torch as bc
+    from bayesian_coresets_tpu_torch.models import logistic
+    from bayesian_coresets_tpu_torch.ops import fold_scale as fs
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+    from bayesian_coresets_tpu_torch.ops import graphs, snnls
+
+    dev = torch.device("cuda")
+    projector = bc.BlackBoxProjector(_near_map_sampler, S_MAIN, logistic.log_likelihood,
+                                     generator=torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gs.launches = fs.launches = snnls.itrs_run = 0
+    caps0, cap_s0 = _graph_counts()
+    loads0 = graphs.loads
+    t0 = time.perf_counter()
+    rebuilt = bc.HilbertCoreset(Z, projector, select_dtype=torch.int8, max_active=1024)
+    torch.cuda.synchronize()
+    t_proj = time.perf_counter() - t0
+    bnorm = float(rebuilt.snnls.consts.bnorm)
+    t0 = time.perf_counter()
+    rebuilt.build(50)
+    torch.cuda.synchronize()
+    t_b1 = time.perf_counter() - t0
+    err50 = rebuilt.error() / bnorm
+    t0 = time.perf_counter()
+    rebuilt.build(M_MAIN - 50)
+    torch.cuda.synchronize()
+    t_build = t_b1 + time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
+    launches, fold_launches, ran = gs.launches, fs.launches, snnls.itrs_run
+    loads = graphs.loads - loads0
+    itr = int(rebuilt.snnls.state.itr)
+    _ran_check("main rebuild", launches, ran, itr, rebuilt.reached_numeric_limit)
+    if fold_launches != ran:
+        raise AssertionError(f"main rebuild: {fold_launches} fold launches for {ran} iterations")
+    if caps:
+        raise AssertionError(f"main rebuild: {caps} graphs captured for constants of the first "
+                             "build's shape")
+    if loads < 1:
+        raise AssertionError("main rebuild: its constants were never copied into the static "
+                             "copies")
+    one_ms = _one_itr(torch, rebuilt.snnls.consts, "giga", (50, M_MAIN - 50),
+                      rebuilt.snnls.state, 1024, "main rebuild")
+    copy = _copy_in(torch, coreset.snnls.consts, rebuilt.snnls.consts)
+    err = rebuilt.error() / bnorm
+    w1, w2 = coreset.snnls.weights(), rebuilt.snnls.weights()
+    if not (np.isfinite(w2).all() and (w2 >= 0).all() and (w2 > 0).any()) or not err < err50:
+        raise AssertionError(f"main rebuild: weights not finite and nonnegative, or error/|b| "
+                             f"{err} at M={itr} not below {err50} at 50")
+    if np.array_equal(w1, w2):
+        raise AssertionError("main rebuild: the weights of the first build, on other data")
+    say("main_rebuild", N=N_MAIN, S=S_MAIN, M=M_MAIN, itr=itr, launches=launches,
+        fold_launches=fold_launches, iterations_run=ran, err50=f"{err50:.6e}",
+        err=f"{err:.6e}", graphs_captured=caps, capture_s=f"{cap_s:.4f}", constants_copied=loads,
+        copy_in_ms=f"{copy['ms']:.4f}", copy_in_MB=f"{copy['bytes'] / 1e6:.1f}",
+        copy_in_bound_ms=f"{copy['bound_ms']:.4f}", projection_s=f"{t_proj:.4f}",
+        build_s=f"{t_build:.4f}", ms_per_itr=f"{1e3 * t_build / itr:.4f}",
+        points_per_s=f"{M_MAIN / (t_proj + t_build):.2f}", peak_mem_GB=f"{peak / 1e9:.3f}",
+        one_itr_ms_per_itr=f"{one_ms:.4f}", one_itr_bit_identical=True, card=repr(smi))
+    return rebuilt, launches
+
+
+def _copy_in(torch, first, second, reps=10):
+    """Copying constants into the static copies that the graph sets of
+    their shape read (``ops/graphs.py::Statics.load``), timed with CUDA
+    events, two constants in turn so that each load copies: the median ms,
+    the bytes of the distinct tensors, and the bound of reading and writing
+    them once each.  The second's are left in."""
+    import numpy as np
+    from bayesian_coresets_tpu_torch.ops import graphs
+
+    st = graphs.statics_of(tuple(second))
+    if st is None:
+        raise AssertionError("main rebuild: no static copies for the constants' shape")
+    times = []
+    for i in range(2 * reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        copied = st.load(tuple(first if i % 2 == 0 else second))
+        end.record()
+        end.synchronize()
+        if not copied:
+            raise AssertionError("main rebuild: a load of other constants copied nothing")
+        times.append(start.elapsed_time(end))
+    nbytes = sum(t.numel() * t.element_size() for t in {id(t): t for t in st.tensors}.values())
+    return {"ms": float(np.median(times)), "bytes": nbytes,
+            "bound_ms": _bound(2 * nbytes, 0, "float32")[0]}
 
 
 def _slots(state):
@@ -1576,9 +1687,17 @@ def _nuts_windows(torch, smi, zc, wc, res):
             raise AssertionError(f"nuts: the profiler recorded no device time ({key})")
 
 
-def phase_optimize(torch, coreset):
+def _pad(act) -> int:
+    """The padded size ``SparseNNLS.optimize`` solves an active set at."""
+    import numpy as np
+    return 1 << max(3, int(np.ceil(np.log2(act.size))))
+
+
+def phase_optimize(torch, coreset, rebuilt):
     """HilbertCoreset.optimize() (FISTA on the card), then the exact host
-    solver on the same active set."""
+    solver on the same active set; then optimize() on phase 6's rebuild,
+    which replays the graph of the first's padded size where it has the
+    same one."""
     import numpy as np
     from bayesian_coresets_tpu_torch import native
     from bayesian_coresets_tpu_torch.ops import snnls
@@ -1596,7 +1715,7 @@ def phase_optimize(torch, coreset):
     t_fista = time.perf_counter() - t0
     caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
     # the same solve from the same state again: a replay of its graph
-    idcs = np.zeros(1 << max(3, int(np.ceil(np.log2(act.size)))), dtype=np.int32)
+    idcs = np.zeros(_pad(act), dtype=np.int32)
     idcs[:act.size] = act
     idcs = torch.as_tensor(idcs, device="cuda")
     torch.cuda.synchronize()
@@ -1626,6 +1745,46 @@ def phase_optimize(torch, coreset):
         fista_atoms=coreset.size(), fista_s=f"{t_fista:.4f}", graphs_captured=caps,
         capture_s=f"{cap_s:.4f}", fista_replay_s=f"{t_replay:.4f}", exact_err=f"{e2:.6e}",
         exact_atoms=sn.size(), exact_s=f"{t_exact:.4f}", gxx_build_s=f"{t_gxx:.3f}")
+    _optimize_rebuild(torch, rebuilt, _pad(act))
+
+
+def _optimize_rebuild(torch, rebuilt, first_pad):
+    """optimize() on phase 6's rebuild: no capture where its padded size is
+    the first coreset's, and the weights of the same solve run uncaptured
+    on its own constants bit for bit."""
+    import numpy as np
+    from bayesian_coresets_tpu_torch.ops import snnls
+    from bayesian_coresets_tpu_torch.utils import config
+
+    sn = rebuilt.snnls
+    bnorm = float(sn.consts.bnorm)
+    e0, st0, act = sn.error() / bnorm, sn.state, np.sort(sn.active()[0])
+    idcs = np.zeros(_pad(act), dtype=np.int32)
+    idcs[:act.size] = act
+    idcs = torch.as_tensor(idcs, device="cuda")
+    caps0, cap_s0 = _graph_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rebuilt.optimize()
+    torch.cuda.synchronize()
+    t_fista = time.perf_counter() - t0
+    caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
+    w, _, done, _ = snnls._optimize_core(sn.consts, st0.w, st0.xw, st0.done, idcs, act.size,
+                                         config.TOL, 512)
+    e1 = sn.error() / bnorm
+    if caps != (0 if _pad(act) == first_pad else 1):
+        raise AssertionError(f"optimize rebuild: {caps} graphs captured at padded size "
+                             f"{_pad(act)} (the first coreset's {first_pad})")
+    if not torch.equal(sn.state.w.view(torch.int32), w.view(torch.int32)) \
+            or bool(sn.state.done) != bool(done):
+        raise AssertionError("optimize rebuild: the replayed solve's weights differ from the "
+                             "same solve run uncaptured")
+    if sn.reached_numeric_limit or not e1 <= e0 * (1.0 + 1e-6):
+        raise AssertionError(f"optimize rebuild: error/|b| {e0} -> {e1}, "
+                             f"latched={sn.reached_numeric_limit}")
+    say("optimize_rebuild", atoms_before=act.size, pad=_pad(act), first_pad=first_pad,
+        err_before=f"{e0:.6e}", fista_err=f"{e1:.6e}", fista_s=f"{t_fista:.4f}",
+        graphs_captured=caps, capture_s=f"{cap_s:.4f}", uncaptured_bit_identical=True)
 
 
 def _gaussian_data(torch, N, d, dev):
@@ -3859,14 +4018,16 @@ def main() -> int:
     from bayesian_coresets_tpu_torch.ops import giga_select as gs
     from bayesian_coresets_tpu_torch.ops import packed_select as ps
     gs.launches = ps.launches = 0
-    launches, wts, pts, coreset, Z, projector, ref6 = phase_main(torch, smi)
+    launches, wts, pts, coreset, Z, projector, ref6, (rebuilt, rb_launches) = \
+        phase_main(torch, smi)
     if ps.launches:
         raise AssertionError("main path: the packed select kernel was launched")
     gs.launches = ps.launches = 0
     phase_nuts(torch, smi, wts, pts)
     say("nuts_launches", giga_select=gs.launches, packed_select=ps.launches)
     gs.launches = ps.launches = 0
-    phase_optimize(torch, coreset)
+    phase_optimize(torch, coreset, rebuilt)
+    del rebuilt
     phase_svi(torch, smi)
     phase_svi_parity(torch)
     phase_bpsvi(torch, smi)
@@ -3892,12 +4053,14 @@ def main() -> int:
                              "count: the kernels line takes the ranks' counts")
     if ps.launches:
         raise AssertionError("a solver's path launched the packed select kernel")
-    say("select_launches_by_path", giga=launches, frankwolfe=fw_launches, omp=omp_launches,
+    say("select_launches_by_path", giga=launches, giga_rebuild=rb_launches,
+        frankwolfe=fw_launches, omp=omp_launches,
         sampling=0, poisson_giga=pois_launches, streamed_giga_N8M=st_launches,
         quality_arms_N1M=stq_launches, streamed_omp_N1M=st_omp_launches,
         streamed_sampling_N1M=0, wide_giga_fw_S16384=wide_launches,
         experiments=exp_launches, sharded_ranks=sharded_launches)
-    launches += (fw_launches + omp_launches + pois_launches + st_launches + stq_launches
+    launches += (rb_launches + fw_launches + omp_launches + pois_launches + st_launches
+                 + stq_launches
                  + st_omp_launches + wide_launches + exp_launches + sharded_launches)
     max_err = max(max_err, st_select[5], exp_err)
     from bayesian_coresets_tpu_torch import native

@@ -19,7 +19,10 @@ and last rows and 100 calls back to back; builds, NUTS and SparseVI's and
 BatchPSVI's Adam steps replayed as CUDA graphs against their direct runs,
 bit for bit (the Adam steps on the exact, basis, logistic warm-Laplace and
 linear-regression black-box families, tails, resumed builds), a capture
-that raises on a host read, posterior refits that read nothing, and the
+that raises on a host read, posterior refits that read nothing, builds
+and re-solves on new constants of one shape that replay the graph sets of
+the first (each its own one-iteration build bit for bit, the sets freed
+with the last constants of their shape), and the
 ``logistic_poisson --model poiss`` and ``linear_regression`` drivers'
 Adam steps replayed with no host read.
 
@@ -29,6 +32,7 @@ JAX, so it also runs where JAX is absent; there, skip the JAX conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import gc
 import warnings
 
 import numpy as np
@@ -1393,6 +1397,119 @@ def test_replayed_build_launches_the_fold_once_per_iteration(cuda_device):
         snnls.build(c, snnls.init_state(c, 256), 70, 1e-6, method=method,
                     draws=_gen(cuda_device, method))
         assert fs.launches - before == per * (snnls.itrs_run - ran) == per * 70
+
+
+# ------------------- one graph set per shape (ops/graphs.py: set_key, Statics)
+
+
+def _gen_at(gen, seed=3):
+    return None if gen is None else gen.manual_seed(seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,kind", [
+    ("giga", "int8"), ("giga", "float32"), ("giga", "bfloat16"), ("frankwolfe", "int8"),
+    ("orthopursuit", "int8"), ("importance", "float32"), ("uniform", "int8")])
+def test_shared_build_on_new_constants_captures_nothing(method, kind, cuda_device):
+    """Two constants of one shape from other data: the second replayed build
+    captures no graph, each build equals its own one-iteration build bit
+    for bit, and the first constants' tensors are left as they were (a
+    sampling build draws from one generator, reseeded)."""
+    from bayesian_coresets_tpu_torch.ops import graphs
+    gc.collect()
+    itrs = 30 if method == "orthopursuit" else 150
+    a, b = (_graph_consts(kind, method, cuda_device, seed=seed) for seed in (1, 2))
+    a0 = [t.clone() for t in a]
+    gen, outs, caps = _gen(cuda_device, method), [], []
+    for c in (a, b):
+        before = graphs.captures
+        outs.append(snnls.build(c, snnls.init_state(c, 256), itrs, 1e-6, method=method,
+                                draws=_gen_at(gen)))
+        caps.append(graphs.captures - before)
+    assert caps[0] > 0 and caps[1] == 0
+    for c, out in zip((a, b), outs):
+        ref = snnls.build(c, snnls.init_state(c, 256), itrs, 1e-6, method=method,
+                          draws=_gen(cuda_device, method), segment=1)
+        _same_state(out, ref)
+    assert all(torch.equal(x, y) for x, y in zip(a, a0))
+
+
+@pytest.mark.cuda
+def test_interleaved_constants_read_their_own(cuda_device):
+    """Builds on constants A, B, A of one shape: each equals its own
+    one-iteration build bit for bit; only the first captures."""
+    from bayesian_coresets_tpu_torch.ops import graphs
+    gc.collect()
+    a, b = (_graph_consts("int8", "giga", cuda_device, seed=seed) for seed in (1, 2))
+    refs = [snnls.build(c, snnls.init_state(c, 256), 150, 1e-6, segment=1) for c in (a, b)]
+    caps = []
+    for c, ref in ((a, refs[0]), (b, refs[1]), (a, refs[0])):
+        before = graphs.captures
+        _same_state(snnls.build(c, snnls.init_state(c, 256), 150, 1e-6), ref)
+        caps.append(graphs.captures - before)
+    assert caps[0] > 0 and caps[1:] == [0, 0]
+    assert not torch.equal(refs[0].w, refs[1].w)
+
+
+@pytest.mark.cuda
+def test_optimize_on_a_second_coreset_captures_nothing(cuda_device):
+    """optimize_active on a coreset of constants of the first's shape, at
+    the same padded size: no capture, and the uncaptured solve's result bit
+    for bit."""
+    from bayesian_coresets_tpu_torch.ops import graphs
+    gc.collect()
+    both = [_graph_consts("int8", "giga", cuda_device, seed=seed) for seed in (1, 2)]
+    for i, c in enumerate(both):
+        s = snnls.build(c, snnls.init_state(c, 256), 40, 1e-6)
+        size = int(s.size)
+        idcs = torch.zeros(64, dtype=torch.int32, device=cuda_device)
+        idcs[:size] = s.idcs[:size]
+        caps = graphs.captures
+        out, ok = snnls.optimize_active(c, s, idcs, size, 1e-6)
+        assert graphs.captures - caps == (1 if i == 0 else 0)
+        w, xw, done, ok2 = snnls._optimize_core(c, s.w, s.xw, s.done, idcs, size, 1e-6, 512)
+        torch.cuda.synchronize()
+        assert torch.equal(out.w.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(out.xw.view(torch.int32), xw.view(torch.int32))
+        assert bool(out.done) == bool(done) and bool(ok) == bool(ok2)
+
+
+@pytest.mark.cuda
+def test_dropping_the_constants_of_a_shape_frees_its_set(cuda_device):
+    """Once every constants of a shape is gone, so are the static copies,
+    the graph sets on them and their memory."""
+    from bayesian_coresets_tpu_torch.ops import graphs
+    warm = _graph_consts("int8", "giga", cuda_device, n=2000)   # the stream's own state
+    snnls.build(warm, snnls.init_state(warm, 256), 70, 1e-6)
+    del warm
+    gc.collect()
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated()
+    a, b = (_graph_consts("int8", "giga", cuda_device, seed=seed) for seed in (1, 2))
+    key = (graphs._stream(a.V.device), graphs.layout(tuple(a)))
+    for c in (a, b):
+        snnls.build(c, snnls.init_state(c, 256), 70, 1e-6)
+    assert len(graphs._statics[key].users) == 2 and graphs._statics[key].sets
+    del a, c
+    gc.collect()
+    assert key in graphs._statics
+    del b
+    gc.collect()
+    torch.cuda.synchronize()
+    assert key not in graphs._statics and torch.cuda.memory_allocated() == mem
+
+
+@pytest.mark.cuda
+def test_int8_resident_constants_capture_their_own(cuda_device):
+    """int8-resident constants of one shape keep sets of their own: the
+    second captures again, and each equals its one-iteration build."""
+    from bayesian_coresets_tpu_torch.ops import graphs
+    for seed in (1, 2):
+        c = _graph_consts("int8_resident", "giga", cuda_device, seed=seed)
+        ref = snnls.build(c, snnls.init_state(c, 256), 150, 1e-6, segment=1)
+        caps = graphs.captures
+        _same_state(snnls.build(c, snnls.init_state(c, 256), 150, 1e-6), ref)
+        assert graphs.captures > caps
 
 
 # ------------------------------------------- NUTS as replayed CUDA graphs

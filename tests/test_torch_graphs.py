@@ -12,7 +12,16 @@ segments are held to the JAX package's ``build`` with the tolerances of
 ``tests/test_torch_solvers.py`` (Frank-Wolfe: rtol 1e-5, atol 1e-6).  A
 segment and the re-solve run under a dispatch mode that raises on every op
 that reads a value back to the host.
+
+A build's graph set is keyed by the shape of the problem (``ops/graphs.py``:
+``layout``, ``set_key``), as the JAX package compiles ``build`` once per
+shape, and its graphs read static copies of the constants (``Statics``).
+The key, the copies and their lifetime are held here; a stand-in for a
+captured graph, which replays the work it first saw, holds interleaved
+constants of one shape to their own direct builds bit for bit.
 """
+
+import gc
 
 import numpy as np
 import pytest
@@ -43,8 +52,8 @@ def _problem(seed=0, S=64, n=300):
     return A, A.sum(axis=1)
 
 
-def _consts(method, sd=None, seed=0, S=64):
-    A, b = _problem(seed, S=S)
+def _consts(method, sd=None, seed=0, S=64, n=300):
+    A, b = _problem(seed, S=S, n=n)
     sampling = method if method in SAMPLING else None
     return tsn.make_consts(torch.as_tensor(A), torch.as_tensor(b), select_dtype=sd,
                            sampling=sampling)
@@ -239,3 +248,184 @@ def test_copy_into_skips_buffers_updated_in_place():
     graphs.copy_into(bufs, [same, torch.ones(2)])
     assert torch.equal(bufs[0], torch.ones(3)) and torch.equal(bufs[1], torch.ones(2))
 
+
+
+# ------------------------------------------------ one graph set per shape
+
+
+def _key(c, method="giga", tol=1e-6, stream=(0, 1)):
+    """The key of the graph set that a replayed build of ``c`` runs in."""
+    carry = tsn._carry(c, tsn.init_state(c, 64), 10)
+    return graphs.set_key(tuple(c), tsn._build_key(method, tol, 64, carry), stream,
+                          tsn._shares_graphs(c))
+
+
+@pytest.mark.parametrize("sd", [None, torch.bfloat16, torch.int8])
+def test_one_key_for_constants_of_one_layout(sd):
+    """Two constants of one shape, dtype, strides and aliasing, from other
+    data: one shared set."""
+    a, b = _consts("giga", sd, seed=0), _consts("giga", sd, seed=1)
+    assert not torch.equal(a.V, b.V)
+    assert (a.Vsel is a.V) == (sd is None) == (b.Vsel is b.V)
+    assert _key(a) == _key(b) and _key(a)[0] is True
+
+
+def _other(name, c):
+    """(constants, method, tol) that differ from (``c``, giga, 1e-6) in one
+    thing only."""
+    if name == "dtype":                  # int8 and bf16 select copies of one shape
+        return _consts("giga", torch.bfloat16), "giga", 1e-6
+    if name == "shape":
+        return _consts("giga", torch.int8, n=301), "giga", 1e-6
+    if name == "aliasing":               # f32: Vsel is V, against a copy of V
+        return c._replace(Vsel=c.V.clone()), "giga", 1e-6
+    if name == "method":
+        return c, "frankwolfe", 1e-6
+    return c, "giga", 1e-5
+
+
+@pytest.mark.parametrize("name", ["dtype", "shape", "aliasing", "method", "tol", "stream"])
+def test_keys_differ_in_layout_method_tol_and_stream(name):
+    c = _consts("giga", None if name == "aliasing" else torch.int8)
+    if name == "stream":
+        assert _key(c) != _key(c, stream=(0, 2))
+        return
+    other, method, tol = _other(name, c)
+    assert _key(c) != _key(other, method, tol)
+
+
+def test_int8_resident_constants_keep_sets_of_their_own():
+    """int8-resident constants are not copied: their key says so (as for
+    constants with a tensor that is not contiguous)."""
+    from bayesian_coresets_tpu_torch.parallel import quantize_chunk
+    A, _ = _problem()
+    q, nrm, bsum = quantize_chunk(torch.as_tensor(A).T.contiguous(), A.shape[1])
+    cq = tsn.make_consts_quantized(q, nrm, bsum.float())
+    assert cq.Vsel is cq.V and not tsn._shares_graphs(cq) and _key(cq)[0] is False
+    c = _consts("giga", torch.int8)
+    assert tsn._shares_graphs(c)
+    strided = c._replace(b=torch.stack([c.b, c.b], dim=1)[:, 0])
+    assert torch.equal(strided.b, c.b) and not tsn._shares_graphs(strided)
+
+
+def _same_values(xs, ys):
+    return all(torch.equal(x, y) for x, y in zip(xs, ys, strict=True))
+
+
+def test_statics_copy_in_only_other_constants():
+    """Static copies keep ``Vsel is V`` as one buffer, take each constants'
+    values, copy nothing for the constants copied in last, copy again after
+    another constants or a write, and never write the caller's tensors."""
+    a, b = _consts("giga", seed=0), _consts("giga", seed=1)
+    a0, b0 = [t.clone() for t in a], [t.clone() for t in b]
+    st = graphs.Statics(tuple(a), "k")
+    assert st.tensors[6] is st.tensors[0] and len({id(t) for t in st.tensors}) == 6
+    assert st.load(tuple(a)) and not st.load(tuple(a)) and _same_values(st.tensors, a)
+    assert st.load(tuple(b)) and not st.load(tuple(b)) and _same_values(st.tensors, b)
+    assert st.load(tuple(a)) and _same_values(st.tensors, a) and st.loads == 3
+    a.b.mul_(2.0)                        # written since it was copied in
+    assert st.load(tuple(a)) and torch.equal(st.tensors[1], a.b)
+    a.b.div_(2.0)
+    assert _same_values(a, a0) and _same_values(b, b0)
+
+
+def test_statics_go_with_their_last_user():
+    a, b = _consts("giga", seed=0), _consts("giga", seed=1)
+    key = ("test", graphs.layout(tuple(a)))
+    st = graphs._statics_for(tuple(a), key)
+    assert graphs._statics_for(tuple(b), key) is st and len(st.users) == 2
+    del a
+    gc.collect()
+    assert graphs._statics.get(key) is st and len(st.users) == 1
+    del b
+    assert key not in graphs._statics
+
+
+class _FirstWork:
+    """Stands in for ``ops.graphs.Graph`` on the CPU: it runs, at every
+    replay, the work it was made with, as a CUDA graph replays the kernels,
+    and the tensors, that it captured; ``made`` counts the captures."""
+
+    made = 0
+
+    def __init__(self, fn, stream, pool, generators=()):
+        type(self).made += 1
+        self.fn = fn
+
+    def replay(self):
+        self.fn()
+
+
+@pytest.fixture
+def cpu_graphs(monkeypatch):
+    monkeypatch.setattr(graphs, "Graph", _FirstWork)
+    monkeypatch.setattr(graphs, "side_stream", lambda dev: None)
+    monkeypatch.setattr(graphs, "_stream", lambda dev: (-1, 0))
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    _FirstWork.made = 0
+
+
+def _replayed(c, itrs, method, gen=None):
+    """A build's replay loop (``build`` replays on a CUDA device only), the
+    carry copied out; a sampling build draws from ``gen``, seeded as
+    :func:`_draws` seeds its generator."""
+    s = tsn.init_state(c, 128)
+    carry = tsn._carry(c, s, itrs)
+    step, st = tsn._replayer(c, carry, method, 1e-6, gen and gen.manual_seed(11), 64)
+    for _, n, refresh in tsn.segments(0, itrs):
+        st = step(st, n, refresh)
+    return tsn._Carry(*(t.clone() for t in st))
+
+
+def _direct(c, itrs, method):
+    s = tsn.init_state(c, 128)
+    nsum, cdf = tsn._derived(c, method)
+    draws = tsn.as_draws(_draws(method)) if cdf is not None else None
+    p = tsn._Problem(c, method, 1e-6, 64, None, draws, cdf, None, nsum)
+    carry = tsn._carry(c, s, itrs)._replace(w=s.w.clone(), cts=s.cts.clone())
+    for _, n, refresh in tsn.segments(0, itrs):
+        carry = tsn._segment(p, carry, n, refresh)
+    return carry
+
+
+def _same_carry(a, b):
+    for name, x, y in zip(tsn._Carry._fields, a, b, strict=True):
+        if x.is_floating_point():
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("method,kind", [("giga", "int8"), ("giga", "float32"),
+                                         ("frankwolfe", "int8"), ("orthopursuit", "int8"),
+                                         ("importance", "float32"), ("uniform", "float32")])
+def test_interleaved_constants_of_one_shape_read_their_own(method, kind, cpu_graphs):
+    """Constants A, B, A of one shape through one graph set whose stand-in
+    graphs replay the work of A's build: each build equals its own direct
+    build bit for bit (every tensor the work reads, derived ones included,
+    is a static copy), and only A's first build captures (the sampling
+    builds draw from one generator, reseeded)."""
+    S = 128 if method == "orthopursuit" else 64
+    itrs = 20 if method == "orthopursuit" else 150
+    sd = torch.int8 if kind == "int8" else None         # float32: Vsel is V
+    a, b = (_consts(method, sd, seed=k, S=S) for k in (0, 1))
+    refs = {k: _direct(c, itrs, method) for k, c in (("a", a), ("b", b))}
+    gen, made = _draws(method), []
+    for k, c in (("a", a), ("b", b), ("a", a)):
+        _same_carry(_replayed(c, itrs, method, gen), refs[k])
+        made.append(_FirstWork.made)
+    assert made[0] > 0 and made[1] == made[2] == made[0]
+    assert not torch.equal(refs["a"].xw, refs["b"].xw)
+
+
+def test_int8_resident_constants_capture_their_own(cpu_graphs):
+    """Two int8-resident constants of one shape: the second captures sets of
+    its own, and each equals its direct build."""
+    from bayesian_coresets_tpu_torch.parallel import quantize_chunk
+    made = []
+    for seed in (0, 1):
+        A, _ = _problem(seed)
+        q, nrm, bsum = quantize_chunk(torch.as_tensor(A).T.contiguous(), A.shape[1])
+        c = tsn.make_consts_quantized(q, nrm, bsum.float())
+        _same_carry(_replayed(c, 100, "giga"), _direct(c, 100, "giga"))
+        made.append(_FirstWork.made)
+    assert 0 < made[0] < made[1]
