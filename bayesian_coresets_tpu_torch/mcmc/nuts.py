@@ -314,7 +314,8 @@ class Transitions:
             rows = 1 << (self.max_depth - 1)
             static = static._replace(sub=static.sub._replace(
                 u=static.sub.u.new_empty((rows,) + tuple(static.sub.u.shape[1:]))))
-            self.replayer = cuda_graphs.Graphs((), static, None, self.draws.gen, warm=True)
+            self.replayer = cuda_graphs.Graphs((), static, None, self.draws.gen, warm=True,
+                                               kind="nuts")
             return _end(c)
         st = self.replayer.static
         cuda_graphs.copy_into(st[:6], c[:6])

@@ -38,22 +38,35 @@ segment; :mod:`.opt` replays segments of Adam steps (the JAX package's
   they are the ones copied in last (the same tensor objects, not written
   since), and what the work derives from the constants alone (Frank-Wolfe's
   norm sum, the sampling solvers' cdf) is made again into its static
-  buffers.  The constants passed in are only read.  The static copies and
-  their sets go when every constants that used them has (weak references
-  to each user's ``V``).  A set serves one generator: a build that draws
-  from another makes it again.
+  buffers.  The constants passed in are only read.  A shared set's graphs
+  draw from a generator of the set's own: the caller loads its
+  generator's state into it before the replays and takes it back after
+  (the JAX package passes the key as an argument), so one set serves
+  every generator.
+- **Retired, not dropped.**  When the last constants that used the static
+  copies die (weak references to each user's ``V``), the copies and their
+  sets are retired: kept while the retired copies and their sets' static
+  buffers (``retained_bytes``) fit in :data:`RETAINED_SHARE` of the
+  device's memory.  New constants of the layout revive them
+  (``revivals``: one copy-in, no capture).  Past the budget the least
+  recently retired are dropped first, at the next :func:`graphs_for`,
+  never in the weak reference's callback, which may run inside a capture;
+  :func:`release` drops them all.
 - **Sets of their own.**  int8-resident constants (``V`` the int8 select
   copy, up to 4.1 GB at N=8M) are not copied: their sets read the
   constants themselves, hang off their ``V`` (a weak key) and are made
-  again when any other tensor of the constants is not the one they were
-  captured with.  ``nn_opt``'s sets hang off the data alike.
+  again when any other tensor of the constants, or the generator, is not
+  the one they were captured with.  ``nn_opt``'s sets hang off the data
+  alike.
 - **Capture stream.**  Each caller stream has a side stream of its own,
   made and warmed once before its first capture: the select kernels'
   workspace for that stream (:func:`.giga_select.workspace`) and its
   cuBLAS handle are made there outside any capture.  Captures use
   ``capture_error_mode="global"``, so a host read or a synchronizing call
   inside one raises.  Replays run on the caller's current stream.
-  ``capture_s`` and ``instantiate_s`` time the two halves of a capture.
+  ``capture_s`` and ``instantiate_s`` time the two halves of a capture;
+  ``captures_by_kind`` and ``capture_s_by_kind`` split the captures by
+  the kind of their set (``build``, ``optimize``, ``nn_opt``, ``nuts``).
 - **Generators.**  A generator that the captured work draws from is
   registered with the graph (``CUDAGraph.register_generator_state``; the
   default generator registers itself), so every replay draws what the same
@@ -74,9 +87,11 @@ segment; :mod:`.opt` replays segments of Adam steps (the JAX package's
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 import weakref
+from collections import OrderedDict
 
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
@@ -89,6 +104,14 @@ capture_s = 0.0     # seconds spent capturing them (recording the work)
 instantiate_s = 0.0     # seconds spent instantiating them
 replays = 0         # graph replays
 loads = 0           # constants copied into static copies (Statics.load)
+revivals = 0        # retired static copies taken up again by new constants
+retained_bytes = 0  # bytes the retired static copies and their sets' buffers hold
+captures_by_kind: dict[str, int] = {}       # graphs captured, by their set's kind
+capture_s_by_kind: dict[str, float] = {}    # their capture plus instantiate seconds
+
+# the share of a device's memory that retired static copies and their
+# sets' static buffers may hold (10 GB of an H100 80GB)
+RETAINED_SHARE = 1 / 8
 
 # the hand-written kernels' launch counters: (module, name)
 _COUNTERS = ((gs, "launches"), (gs, "dots_launches"), (gs, "score_launches"),
@@ -96,7 +119,8 @@ _COUNTERS = ((gs, "launches"), (gs, "dots_launches"), (gs, "score_launches"),
 
 _sides: dict[tuple[int, int], torch.cuda.Stream] = {}
 _own = WeakIdKeyDictionary()        # constants' V -> {key: Graphs}, sets of their own
-_statics: dict = {}                 # (caller stream, layout) -> Statics
+_statics: dict = {}                 # (caller stream, layout) -> Statics, live or retired
+_retired: OrderedDict = OrderedDict()   # key of a retired Statics -> (device, bytes), oldest first
 
 
 def _counts() -> tuple[int, ...]:
@@ -177,13 +201,16 @@ class Graphs:
     a set of its own also remembers the ``tensors`` it was captured with),
     their static buffers ``static``, values derived from the constants
     (``derived``), the static copies of the constants that a shared set's
-    graphs read (``consts``; None for a set of its own), and their shared
-    memory pool.  ``warm``: run each key's work once directly before
-    capturing it."""
+    graphs read (``consts``; None for a set of its own), the generator that
+    they draw from (``gen``), and their shared memory pool.  ``warm``: run
+    each key's work once directly before capturing it.  ``kind`` names the
+    set's work in ``captures_by_kind``."""
 
-    def __init__(self, tensors, static, derived, gen, warm: bool = False, consts=None):
+    def __init__(self, tensors, static, derived, gen, warm: bool = False, consts=None, *,
+                 kind: str):
         self.refs = tuple(weakref.ref(t) for t in tensors)
         self.gen = gen
+        self.kind = kind
         self.static = static
         self.derived = derived
         self.derived_at = None      # the Statics.loads that ``derived`` was made at
@@ -211,8 +238,12 @@ class Graphs:
                     fn()
                 caller.wait_stream(self.stream)
                 return
+            t0 = capture_s + instantiate_s
             g = Graph(fn, self.stream, self.pool, () if self.gen is None else (self.gen,))
             self.graphs[key] = g
+            captures_by_kind[self.kind] = captures_by_kind.get(self.kind, 0) + 1
+            capture_s_by_kind[self.kind] = (capture_s_by_kind.get(self.kind, 0.0)
+                                            + capture_s + instantiate_s - t0)
         g.replay()
 
 
@@ -238,12 +269,13 @@ def set_key(tensors, key, stream, shared: bool) -> tuple:
 class Statics:
     """Static copies of constants of one layout on one caller stream, which
     the graphs of every shared set on them (``sets``, by :func:`set_key`)
-    read, and the constants that have used them (``users``: weak
-    references to each one's anchor, whose death drops the copies once
-    none is left).  Needs no CUDA."""
+    read, and the constants that use them (``users``: weak references to
+    each one's anchor, whose death retires the copies once none is left).
+    Needs no CUDA."""
 
     def __init__(self, tensors, key):
         self.key = key
+        self.device = tensors[0].device
         aliases = [alias for *_, alias in layout(tensors)]
         bufs = []
         for t, alias in zip(tensors, aliases):
@@ -275,26 +307,81 @@ class Statics:
         loads += 1
         return True
 
+    def nbytes(self) -> int:
+        """Bytes of the static copies and of their sets' static buffers and
+        derived values."""
+        ts = [self.tensors[i] for i in self.distinct]
+        for e in self.sets.values():
+            ts.extend(_tensors((e.static, e.derived)))
+        return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _recount() -> None:
+    global retained_bytes
+    retained_bytes = sum(n for _, n in _retired.values())
+
 
 def _drop_user(key, uid, ref) -> None:
-    """A user's anchor died: forget it, and drop the static copies and
-    their sets with the last one."""
+    """A user's anchor died: forget it, and retire the static copies and
+    their sets with the last one.  It frees nothing: it may run at any
+    point, inside a capture too."""
     if _statics is None:                # the interpreter is shutting down
         return
     st = _statics.get(key)
     if st is not None and st.users.get(uid) is ref:
         del st.users[uid]
         if not st.users:
-            del _statics[key]
+            _retired[key] = (st.device, st.nbytes())
+            _recount()
+
+
+def _drop(key) -> None:
+    """Drop a retired entry: its static copies, its sets and their graphs."""
+    del _retired[key]
+    del _statics[key]
+
+
+def _evict() -> None:
+    """Drop the oldest retired entries of each device until the rest fit in
+    :data:`RETAINED_SHARE` of its memory."""
+    held: dict = {}
+    for dev, n in _retired.values():
+        held[dev] = held.get(dev, 0) + n
+    for key, (dev, n) in list(_retired.items()):
+        if held[dev] > RETAINED_SHARE * _memory(dev):
+            _drop(key)
+            held[dev] -= n
+    _recount()
+
+
+def _memory(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).total_memory
+
+
+def release() -> None:
+    """Drop every retired entry and return the device memory it held: the
+    graphs' pools and the cached blocks go back to the device."""
+    while _retired:
+        _drop(next(iter(_retired)))
+    _recount()
+    torch.cuda.empty_cache()
 
 
 def _statics_for(tensors, key) -> Statics:
-    """The :class:`Statics` under ``key``, made where there is none, with
-    ``tensors`` (anchored on the first) among its users and copied in."""
+    """The :class:`Statics` under ``key``, with ``tensors`` (anchored on the
+    first) among its users and copied in: a retired one is revived, and
+    one is made where there is none (after the retired entries over the
+    budget are dropped)."""
+    global revivals
     st = _statics.get(key)
+    if st is not None:
+        st.use(tensors[0])              # a live user first: nothing retires it now
+        if _retired.pop(key, None) is not None:
+            revivals += 1
+    _evict()
     if st is None:
         st = _statics[key] = Statics(tensors, key)
-    st.use(tensors[0])
+        st.use(tensors[0])
     st.load(tensors)
     return st
 
@@ -313,31 +400,37 @@ def graphs_for(tensors, key, gen, make_static, make_derived=lambda consts: None,
                warm: bool = False, shared: bool = False) -> Graphs:
     """The :class:`Graphs` of the constants ``tensors`` (the first one the
     anchor, the constants' ``V``) under ``key`` on the current stream, made
-    with ``make_static()`` and ``warm`` where there is none or it serves
-    another generator than ``gen``.  ``make_derived(constants)`` makes
-    ``derived`` from the constants the graphs read.
+    with ``make_static()`` and ``warm`` where there is none.
+    ``make_derived(constants)`` makes ``derived`` from the constants the
+    graphs read.  ``key[0]`` names the set's kind (``captures_by_kind``).
 
     ``shared``: the set is shared by every constants of ``tensors``' layout
     (:func:`set_key`) and its graphs read the static copies ``consts``
     (:class:`Statics`), which ``tensors`` are copied into first where they
     are not the ones copied in last; ``derived`` is then made again into
-    its buffers.  Otherwise the set is the constants' own: its graphs read
-    ``tensors`` themselves, and it is made again when any of them is not
-    the one it was captured with."""
+    its buffers.  Where ``gen`` is not None its graphs draw from a
+    generator of the set's own on the constants' device, which the caller
+    loads with ``gen``'s state before the replays and takes it back from
+    after (:func:`draw_from`).  Otherwise the set is the constants' own: its
+    graphs read ``tensors`` themselves and draw from ``gen``, and it is
+    made again when any of them is not the one it was captured with."""
     anchor = tensors[0]
     k = set_key(tensors, key, _stream(anchor.device), shared)
     if shared:
         st = _statics_for(tensors, k[2:])
         sets, consts, at = st.sets, st.tensors, st.loads
     else:
+        _evict()
         sets = _own.get(anchor)
         if sets is None:
             sets = _own.setdefault(anchor, {})
         consts, at = tensors, 0
     e = sets.get(k)
-    if e is None or not e.holds(() if shared else tensors, gen):
-        e = sets[k] = Graphs(() if shared else tensors, make_static(), None, gen, warm,
-                             consts if shared else None)
+    if e is None or not (shared or e.holds(tensors, gen)):
+        own = None if gen is None else torch.Generator(device=anchor.device)
+        e = sets[k] = Graphs(() if shared else tensors, make_static(), None,
+                             own if shared else gen, warm, consts if shared else None,
+                             kind=key[0])
     if e.derived_at != at:
         d = make_derived(consts)
         if e.derived_at is None:
@@ -346,6 +439,21 @@ def graphs_for(tensors, key, gen, make_static, make_derived=lambda consts: None,
             copy_into(e.derived, d)
         e.derived_at = at
     return e
+
+
+@contextlib.contextmanager
+def draw_from(e: Graphs, gen):
+    """Replays of ``e`` inside the block draw what ``gen`` would draw: a
+    generator of the set's own is loaded with ``gen``'s state (its seed and
+    offset, which a CUDA generator keeps on the host) before, and ``gen``
+    takes the state it reached back after.  A set that draws from ``gen``
+    itself (or from none) needs neither."""
+    own = e.gen is not gen
+    if own:
+        e.gen.set_state(gen.get_state())
+    yield
+    if own:
+        gen.set_state(e.gen.get_state())
 
 
 def copy_into(static, values) -> None:

@@ -189,7 +189,8 @@ def _replay(grad_fn, gen, hyper, plan, s: State, p: Sched, cache) -> State:
                          f"device ({dev}); got {gen!r} (pass graphs=False to run the steps "
                          "directly)")
     if cache is None:
-        e = cuda_graphs.Graphs((), cuda_graphs.empty_like((s, p)), None, gen, warm=True)
+        e = cuda_graphs.Graphs((), cuda_graphs.empty_like((s, p)), None, gen, warm=True,
+                               kind="nn_opt")
     else:
         tensors, key = cache
         key = ("nn_opt", hyper, _shapes((s, p))) + tuple(key)

@@ -39,10 +39,11 @@ so that a segment that outlives the build or latches ``done`` half-way
 changes nothing more.  :func:`build` walks the segments of
 :func:`segments` (the refresh begins a segment, at multiples of
 ``REFRESH_EVERY``) and reads back one pair (``done``, ``itr``) per segment.
-On a CUDA device without ``comm`` each segment is a replayed CUDA graph
-(:mod:`.graphs`); on CPU tensors and in sharded builds the segments are one
-iteration long and run directly.  The weight vector (the sampling solvers'
-counts) is updated in place: ``build`` copies it once on entry.
+On a CUDA device without ``comm`` each segment replays the CUDA graphs of
+its :func:`pieces` (:mod:`.graphs`); on CPU tensors and in sharded builds
+the segments are one iteration long and run directly.  The weight vector
+(the sampling solvers' counts) is updated in place: ``build`` copies it
+once on entry.
 
 The O(S) and O(K*S) reductions of the step (the scalar cache, the reweight
 dots, the support refresh) accumulate in float64 and round to float32, and
@@ -56,6 +57,7 @@ multiplies by its reciprocal, which the CPU does not.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 from typing import NamedTuple
@@ -898,6 +900,17 @@ def segments(start: int, count: int, length: int = REFRESH_EVERY):
         pos += n
 
 
+def pieces(n: int, refresh: bool) -> list[tuple[int, bool]]:
+    """The pieces that a replayed segment of ``n`` iterations runs as, in
+    order: ``(iterations, begins with the refresh)``, the iterations powers
+    of two, largest first, and only the first beginning with the refresh
+    where the segment does.  So every segment of :func:`segments` is made
+    of at most 2 (log2(length) + 1) graphs: 14 at REFRESH_EVERY, whatever
+    the build's length and start."""
+    lengths = [1 << k for k in reversed(range(n.bit_length())) if n >> k & 1]
+    return [(m, refresh and i == 0) for i, m in enumerate(lengths)]
+
+
 def _segment(p: _Problem, c: _Carry, n: int, refresh: bool) -> _Carry:
     """``n`` iterations of ``p.method`` from ``c`` on device values alone,
     nothing read back to the host: the JAX package's ``build_core`` body
@@ -1031,27 +1044,36 @@ def _graph_set(consts: SNNLSConsts, key, gen, make_static, make_derived=lambda c
     return e, consts if e.consts is None else SNNLSConsts(*e.consts)
 
 
+def _replaying(dev: torch.device, comm, segment: int | None) -> bool:
+    """Whether ``build`` replays CUDA graphs: on a CUDA device, unsharded,
+    unless the segments are one iteration long."""
+    return dev.type == "cuda" and comm is None and segment != 1
+
+
 def _replayer(consts: SNNLSConsts, carry: _Carry, method: str, tol: float, draws,
               matvec_k: int):
-    """A step ``(c, n, refresh) -> c`` that replays the CUDA graph of an
-    ``n``-iteration segment (captured at first use, one per (n, refresh))
-    of the graph set of ``consts``' layout (:func:`_graph_set`), on its
-    static buffers with ``carry`` copied in: the state lives there until it
-    is copied out."""
+    """(a step ``(c, n, refresh) -> c`` that replays an ``n``-iteration
+    segment as the CUDA graphs of its :func:`pieces`, each captured at first
+    use, one per (iterations, refresh), in the graph set of ``consts``'
+    layout (:func:`_graph_set`), on its static buffers with ``carry`` copied
+    in: the state lives there until it is copied out; those buffers; the
+    context inside which the steps draw what ``draws`` would,
+    :func:`.graphs.draw_from`)."""
     gen = _graph_generator(draws, consts.V.device) if method in _SAMPLING else None
     e, sc = _graph_set(consts, _build_key(method, tol, matvec_k, carry), gen,
                        lambda: _Carry(*(torch.empty_like(t) for t in carry)),
                        lambda c: _derived(c, method))
     graphs.copy_into(e.static, carry)
     nsum, cdf = e.derived
-    p = _Problem(sc, method, tol, matvec_k, None, None if gen is None else Draws(gen),
+    p = _Problem(sc, method, tol, matvec_k, None, None if gen is None else Draws(e.gen),
                  cdf, None, nsum)
 
     def step(c, n, refresh):
-        e.run((n, refresh), lambda: graphs.copy_into(c, _segment(p, c, n, refresh)))
+        for m, r in pieces(n, refresh):
+            e.run((m, r), lambda m=m, r=r: graphs.copy_into(c, _segment(p, c, m, r)))
         return c
 
-    return step, e.static
+    return step, e.static, graphs.draw_from(e, gen)
 
 
 def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
@@ -1066,9 +1088,12 @@ def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
     after each segment (none in a sampling build without slots, which
     cannot latch).  ``segment`` is the segments' length.  By default, on a
     CUDA device without ``comm``, segments of 64 iterations (OMP: 4) are
-    replayed as CUDA graphs (:mod:`.graphs`), of one set per layout of the
-    constants, which every constants of that layout share (int8-resident
-    ones keep their own; :func:`_shares_graphs`); on CPU tensors, in sharded
+    replayed, each as the CUDA graphs of its :func:`pieces` (power-of-two
+    lengths, so a set holds at most 14 graphs, OMP's 6, whatever the
+    build's length and start), of one set per layout of the constants,
+    which every constants of that layout and every generator share, and
+    which outlives them (:mod:`.graphs`; int8-resident constants keep sets
+    of their own: :func:`_shares_graphs`); on CPU tensors, in sharded
     builds and with ``segment=1`` they are one iteration long and run
     directly; on CPU tensors any length runs directly.  Every length gives
     the same weights, atoms, ``itr`` and ``done`` bit for bit; when ``done``
@@ -1115,15 +1140,16 @@ def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
         raise ValueError(f"method {method!r} needs constants made with sampling= and a "
                          "state made from them (ps and cts of n entries)")
     dev = consts.V.device
-    replay = dev.type == "cuda" and comm is None and segment != 1
+    replay = _replaying(dev, comm, segment)
     length = segment or (_GRAPH_SEGMENT.get(method, REFRESH_EVERY) if replay else 1)
     first, done = torch.stack([state.itr, state.done.to(state.itr.dtype)]).tolist()
     plan = segments(first, 0 if done else itrs, length)
     latches = not sampling or state.idcs.shape[0] > 0
     carry = _carry(consts, state, first + int(itrs), comm)
     replay = replay and not done and itrs > 0
+    drawing = contextlib.nullcontext()
     if replay:
-        step, c = _replayer(consts, carry, method, tol, draws, matvec_k)
+        step, c, drawing = _replayer(consts, carry, method, tol, draws, matvec_k)
     else:
         nsum, cdf = _derived(consts, method, comm)
         shard_cdf = None
@@ -1136,12 +1162,13 @@ def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
         step = functools.partial(_segment, p)
         c = carry._replace(w=state.w.clone(), cts=state.cts.clone())
     itr = first
-    for start, n, refresh in plan:
-        c = step(c, n, refresh)
-        itrs_run += n
-        itr, done = _read(c, start + n, latches)
-        if done:
-            break
+    with drawing:
+        for start, n, refresh in plan:
+            c = step(c, n, refresh)
+            itrs_run += n
+            itr, done = _read(c, start + n, latches)
+            if done:
+                break
     if replay:                      # out of the static buffers
         c = _Carry(*(t.clone() for t in c))
     s = c.state()

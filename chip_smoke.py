@@ -73,7 +73,17 @@ script exits non-zero without printing the final result line):
    own one-iteration build's bit for bit; it prints the copy of its
    constants into the static copies (CUDA events, beside the bound of
    moving them), projection and build seconds, points/s and the peak
-   allocation;
+   allocation.  The first build captures at most 6 graphs: a replayed
+   segment runs as pieces of power-of-two lengths (``snnls.pieces``), at
+   most 14 per graph set.  After phase 8, with the first coreset and its
+   rebuild dropped (their layout's static copies and sets retired, not
+   freed), the build is walked over ``coreset_size_grid(500, 7, "log")``'s
+   increments, as the drivers build, on a fresh projection (seeded 3) and
+   then another (seeded 4) (``[main_regrid]``): the first walk revives the
+   retired set and captures at most the pieces it lacks (14 keys in all),
+   the second captures nothing, and each equals its one-iteration walk bit
+   for bit (graphs captured, revivals, retained bytes, seconds, ms per
+   iteration and host reads per walk);
 7. NUTS on the coreset: ``mcmc.weighted.run`` on phase 6's coreset with
    1024 chains x (150 warmup + 150 draws) (bench.py:54, 319-322), checked
    for finite samples, split R-hat <= 1.05, divergences <= 1% of the
@@ -202,8 +212,15 @@ script exits non-zero without printing the final result line):
    linear_regression's also the select's time per launch on its own select
    copy, beside its bound); one select launch per GIGA/FW/OMP iteration
    run (``snnls.itrs_run``: after ``done`` latches inside a segment, its
-   gated iterations still select), none of the packed kernel;
-19. the sharded paths over ``torch.distributed`` on the one card, each
+   gated iterations still select), none of the packed kernel.  Each run
+   also prints its captures by kind (``build``, ``optimize``, ``nn_opt``,
+   ``nuts``) and their seconds (``[experiments_graphs]``), and fails if it
+   captures a ``build`` graph where an earlier run had built with the same
+   graph sets (layout, method, ``tol``) over the same size grid, or more
+   than 14 per set it built with;
+19. the sharded paths over ``torch.distributed`` on the one card (first
+   ``graphs.release()`` drops the retired graph sets and their static
+   copies, memory reserved printed before and after: ``[release]``), each
    rank a process spawned by ``parallel.run_local`` (loading phase 2's
    library): (a) a 1-rank NCCL group runs ``HilbertCoreset(mesh=)`` at
    phase 6's config, which must give phase 6's atoms and weights bit for
@@ -285,6 +302,11 @@ N_MAIN, D_MAIN, S_MAIN, M_MAIN = 100_000, 10, 500, 500
 # phases 6, 12 and 17's atoms (weights > 0) at M and phase 6's error/|b|
 # at M: the values these builds have given on the H100 since they were added
 MAIN_ATOMS, FW_ATOMS, WIDE_GIGA_ATOMS, MAIN_ERR = 372, 443, 182, "4.479260e-02"
+# phase 6's first build, 50 then 450 iterations: the pieces (snnls.pieces) of
+# its segments, 32r + 16 + 2, 8 + 4 + 2, 64r and 32r + 16 + 4 (r: refreshing)
+MAIN_PIECES = 6
+# a graph set's most keys: pieces of 1-64 iterations, refreshing or not
+SET_KEYS_MAX = 14
 N_PROBE, S_PROBE = 1 << 20, 512                 # probe_int4_pallas.py:30
 NUTS_CHAINS, NUTS_DRAWS = 1024, 150             # bench.py:54
 NUTS_SHORT, NUTS_WINDOW = 20, 20    # phase 7's replayed-against-direct run; profiled windows
@@ -1209,6 +1231,9 @@ def phase_main(torch, smi):
     _ran_check("main path", launches, ran, itr, coreset.reached_numeric_limit)
     if fold_launches != ran:
         raise AssertionError(f"main path: {fold_launches} fold launches for {ran} iterations")
+    if caps > MAIN_PIECES:
+        raise AssertionError(f"main path: {caps} graphs captured, more than the {MAIN_PIECES} "
+                             "pieces of a build of 50 and then 450")
     one_ms = _one_itr(torch, coreset.snnls.consts, "giga", (50, M_MAIN - 50),
                       coreset.snnls.state, 1024, "main path")
     atoms = int((coreset.snnls.weights() > 0).sum())
@@ -1340,6 +1365,80 @@ def _copy_in(torch, first, second, reps=10):
     nbytes = sum(t.numel() * t.element_size() for t in {id(t): t for t in st.tensors}.values())
     return {"ms": float(np.median(times)), "bytes": nbytes,
             "bound_ms": _bound(2 * nbytes, 0, "float32")[0]}
+
+
+def _build_keys(st) -> int:
+    """The graph keys of the build sets on the static copies ``st``."""
+    return sum(len(e.graphs) for e in st.sets.values() if e.kind == "build")
+
+
+def _main_regrid(torch, smi, Z):
+    """Phase 6's build walked over a driver's log grid of sizes (the
+    increments of ``coreset_size_grid(M_MAIN, 7, "log")``, as the drivers
+    build) on fresh projections of phase 6's shape (generators seeded 3,
+    then 4), after the first coreset and its rebuild are gone: their
+    layout's static copies and sets are retired, and each walk revives
+    them.  The first walk captures at most the pieces that the set lacks
+    (SET_KEYS_MAX keys in all), the second none; each equals its
+    one-iteration walk bit for bit."""
+    import gc
+
+    import bayesian_coresets_tpu_torch as bc
+    from bayesian_coresets_tpu_torch.experiments.cli import coreset_size_grid
+    from bayesian_coresets_tpu_torch.models import logistic
+    from bayesian_coresets_tpu_torch.ops import fold_scale as fs
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+    from bayesian_coresets_tpu_torch.ops import graphs, snnls
+
+    dev = torch.device("cuda")
+    Ms = coreset_size_grid(M_MAIN, 7, "log").tolist()
+    steps = [Ms[0]] + [b - a for a, b in zip(Ms, Ms[1:])]
+    launches = 0
+    for walk, seed in enumerate((3, 4)):
+        gc.collect()
+        if not graphs._retired:
+            raise AssertionError("main regrid: phase 6's layout was not retired with its "
+                                 "last constants")
+        retained = graphs.retained_bytes
+        projector = bc.BlackBoxProjector(_near_map_sampler, S_MAIN, logistic.log_likelihood,
+                                         generator=torch.Generator(device=dev).manual_seed(seed))
+        coreset = bc.HilbertCoreset(Z, projector, select_dtype=torch.int8, max_active=1024)
+        st = graphs.statics_of(tuple(coreset.snnls.consts))
+        if st is None:
+            raise AssertionError("main regrid: no retired static copies of phase 6's layout")
+        held = _build_keys(st)
+        gs.launches = fs.launches = snnls.itrs_run = 0
+        caps0, cap_s0 = _graph_counts()
+        revivals = graphs.revivals
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, reads, sites = _count_syncs(torch, lambda: [coreset.build(k) for k in steps])
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
+        walk_launches, ran, itr = gs.launches, snnls.itrs_run, int(coreset.snnls.state.itr)
+        label = f"main regrid walk {walk + 1}"
+        _ran_check(label, walk_launches, ran, itr, coreset.reached_numeric_limit)
+        launches += walk_launches
+        if graphs.revivals != revivals + 1:
+            raise AssertionError(f"{label}: the retired set was not revived")
+        if caps > (SET_KEYS_MAX - held if walk == 0 else 0) or _build_keys(st) > SET_KEYS_MAX:
+            raise AssertionError(f"{label}: {caps} graphs captured on a set that held {held} "
+                                 f"keys (now {_build_keys(st)})")
+        one_ms = _one_itr(torch, coreset.snnls.consts, "giga", steps, coreset.snnls.state, 1024,
+                          label)
+        err = coreset.error() / float(coreset.snnls.consts.bnorm)
+        say("main_regrid", walk=walk + 1, seed=seed, sizes=",".join(str(m) for m in Ms),
+            itr=itr, iterations_run=ran, launches=walk_launches, err=f"{err:.6e}",
+            graphs_captured=caps, capture_s=f"{cap_s:.4f}", keys_before=held,
+            keys_after=_build_keys(st), revivals=graphs.revivals - revivals,
+            retained_bytes_before=retained, retained_bytes_after=graphs.retained_bytes,
+            walk_s=f"{t:.4f}", ms_per_itr=f"{1e3 * t / itr:.4f}", host_reads=reads,
+            read_sites=sites, one_itr_ms_per_itr=f"{one_ms:.4f}", one_itr_bit_identical=True,
+            card=repr(smi))
+        del coreset, projector, st
+    gc.collect()
+    return launches
 
 
 def _slots(state):
@@ -2979,25 +3078,58 @@ def _patched(obj, **attrs):
             setattr(obj, k, v)
 
 
+_BUILT: set = set()      # (a build's graph set key, size grid) of phase 18's runs so far
+
+
 def _drive(torch, gs, main, argv, match=None):
     """One run of a driver's ``main(["run"] + argv)`` in the working
     directory, with its select launches, solver iterations run, Adam steps,
     graphs and the host reads inside its Adam steps counted, and the rows
-    of ``results/`` that match ``match`` (all by default)."""
+    of ``results/`` that match ``match`` (all by default).  Prints the
+    run's captures by kind and their seconds (``[experiments_graphs]``),
+    and fails where it captured a build graph though every build set it
+    used had built over the same size grid in an earlier run, or captured
+    more than SET_KEYS_MAX build graphs a set."""
+    import numpy as np
     from bayesian_coresets_tpu_torch.experiments import results
-    from bayesian_coresets_tpu_torch.ops import opt, snnls
+    from bayesian_coresets_tpu_torch.ops import graphs, opt, snnls
+
+    used, graphs_for = set(), graphs.graphs_for
+
+    def spy(tensors, key, *args, **kw):
+        if key[0] == "build":
+            used.add(graphs.set_key(tensors, key, graphs._stream(tensors[0].device),
+                                    kw.get("shared", False)))
+        return graphs_for(tensors, key, *args, **kw)
 
     gs.launches = snnls.itrs_run = opt.steps_run = 0
     caps0, cap_s0 = _graph_counts()
+    kinds0, kind_s0 = dict(graphs.captures_by_kind), dict(graphs.capture_s_by_kind)
     inst0 = _instantiate_s()
     t0 = time.perf_counter()
-    with _adam_reads(torch) as reads:
+    with _adam_reads(torch) as reads, _patched(graphs, graphs_for=spy):
         out = main(["run"] + argv)
     t = time.perf_counter() - t0
     caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
+    table = results.load_matching(match or {}, folder="results/")
+    kinds = {k: (n - kinds0.get(k, 0), graphs.capture_s_by_kind[k] - kind_s0.get(k, 0.0))
+             for k, n in graphs.captures_by_kind.items()}
+    grid = tuple(np.asarray(table["Ms"]).ravel().tolist()) if table and "Ms" in table else ()
+    runs = {(k, grid) for k in used}
+    repeat = bool(runs) and runs <= _BUILT
+    builds = kinds.get("build", (0, 0.0))[0]
+    say("experiments_graphs", run=f"{main.__module__.rsplit('.', 1)[-1]}:{' '.join(argv)}",
+        build_sets=len(used), repeats_earlier_builds=repeat,
+        **{f"{k}_captured": n for k, (n, _) in sorted(kinds.items()) if n},
+        **{f"{k}_capture_s": f"{s:.3f}" for k, (n, s) in sorted(kinds.items()) if n},
+        retained_bytes=graphs.retained_bytes, revivals=graphs.revivals)
+    if (repeat and builds) or builds > SET_KEYS_MAX * len(used):
+        raise AssertionError(f"{argv}: {builds} build graphs captured on {len(used)} sets "
+                             f"(every one built over this size grid before: {repeat})")
+    _BUILT.update(runs)
     return dict(t=t, launches=gs.launches, ran=snnls.itrs_run, steps=opt.steps_run,
                 caps=caps, cap_s=cap_s, inst_s=_instantiate_s() - inst0, reads=reads,
-                out=out, table=results.load_matching(match or {}, folder="results/"))
+                out=out, table=table)
 
 
 def _card_cpu_rel(card, cpu, keys, dim):
@@ -3221,6 +3353,24 @@ def phase_experiments(torch, smi):
     if ps.launches:
         raise AssertionError("the experiment drivers launched the packed select kernel")
     return total, err
+
+
+def _release(torch):
+    """``graphs.release()`` before phases 19-20 start their ranks on this
+    card: the retired graph sets and their static copies go."""
+    import gc
+
+    from bayesian_coresets_tpu_torch.ops import graphs
+    gc.collect()
+    torch.cuda.synchronize()
+    before, retained = torch.cuda.memory_reserved(), graphs.retained_bytes
+    graphs.release()
+    torch.cuda.synchronize()
+    say("release", retained_bytes=retained, memory_reserved_before_GB=f"{before / 1e9:.3f}",
+        memory_reserved_after_GB=f"{torch.cuda.memory_reserved() / 1e9:.3f}",
+        memory_allocated_GB=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
+    if graphs.retained_bytes or graphs._retired:
+        raise AssertionError("release: retired graph sets are left")
 
 
 def _rank19(part: str, d: str, cfg: dict) -> dict:
@@ -4027,7 +4177,8 @@ def main() -> int:
     say("nuts_launches", giga_select=gs.launches, packed_select=ps.launches)
     gs.launches = ps.launches = 0
     phase_optimize(torch, coreset, rebuilt)
-    del rebuilt
+    del rebuilt, coreset
+    regrid_launches = _main_regrid(torch, smi, Z)
     phase_svi(torch, smi)
     phase_svi_parity(torch)
     phase_bpsvi(torch, smi)
@@ -4035,7 +4186,7 @@ def main() -> int:
     fw_launches, ref12 = phase_frankwolfe(torch, smi, Z, projector)
     omp_launches = phase_omp(torch, smi, Z, projector)
     phase_sampling(torch, smi, Z, projector)
-    del Z, projector, coreset
+    del Z, projector
     torch.cuda.empty_cache()
     pois_launches = phase_poisson(torch, smi)
     gs.launches = 0
@@ -4045,6 +4196,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     exp_launches, exp_err = phase_experiments(torch, smi)
     gs.launches = ps.launches = 0
+    _release(torch)
     sharded_launches = phase_sharded(torch, smi, ref6, quality, wts, pts)
     gs.dots_launches = gs.score_launches = 0
     proj_launches, proj_line = phase_proj(torch, smi, ref6, ref12, ref17, wts, pts)
@@ -4054,12 +4206,14 @@ def main() -> int:
     if ps.launches:
         raise AssertionError("a solver's path launched the packed select kernel")
     say("select_launches_by_path", giga=launches, giga_rebuild=rb_launches,
+        giga_regrid=regrid_launches,
         frankwolfe=fw_launches, omp=omp_launches,
         sampling=0, poisson_giga=pois_launches, streamed_giga_N8M=st_launches,
         quality_arms_N1M=stq_launches, streamed_omp_N1M=st_omp_launches,
         streamed_sampling_N1M=0, wide_giga_fw_S16384=wide_launches,
         experiments=exp_launches, sharded_ranks=sharded_launches)
-    launches += (rb_launches + fw_launches + omp_launches + pois_launches + st_launches
+    launches += (rb_launches + regrid_launches + fw_launches + omp_launches + pois_launches
+                 + st_launches
                  + stq_launches
                  + st_omp_launches + wide_launches + exp_launches + sharded_launches)
     max_err = max(max_err, st_select[5], exp_err)

@@ -21,8 +21,11 @@ bit for bit (the Adam steps on the exact, basis, logistic warm-Laplace and
 linear-regression black-box families, tails, resumed builds), a capture
 that raises on a host read, posterior refits that read nothing, builds
 and re-solves on new constants of one shape that replay the graph sets of
-the first (each its own one-iteration build bit for bit, the sets freed
-with the last constants of their shape), and the
+the first (each its own one-iteration build bit for bit), builds walked
+over a driver's log grid of sizes that capture at most 14 graphs and then
+none, a layout whose constants all died revived without a capture,
+generators alternating through one sampling set, retired sets evicted
+past their budget and released, and the
 ``logistic_poisson --model poiss`` and ``linear_regression`` drivers'
 Adam steps replayed with no host read.
 
@@ -45,6 +48,7 @@ from bayesian_coresets_tpu_torch.coresets import bpsvi, sparsevi
 from bayesian_coresets_tpu_torch.mcmc import integrators, nuts
 from bayesian_coresets_tpu_torch.models import gaussian
 from bayesian_coresets_tpu_torch.ops import giga_select as gs
+from bayesian_coresets_tpu_torch.ops import graphs
 from bayesian_coresets_tpu_torch.ops import packed_select as ps
 from bayesian_coresets_tpu_torch.ops import snnls
 from bayesian_coresets_tpu_torch.ops.opt import nn_opt
@@ -59,8 +63,12 @@ CASES = ["random", "invalid_block", "all_invalid", "ties"]
 
 @pytest.fixture
 def cuda_device():
+    """The card, with no graph set retired by an earlier test (a set now
+    outlives its constants)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU route)")
+    gc.collect()
+    graphs.release()
     return torch.device("cuda")
 
 
@@ -1232,8 +1240,9 @@ def test_replayed_build_continues_a_replayed_one(method, cuda_device):
     caps = graphs.captures
     s = snnls.build(c, s, 90, 1e-6, method=method, draws=g)
     _same_state(s, ref)
-    # 0..70 = 64 + 6 (a tail); 70..160 = 58 (a head) + 32 (a tail): two new graphs
-    assert graphs.captures - caps == 2
+    # 0..70 = 64 + (4 + 2); 70..160 = (32 + 16 + 8 + 2) + 32 refreshing: four new
+    # pieces, (32, 16, 8) and the refreshing 32
+    assert graphs.captures - caps == 4
 
 
 @pytest.mark.cuda
@@ -1475,28 +1484,43 @@ def test_optimize_on_a_second_coreset_captures_nothing(cuda_device):
 
 
 @pytest.mark.cuda
-def test_dropping_the_constants_of_a_shape_frees_its_set(cuda_device):
-    """Once every constants of a shape is gone, so are the static copies,
-    the graph sets on them and their memory."""
-    from bayesian_coresets_tpu_torch.ops import graphs
+def test_dropping_the_constants_of_a_shape_frees_its_set(cuda_device, monkeypatch):
+    """Once every constants of a shape is gone, the static copies and their
+    graph sets are retired, not freed; past the budget the next set made
+    evicts them, and ``release()`` frees them: the memory falls back to
+    where it was before them."""
     warm = _graph_consts("int8", "giga", cuda_device, n=2000)   # the stream's own state
     snnls.build(warm, snnls.init_state(warm, 256), 70, 1e-6)
     del warm
     gc.collect()
+    graphs.release()
     torch.cuda.synchronize()
     mem = torch.cuda.memory_allocated()
-    a, b = (_graph_consts("int8", "giga", cuda_device, seed=seed) for seed in (1, 2))
-    key = (graphs._stream(a.V.device), graphs.layout(tuple(a)))
-    for c in (a, b):
-        snnls.build(c, snnls.init_state(c, 256), 70, 1e-6)
-    assert len(graphs._statics[key].users) == 2 and graphs._statics[key].sets
-    del a, c
-    gc.collect()
-    assert key in graphs._statics
-    del b
-    gc.collect()
-    torch.cuda.synchronize()
-    assert key not in graphs._statics and torch.cuda.memory_allocated() == mem
+    for evict in (False, True):
+        a, b = (_graph_consts("int8", "giga", cuda_device, seed=seed) for seed in (1, 2))
+        key = (graphs._stream(a.V.device), graphs.layout(tuple(a)))
+        for c in (a, b):
+            snnls.build(c, snnls.init_state(c, 256), 70, 1e-6)
+        assert len(graphs._statics[key].users) == 2 and graphs._statics[key].sets
+        del a, c
+        gc.collect()
+        assert key in graphs._statics and key not in graphs._retired
+        del b
+        gc.collect()
+        assert key in graphs._statics and list(graphs._retired) == [key]
+        assert graphs.retained_bytes == graphs._statics[key].nbytes() > 0
+        if evict:
+            monkeypatch.setattr(graphs, "RETAINED_SHARE", 0.0)
+            other = _graph_consts("int8", "giga", cuda_device, n=1000)
+            snnls.build(other, snnls.init_state(other, 256), 10, 1e-6)
+            assert key not in graphs._statics and not graphs._retired
+            del other
+            gc.collect()
+            monkeypatch.undo()
+        graphs.release()
+        torch.cuda.synchronize()
+        assert key not in graphs._statics and graphs.retained_bytes == 0
+        assert torch.cuda.memory_allocated() == mem
 
 
 @pytest.mark.cuda
@@ -1510,6 +1534,111 @@ def test_int8_resident_constants_capture_their_own(cuda_device):
         caps = graphs.captures
         _same_state(snnls.build(c, snnls.init_state(c, 256), 150, 1e-6), ref)
         assert graphs.captures > caps
+
+
+def _grid_walk(c, segment=None):
+    """A GIGA ``build`` over the increments of ``coreset_size_grid(500, 7,
+    "log")``, as a driver walks it, from a fresh state; the graphs it
+    captured."""
+    from bayesian_coresets_tpu_torch.experiments.cli import coreset_size_grid
+    Ms = coreset_size_grid(500, 7, "log").tolist()
+    s, caps = snnls.init_state(c, 1024), graphs.captures
+    for k in [Ms[0]] + [b - a for a, b in zip(Ms, Ms[1:])]:
+        s = snnls.build(c, s, k, 1e-6, matvec_k=1024, segment=segment)
+    torch.cuda.synchronize()
+    return s, graphs.captures - caps
+
+
+def _phase6_consts(dev, seed):
+    """Constants of phase 6's shape (N=100k, S=500, int8 select) from a
+    random projection seeded ``seed``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.randn((500, 100_000), generator=g, device=dev)
+    A *= torch.rand(100_000, generator=g, device=dev) + 0.2
+    return snnls.make_consts(A, A.sum(dim=1), select_dtype=torch.int8)
+
+
+@pytest.mark.cuda
+def test_log_grid_walks_capture_at_most_14_graphs(cuda_device):
+    """A build walked over a driver's log grid up to 500 at phase 6's shape
+    captures at most 14 graphs; a second walk on a fresh projection
+    captures none, after the first's constants died too; each equals its
+    one-iteration walk bit for bit."""
+    caps = []
+    for seed in (3, 4):
+        c = _phase6_consts(cuda_device, seed)
+        out, n = _grid_walk(c)
+        caps.append(n)
+        ref, _ = _grid_walk(c, segment=1)
+        _same_state(out, ref)
+        assert int(out.itr) == 499
+        del c
+        gc.collect()
+    assert 0 < caps[0] <= 14 and caps[1] == 0
+    assert graphs.revivals >= 1
+
+
+@pytest.mark.cuda
+def test_a_layout_whose_constants_died_captures_nothing(cuda_device):
+    """Builds on constants of a layout whose constants all died replay its
+    retired sets: no capture, a copy-in, the one-iteration build bit for
+    bit."""
+    c = _graph_consts("int8", "giga", cuda_device, seed=1)
+    snnls.build(c, snnls.init_state(c, 256), 150, 1e-6)
+    del c
+    gc.collect()
+    assert len(graphs._retired) == 1
+    c = _graph_consts("int8", "giga", cuda_device, seed=2)
+    revivals, loads, caps = graphs.revivals, graphs.loads, graphs.captures
+    out = snnls.build(c, snnls.init_state(c, 256), 150, 1e-6)
+    assert graphs.captures == caps and graphs.revivals == revivals + 1
+    assert graphs.loads == loads + 1 and not graphs._retired
+    _same_state(out, snnls.build(c, snnls.init_state(c, 256), 150, 1e-6, segment=1))
+
+
+@pytest.mark.cuda
+def test_generators_alternate_through_one_uniform_set(cuda_device):
+    """Two generators A, B, A through one uniform-sampling set: each build
+    is its direct build bit for bit, each generator ends where the direct
+    build leaves it, and only the first captures."""
+    c = _graph_consts("int8", "uniform", cuda_device)
+    gens = {k: torch.Generator(device=cuda_device).manual_seed(seed) for k, seed in (("a", 5), ("b", 6))}
+    refs = {k: torch.Generator(device=cuda_device).manual_seed(seed) for k, seed in (("a", 5), ("b", 6))}
+    caps = []
+    for k in ("a", "b", "a"):
+        before = graphs.captures
+        out = snnls.build(c, snnls.init_state(c, 512), 150, 1e-6, method="uniform",
+                          draws=gens[k])
+        caps.append(graphs.captures - before)
+        ref = snnls.build(c, snnls.init_state(c, 512), 150, 1e-6, method="uniform",
+                          draws=refs[k], segment=1)
+        _same_state(out, ref)
+        assert not bool(out.done)
+        assert torch.equal(gens[k].get_state(), refs[k].get_state())
+    assert caps[0] > 0 and caps[1:] == [0, 0]
+
+
+@pytest.mark.cuda
+def test_eviction_frees_the_evicted_copies(cuda_device, monkeypatch):
+    """Two retired layouts within the budget; a budget that holds one evicts
+    the older at the next build, and ``memory_allocated`` falls by its
+    static copies and buffers at least."""
+    for n in (3000, 3001):
+        c = _graph_consts("int8", "giga", cuda_device, n=n)
+        snnls.build(c, snnls.init_state(c, 256), 70, 1e-6)
+        del c
+        gc.collect()
+    old, new = list(graphs._retired)
+    size = graphs._retired[old][1]
+    probe = (torch.zeros(1, device=cuda_device),)        # the next set's anchor and buffer
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated()
+    monkeypatch.setattr(graphs, "RETAINED_SHARE", (graphs.retained_bytes - 1)
+                        / torch.cuda.get_device_properties(cuda_device).total_memory)
+    graphs.graphs_for(probe, ("probe",), None, lambda: probe)
+    torch.cuda.synchronize()
+    assert old not in graphs._statics and list(graphs._retired) == [new]
+    assert mem - torch.cuda.memory_allocated() >= size
 
 
 # ------------------------------------------- NUTS as replayed CUDA graphs

@@ -19,6 +19,18 @@ shape, and its graphs read static copies of the constants (``Statics``).
 The key, the copies and their lifetime are held here; a stand-in for a
 captured graph, which replays the work it first saw, holds interleaved
 constants of one shape to their own direct builds bit for bit.
+
+A replayed segment runs as pieces whose lengths are powers of two
+(``snnls.pieces``), so a set holds at most 14 graphs (OMP 6) whatever the
+builds' lengths and starts: the plan is held for the increments of the
+drivers' log grid, and builds walked over that grid through the stand-in
+equal their one-iteration builds.  A shared set draws from a generator of
+its own, loaded with the caller's state (``graphs.draw_from``): generators
+alternating through one set each give their direct build's draws and end
+where it leaves them.  The static copies of a layout whose last constants
+died are retired, revived by new constants of the layout without a
+capture, evicted least recently used past a budget, and dropped by
+``graphs.release()``.
 """
 
 import gc
@@ -29,6 +41,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from bayesian_coresets_tpu.ops import snnls as jsn
+from bayesian_coresets_tpu_torch.experiments.cli import coreset_size_grid
 from bayesian_coresets_tpu_torch.ops import graphs
 from bayesian_coresets_tpu_torch.ops import snnls as tsn
 
@@ -329,7 +342,9 @@ def test_statics_copy_in_only_other_constants():
     assert _same_values(a, a0) and _same_values(b, b0)
 
 
-def test_statics_go_with_their_last_user():
+def test_statics_go_with_their_last_user(cpu_graphs):
+    """The last user's death retires the static copies (kept, their bytes
+    counted in ``retained_bytes``); ``release()`` drops them."""
     a, b = _consts("giga", seed=0), _consts("giga", seed=1)
     key = ("test", graphs.layout(tuple(a)))
     st = graphs._statics_for(tuple(a), key)
@@ -337,8 +352,13 @@ def test_statics_go_with_their_last_user():
     del a
     gc.collect()
     assert graphs._statics.get(key) is st and len(st.users) == 1
+    assert key not in graphs._retired and graphs.retained_bytes == 0
     del b
-    assert key not in graphs._statics
+    assert graphs._statics.get(key) is st and not st.users and key in graphs._retired
+    assert graphs.retained_bytes == st.nbytes() == sum(
+        st.tensors[i].numel() * st.tensors[i].element_size() for i in st.distinct) > 0
+    graphs.release()
+    assert key not in graphs._statics and not graphs._retired and graphs.retained_bytes == 0
 
 
 class _FirstWork:
@@ -356,13 +376,23 @@ class _FirstWork:
         self.fn()
 
 
+MEMORY = 1 << 30       # the stand-in device's memory, which the retention budget shares
+
+
 @pytest.fixture
 def cpu_graphs(monkeypatch):
+    """Graph sets on the CPU with :class:`_FirstWork` for their graphs, and
+    ``build`` replaying through them; no retired entry before or after."""
     monkeypatch.setattr(graphs, "Graph", _FirstWork)
     monkeypatch.setattr(graphs, "side_stream", lambda dev: None)
     monkeypatch.setattr(graphs, "_stream", lambda dev: (-1, 0))
+    monkeypatch.setattr(graphs, "_memory", lambda dev: MEMORY)
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    monkeypatch.setattr(tsn, "_replaying", lambda dev, comm, segment: segment != 1)
     _FirstWork.made = 0
+    graphs.release()
+    yield
+    graphs.release()
 
 
 def _replayed(c, itrs, method, gen=None):
@@ -371,9 +401,10 @@ def _replayed(c, itrs, method, gen=None):
     :func:`_draws` seeds its generator."""
     s = tsn.init_state(c, 128)
     carry = tsn._carry(c, s, itrs)
-    step, st = tsn._replayer(c, carry, method, 1e-6, gen and gen.manual_seed(11), 64)
-    for _, n, refresh in tsn.segments(0, itrs):
-        st = step(st, n, refresh)
+    step, st, drawing = tsn._replayer(c, carry, method, 1e-6, gen and gen.manual_seed(11), 64)
+    with drawing:
+        for _, n, refresh in tsn.segments(0, itrs):
+            st = step(st, n, refresh)
     return tsn._Carry(*(t.clone() for t in st))
 
 
@@ -429,3 +460,208 @@ def test_int8_resident_constants_capture_their_own(cpu_graphs):
         _same_carry(_replayed(c, 100, "giga"), _direct(c, 100, "giga"))
         made.append(_FirstWork.made)
     assert 0 < made[0] < made[1]
+
+
+# ------------------------------ pieces, generators and retired sets
+
+
+def _increments(size_max, num_sizes):
+    """(start, count) of each build of a driver's walk over its log grid of
+    sizes (``experiments/cli.py``: the first build takes the first size)."""
+    Ms = coreset_size_grid(size_max, num_sizes, "log").tolist()
+    return list(zip([0] + Ms[:-1], [Ms[0]] + [b - a for a, b in zip(Ms, Ms[1:])]))
+
+
+PLAN_CASES = _increments(500, 7) + [(37, 27), (448, 52), (0, 1), (60, 10), (1, 498)]
+
+
+@pytest.mark.parametrize("length", [64, 4])
+@pytest.mark.parametrize("start,count", PLAN_CASES)
+def test_pieces_compose_each_segment(start, count, length):
+    """Each segment of a build is cut into pieces of power-of-two lengths,
+    largest first, that compose it exactly; only a piece at a multiple of
+    64 refreshes, and it is the segment's first."""
+    pos = start
+    for first, n, refresh in tsn.segments(start, count, length):
+        for m, r in tsn.pieces(n, refresh):
+            assert m & (m - 1) == 0 and 1 <= m <= length
+            assert r == (pos == first and pos % 64 == 0)
+            pos += m
+        assert pos == first + n
+        assert [m for m, _ in tsn.pieces(n, refresh)] == sorted(
+            (m for m, _ in tsn.pieces(n, refresh)), reverse=True)
+    assert pos == start + count
+
+
+def test_pieces_of_a_head_and_a_tail():
+    assert tsn.pieces(27, False) == [(16, False), (8, False), (2, False), (1, False)]
+    assert tsn.pieces(52, True) == [(32, True), (16, False), (4, False)]
+    assert tsn.pieces(64, True) == [(64, True)] and tsn.pieces(0, True) == []
+
+
+@pytest.mark.parametrize("length,most", [(64, 14), (4, 6)])
+@pytest.mark.parametrize("grid", [(500, 7), (1000, 50), (60, 7)])
+def test_a_set_holds_a_bounded_number_of_keys(grid, length, most):
+    """Every walk over a log grid, and every build of any length from any
+    start up to 600, needs at most 14 graph keys (OMP's 4-iteration
+    segments 6)."""
+    walks = [_increments(*grid), [(s, c) for s in range(0, 130) for c in range(0, 70, 3)]]
+    for walk in walks:
+        keys = {p for start, count in walk for _, n, r in tsn.segments(start, count, length)
+                for p in tsn.pieces(n, r)}
+        assert len(keys) <= most
+
+
+def _walk(c, method, increments, segment=None, gen=None, max_active=512):
+    """``build`` over ``increments`` (the iterations of each call), from a
+    fresh state; a sampling build draws from ``gen``."""
+    s = tsn.init_state(c, max_active)
+    for k in increments:
+        s = tsn.build(c, s, k, 1e-6, method=method, draws=gen, matvec_k=64, segment=segment)
+    return s
+
+
+def _keys():
+    """The graph keys of every live or retired shared set."""
+    return [len(e.graphs) for st in graphs._statics.values() for e in st.sets.values()]
+
+
+@pytest.mark.parametrize("method,kind", [("giga", "int8"), ("giga", "float32"),
+                                         ("frankwolfe", "int8"), ("orthopursuit", "int8"),
+                                         ("importance", "float32"), ("uniform", "float32")])
+def test_log_grid_walks_equal_one_iteration_builds(method, kind, cpu_graphs):
+    """``build`` walked over the log grid of sizes up to 500 (OMP: 60)
+    through the stand-in graphs, on constants A and then on constants B of
+    A's layout: each walk equals its one-iteration walk bit for bit (the
+    sampling walks' generators end alike), A's walk captures at most 14
+    graphs (OMP 6) and B's none."""
+    omp = method == "orthopursuit"
+    incs = [k for _, k in _increments(60 if omp else 500, 7)]
+    sd = torch.int8 if kind == "int8" else None
+    made = []
+    for seed in (0, 1):
+        c = _consts(method, sd, seed=seed, S=128, n=600)
+        gens = [torch.Generator().manual_seed(7 + seed) if method in SAMPLING else None
+                for _ in range(2)]
+        before = _FirstWork.made
+        out = _walk(c, method, incs, gen=gens[0])
+        made.append(_FirstWork.made - before)
+        _equal(out, _walk(c, method, incs, segment=1, gen=gens[1]))
+        if gens[0] is not None:
+            assert torch.equal(gens[0].get_state(), gens[1].get_state())
+        assert int(out.itr) == sum(incs) and not bool(out.done)
+        assert max(_keys()) <= (6 if omp else 14)
+    assert 0 < made[0] <= (6 if omp else 14) and made[1] == 0
+
+
+@pytest.mark.parametrize("method", SAMPLING)
+def test_generators_alternate_through_one_set(method, cpu_graphs):
+    """Generators A, B, A through one sampling set: each build draws what
+    its direct build draws (weights and counts bit for bit), each generator
+    ends where the direct build leaves it, and only the first build
+    captures."""
+    c = _consts(method)
+    gens = {k: torch.Generator().manual_seed(seed) for k, seed in (("a", 5), ("b", 6))}
+    refs = {k: torch.Generator().manual_seed(seed) for k, seed in (("a", 5), ("b", 6))}
+    made = []
+    for k in ("a", "b", "a"):
+        before = _FirstWork.made
+        out = tsn.build(c, tsn.init_state(c, 128), 90, 1e-6, method=method, draws=gens[k])
+        made.append(_FirstWork.made - before)
+        ref = tsn.build(c, tsn.init_state(c, 128), 90, 1e-6, method=method, draws=refs[k],
+                        segment=1)
+        _equal(out, ref)
+        assert torch.equal(gens[k].get_state(), refs[k].get_state())
+    assert made[0] > 0 and made[1:] == [0, 0]
+    e = next(iter(graphs.statics_of(tuple(c)).sets.values()))
+    assert e.gen is not gens["a"] and e.gen is not gens["b"]
+
+
+def test_a_generator_that_cannot_be_loaded_raises(cpu_graphs):
+    """A set's own generator takes the caller's state or the build raises:
+    a state of another size is refused, and no set is made again."""
+    c = _consts("uniform")
+    tsn.build(c, tsn.init_state(c, 16), 10, 1e-6, method="uniform",
+              draws=torch.Generator().manual_seed(1))
+    e = next(iter(graphs.statics_of(tuple(c)).sets.values()))
+
+    class Odd(torch.Generator):
+        def get_state(self):
+            return torch.zeros(3, dtype=torch.uint8)
+
+    with pytest.raises(RuntimeError):
+        with graphs.draw_from(e, Odd()):
+            pass
+    made = _FirstWork.made
+    tsn.build(c, tsn.init_state(c, 16), 10, 1e-6, method="uniform",
+              draws=torch.Generator().manual_seed(2))
+    assert next(iter(graphs.statics_of(tuple(c)).sets.values())) is e
+    assert _FirstWork.made == made
+
+
+@pytest.mark.parametrize("method", ["giga", "uniform"])
+def test_retired_statics_are_revived_without_a_capture(method, cpu_graphs):
+    """A layout whose last constants died keeps its static copies and sets
+    (retired); new constants of the layout revive them: they are copied in,
+    nothing is captured, and the build equals its direct build."""
+    a = _consts(method, seed=0)
+    _replayed(a, 150, method, _draws(method))
+    st = graphs.statics_of(tuple(a))
+    del a
+    gc.collect()
+    assert st.key in graphs._retired and graphs._retired[st.key][1] == st.nbytes() > 0
+    b = _consts(method, seed=1)
+    revivals, loads, made = graphs.revivals, st.loads, _FirstWork.made
+    _same_carry(_replayed(b, 150, method, _draws(method)), _direct(b, 150, method))
+    assert graphs.statics_of(tuple(b)) is st and graphs.revivals == revivals + 1
+    assert st.loads == loads + 1 and _FirstWork.made == made
+    assert st.key not in graphs._retired and len(st.users) == 1
+
+
+def test_retired_statics_are_evicted_least_recently_used(cpu_graphs, monkeypatch):
+    """Retired entries stay while they fit in the budget; past it the least
+    recently retired go first, at the next set made; ``release()`` drops
+    the rest."""
+    def retire(n):
+        c = _consts("giga", n=n)
+        graphs._statics_for(tuple(c), ("test", n))
+        return c
+
+    def size(n):
+        return graphs._statics[("test", n)].nbytes()
+
+    for n in (300, 301):
+        retire(n)
+    gc.collect()
+    assert list(graphs._retired) == [("test", 300), ("test", 301)]
+    c = retire(300)                     # revived, used and retired again: the newest
+    assert list(graphs._retired) == [("test", 301)]
+    del c
+    gc.collect()
+    assert list(graphs._retired) == [("test", 301), ("test", 300)]
+    assert graphs.retained_bytes == size(300) + size(301)
+    monkeypatch.setattr(graphs, "RETAINED_SHARE", (size(300) + size(301) - 1) / MEMORY)
+    keep = retire(302)                  # evicts 301, the oldest, and keeps 300
+    assert ("test", 301) not in graphs._statics and list(graphs._retired) == [("test", 300)]
+    assert graphs.retained_bytes == size(300)
+    del keep
+    gc.collect()
+    assert list(graphs._retired) == [("test", 300), ("test", 302)]
+    assert graphs.retained_bytes == size(300) + size(302)
+    monkeypatch.setattr(graphs, "RETAINED_SHARE", 0.0)
+    graphs.graphs_for(tuple(_consts("giga")), ("other",), None, lambda: (torch.zeros(1),))
+    assert not graphs._retired and graphs.retained_bytes == 0
+    retire(301)
+    gc.collect()
+    assert list(graphs._retired) == [("test", 301)]
+    graphs.release()
+    assert ("test", 301) not in graphs._statics and graphs.retained_bytes == 0
+
+
+def test_captures_are_counted_by_kind(cpu_graphs):
+    """A build's graphs count under ``build``, their seconds beside them."""
+    graphs.captures_by_kind.clear()
+    graphs.capture_s_by_kind.clear()
+    _replayed(_consts("giga"), 100, "giga")
+    assert graphs.captures_by_kind == {"build": _FirstWork.made} and _FirstWork.made > 0
+    assert list(graphs.capture_s_by_kind) == ["build"]

@@ -263,7 +263,7 @@ class _Direct:
 
     made = []
 
-    def __init__(self, tensors, static, derived, gen, warm=False):
+    def __init__(self, tensors, static, derived, gen, warm=False, kind=None):
         self.static, self.gen, self.keys = static, gen, []
         _Direct.made.append(self)
 

@@ -210,7 +210,7 @@ class _Direct:
 
     made = []
 
-    def __init__(self, tensors, static, derived, gen, warm=False):
+    def __init__(self, tensors, static, derived, gen, warm=False, kind=None):
         self.static, self.gen, self.warm, self.keys = static, gen, warm, []
         _Direct.made.append(self)
 
