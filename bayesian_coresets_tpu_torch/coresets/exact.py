@@ -69,10 +69,13 @@ def linreg_tangent_family(mu0, Sig0inv, sigsq, bV,
     linear_regression/main.py:158-186).
 
     ``lowrank_refit``: use the rank-m Woodbury refit
-    (:func:`models.linreg.weighted_post_lowrank`) instead of the (m+d, d) QR
-    on SparseVI's per-Adam-step path.  The default (None) takes it when the
+    (:func:`models.linreg.weighted_post_lowrank`, a square root of the (m, m)
+    Gram by Cholesky factors and matmuls) instead of the (m+d, d) QR on
+    SparseVI's per-Adam-step path.  The default (None) takes it when the
     coreset's slot count m is at most the parameter dimension d, as the JAX
-    package does; pass False for extremely ill-conditioned designs.
+    package does; pass False for extremely ill-conditioned designs.  Neither
+    refit reads the host, so SparseVI's Adam steps on this family replay as
+    CUDA graphs as on every other family.
     """
     d = mu0.shape[0]
     lr_basis = linreg.lowrank_basis(mu0, Sig0inv, sigsq)

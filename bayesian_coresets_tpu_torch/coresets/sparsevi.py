@@ -23,8 +23,10 @@ same steps directly, bit for bit) and one set of graphs serves every
 select of a build, and every build on the same (data, family, generator,
 capacity, ``opt_itrs``, ``n_subsample_opt``), cached on the data tensor.
 A family whose context refit reads the host cannot be captured (the
-capture raises): pass ``graphs=False`` for it (the linear-regression exact
-family's low-rank refit, an ``eigh``).  Draws come from a
+capture raises): pass ``graphs=False`` for it.  None of the package's
+families is such a one (the linear-regression exact family's low-rank
+refit takes a matrix square root by Cholesky factors, not an ``eigh``).
+Draws come from a
 ``torch.Generator`` on the data's device (``gen`` below), which every
 context rebuild and subsample advances.
 Nothing divides by a Python scalar (CUDA would multiply by its reciprocal,

@@ -144,11 +144,8 @@ def run(arguments):
                                       opt_itrs=arguments.opt_itrs, step_sched=sched,
                                       seed=seed, capacity=cap)
         if name == "SVI-EXACT":
-            # the exact family's low-rank refit (m <= d slots) is an eigh, which
-            # reads its error code back: its Adam steps run directly
             return bc.SparseVICoreset(Zt, exact_family, opt_itrs=arguments.opt_itrs,
-                                      step_sched=sched, seed=seed, capacity=cap,
-                                      graphs=False)
+                                      step_sched=sched, seed=seed, capacity=cap)
         if name == "GIGA-OPT":
             return bc.HilbertCoreset(Zt, projector(sampler_optimal), seed=seed,
                                      select_dtype=sd, stream_chunk_size=stream, mesh=mesh)

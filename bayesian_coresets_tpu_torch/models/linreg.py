@@ -128,41 +128,96 @@ def lowrank_basis(th0, Sig0inv, sigsq) -> LowRankBasis:
     return LowRankBasis(L0inv, L0inv.T.contiguous(), Sig0inv @ th0, _scalar(sigsq, L0))
 
 
-def weighted_post_lowrank(basis: LowRankBasis, z, w):
+# Scaled Denman-Beavers steps of :func:`_sqrt_spd`: with the Frobenius-norm
+# scaling below, they bring every eigenvalue of an (m, m) matrix with
+# eigenvalues in [1, 1 + 1e16] and m <= 512 to its square root within f64
+# rounding (tests/test_torch_linreg.py); a step past convergence leaves the
+# iterates as they are
+SQRT_STEPS = 10
+
+
+def _sqrt_spd(A: torch.Tensor):
+    """``(S, L)``: the symmetric square root S of the symmetric positive
+    definite ``A`` (m, m), and A's lower Cholesky factor L, reading nothing
+    on the host (a fixed step count; ``cholesky_ex`` does not check its
+    error code).  Where a factorization fails, both are NaN, as
+    ``gaussian.cholesky`` returns a failed factor.
+
+    Product-form Denman-Beavers steps (Higham, Functions of Matrices,
+    (6.29)): ``M_0 = Y_0 = A``, ``Y <- (g^{1/2} / 2) Y (I + M^{-1} / g)``,
+    ``M <- I / 2 + (g M + M^{-1} / g) / 4``, so that Y -> A^{1/2} while
+    M -> I.  The scale g = (|M^{-1}|_F / |M|_F)^{1/2} is the geometric mean
+    of M's extreme eigenvalues' reciprocals up to a factor m^{1/4}: it
+    takes the condition number c to about (c m^{1/2})^{1/2} / 4 at each
+    step (the determinant's scaling, Higham's choice, barely moves the
+    large eigenvalues when many are 1, as empty slots make them).  M^{-1}
+    comes from its Cholesky factor, which reads only M's lower triangle;
+    Y is made symmetric once, at the end."""
+    m = A.shape[-1]
+    eye = torch.eye(m, dtype=A.dtype, device=A.device)
+    half_eye = 0.5 * eye
+    M, Y, LA, fails = A, A, None, None
+    for _ in range(SQRT_STEPS):
+        L, info = torch.linalg.cholesky_ex(M)
+        LA, fails = (L, info) if LA is None else (LA, fails | info)
+        Li = torch.linalg.solve_triangular(L, eye, upper=False)
+        Minv = Li.T @ Li
+        g2 = torch.linalg.vector_norm(Minv) / torch.linalg.vector_norm(M)   # g^2
+        Minv_g = Minv * torch.rsqrt(g2)                                     # M^{-1} / g
+        Y = torch.addmm(Y, Y, Minv_g) * (0.5 * g2 ** 0.25)
+        M = torch.add(half_eye, torch.sqrt(g2) * M + Minv_g, alpha=0.25)
+    ok = fails == 0
+    above = torch.ones((m, m), dtype=torch.bool, device=A.device).tril(-1).mT
+    return (torch.where(ok, 0.5 * (Y + Y.T), torch.nan),
+            torch.where(ok | above, LA, torch.nan))
+
+
+def weighted_post_lowrank(basis: LowRankBasis, z, w, residual: bool = False):
     """Weighted posterior by a RANK-m Woodbury update of the prior.
 
     The coreset design has only m = len(w) rows, so
     ``prec = Sig0inv + X^T diag(w) X / sigsq = L0 (I + W^T W) L0^T`` with
-    ``W = diag(sqrt(w)) X L0^{-T} / sigma`` (m, d): an eigh of the (m, m)
-    Gram replaces the (m+d, d) QR on SparseVI's per-Adam-step path
-    (reference sparsevi.py:70-74).
+    ``W = diag(sqrt(w)) X L0^{-T} / sigma`` (m, d), and everything is done
+    on the (m, m) ``A = I + W W^T`` in place of the (m+d, d) QR on
+    SparseVI's per-Adam-step path (reference sparsevi.py:70-74).  With
+    ``S = A^{1/2}`` (:func:`_sqrt_spd`, no eigenvectors):
 
-    Returns ``(mu, F)`` in ``z``'s dtype, with ``Sig = F F^T`` (a
-    non-triangular factor, valid wherever only the Gram matters: tangent
-    features, sampling).  The Gram squares W's conditioning, so it is
-    computed in f64: in f32 the mean of a 17-row RBF design (precision
-    condition 4.3e4) came out 2.8% off (the JAX package's f32 version: 3.2%).
+    - mean: ``(I + W^T W)^{-1} (t0 + W^T b) = t0 + W^T A^{-1} (b - W t0)``
+      with ``t0 = L0^{-1} Sig0inv th0`` and ``b = sqrt(w) y / sigma``, so the
+      data term is never subtracted from itself;
+    - factor: ``F = L0^{-T} (I + W^T W)^{-1/2} = L0^{-T} (I - W^T (A + S)^{-1} W)``,
+      as ``(I + lam)^{-1/2} = 1 - lam / (1 + lam + (1 + lam)^{1/2})`` on each
+      eigenvalue lam of W^T W.  A + S >= 2 I, and an empty slot (w = 0, a
+      zero row of W) is a unit row of A: no eigenvalue needs a mask.
+
+    Returns ``(mu, F)`` in ``z``'s dtype, F the symmetric form (``Sig = F
+    F^T``), as the JAX package's eigh of the Gram returns them; with
+    ``residual`` also ``|S^2 - A|_F / |A|_F`` (a 0-dim f64 device tensor,
+    for checks made after the fact).  Only Cholesky factors, triangular
+    solves and matmuls: nothing reads the host, so the refit runs inside a
+    captured CUDA graph.  The Gram squares W's conditioning, so it is
+    computed in f64 (in f32 the mean of a 17-row RBF design, precision
+    condition 4.3e4, came out 2.8% off; the JAX package's f32 version:
+    3.2%).  Weights are taken as nonnegative (negative ones count as 0).
     """
     x, y = _split(z.double())
     w = w.double()
     L0inv, L0invT, r0, sigsq = (t.double() for t in basis)
     sw = torch.sqrt(torch.clamp_min(w, 0.0))
-    W = (sw[:, None] * x) @ L0invT / torch.sqrt(sigsq)                  # (m, d)
-    G = W @ W.T
-    lam, U = torch.linalg.eigh(0.5 * (G + G.T))                          # (m,), (m, m)
-    lam = torch.clamp_min(lam, 0.0)
-    mask = lam > 1e-12 * torch.clamp_min(torch.max(lam), 1e-300)   # f64 rounding of G
-    lam_safe = torch.where(mask, lam, 1.0)
-    V = (W.T @ U) / torch.sqrt(lam_safe)[None, :]                        # (d, m)
-    V = torch.where(mask[None, :], V, 0.0)
-    c_inv = torch.where(mask, lam / (1.0 + lam), 0.0)
-    c_half = torch.where(mask, 1.0 - 1.0 / torch.sqrt(1.0 + lam), 0.0)
+    sig = torch.sqrt(sigsq)
+    W = (sw[:, None] * x) @ L0invT / sig                                 # (m, d)
+    A = W @ W.T
+    A = 0.5 * (A + A.T) + torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    S, L = _sqrt_spd(A)
 
-    rhs = r0 + x.T @ (w * y) / sigsq
-    t = L0inv @ rhs
-    t = t - V @ (c_inv * (V.T @ t))                                      # (I + W^T W)^{-1}
-    mu = L0invT @ t
-    F = L0invT - ((L0invT @ V) * c_half[None, :]) @ V.T
+    t0 = L0inv @ r0
+    u = torch.linalg.solve_triangular(L, (sw * y / sig - W @ t0)[:, None], upper=False)
+    u = torch.linalg.solve_triangular(L.T, u, upper=True)[:, 0]         # A^{-1} (b - W t0)
+    mu = L0invT @ (t0 + W.T @ u)
+    P = torch.linalg.solve_triangular(cholesky(A + S), W, upper=False)  # P^T P = W^T (A+S)^{-1} W
+    F = L0invT - (L0invT @ P.T) @ P
+    if residual:
+        return mu.to(z.dtype), F.to(z.dtype), torch.linalg.norm(S @ S - A) / torch.linalg.norm(A)
     return mu.to(z.dtype), F.to(z.dtype)
 
 

@@ -197,8 +197,14 @@ script exits non-zero without printing the final result line):
    at its defaults on the card and with ``--device cpu``, held together;
    ``synthetic_vectors`` at its defaults with GIGA and FW, OMP at M=100, and
    US; ``linear_regression``'s SVI and SVI-EXACT (sizes cut to EXP_LR_SVI_M;
-   the exact family's Adam steps run directly, their host reads counted per
-   step), GIGA-OPT, GIGA-REAL, GIGA-REAL-EXACT (card against CPU) and US;
+   both replay their Adam steps, no host read in them), SVI-EXACT again at
+   the driver's M=300 (its Adam steps cut to EXP_LR_FULL_OPT a select; the
+   slots round up to 512, past d=301, so its steps take the QR refit, as
+   in the JAX package), with a ``[linreg_refit]`` line on the first 30 and
+   300 slots of the two coresets (the low-rank refit against the f64 eigh
+   form and the QR posterior, its square root's residual, µs per call in a
+   CUDA graph beside the replaced eigh refit's direct µs), GIGA-OPT,
+   GIGA-REAL, GIGA-REAL-EXACT (card against CPU) and US;
    the Gaussian experiment's eight algorithms at its defaults, its two
    exact-family GIGA runs on CPU-drawn data and subsample, card against
    CPU; ``logistic_poisson --model poiss`` on N=100k Poisson rows made from
@@ -408,8 +414,15 @@ EXP_G_TAIL = {"rklw": 50.0, "fklw": 50.0, "mu_errs": 0.05, "Sig_errs": 0.25}
 EXP_G_EXACT = ("GIGA-OPT-EXACT", "GIGA-REAL-EXACT")
 # linear_regression SVI and SVI-EXACT: 100 Adam steps per select over all
 # N=10000 rows, so M is cut (300 -> EXP_LR_SVI_M, its sizes to
-# EXP_LR_SVI_SIZES; the exact family's steps run directly, its eigh read)
+# EXP_LR_SVI_SIZES); SVI-EXACT also runs at the driver's M=300 with its Adam
+# steps cut to EXP_LR_FULL_OPT a select (3000 steps, about M=30's 2900)
 EXP_LR_SVI_M, EXP_LR_SVI_SIZES = 30, 4
+EXP_LR_FULL_OPT = 10
+# [linreg_refit] bounds on the SVI-EXACT coresets' slots (d = 301), 5x the
+# CPU tests' (tests/test_torch_linreg.py WIDE_TOL): F against the f64 eigh
+# form (relative, Frobenius), F F^T and the mean against the QR posterior
+# (largest entry's error over the largest entry), the square root's residual
+LR_REFIT_TOL = {"F_eigh": 1e-7, "Sig_qr": 1e-8, "mu_qr": 1e-6, "residual": 5e-9}
 # linear_regression GIGA-REAL-EXACT, card against CPU as GIGA-OPT-EXACT
 # above; its tail bounds are 10-14x its values at M_max on a CPU (rKL 3.5e5,
 # fKL 3524, mean error 2.39, covariance error 0.22: the exact family fit to
@@ -3161,15 +3174,16 @@ def _hold_card_cpu(name, card, cpu, rel, dim, tail):
                                      f"outside [0, {bound}]")
 
 
-def _exp_closed_form(torch, gs, driver, alg, extra, reduced, dim, cpu_hold=None, **kv):
+def _exp_closed_form(torch, gs, driver, alg, extra, reduced, dim, cpu_hold=None,
+                     opt_itrs=EXP_ADAM_OPT, **kv):
     """One closed-form driver run (``gaussian`` or ``linear_regression``)
     on the card, its ``[experiments]`` line and its checks: finite
     metrics, nonempty coresets at every size past 0, and by algorithm
     kernel 1 held on its select copy and one launch per iteration run
     (GIGA), no launch (SparseVI, BatchPSVI, US), the Adam steps counted
-    and their host reads (none where they replay), rKL at M_max below
-    EXP_RKL_FALL_CLOSED x its first size's (not BatchPSVI, which rebuilds
-    at each size); with ``cpu_hold`` (the tail bounds) the same run with
+    (``opt_itrs`` a select or size) and replayed with no host read, rKL at
+    M_max below EXP_RKL_FALL_CLOSED x its first size's (not BatchPSVI,
+    which rebuilds at each size); with ``cpu_hold`` (the tail bounds) the same run with
     ``--device cpu``, held by ``_hold_card_cpu``.  Returns (select
     launches, the hold's score error, the coreset)."""
     import bayesian_coresets_tpu_torch as bc
@@ -3225,19 +3239,15 @@ def _exp_closed_form(torch, gs, driver, alg, extra, reduced, dim, cpu_hold=None,
     elif r["launches"]:
         raise AssertionError(f"{name}: {r['launches']} select launches")
     # the drivers' opt_itrs Adam steps per SparseVI select, per BatchPSVI size
-    want = EXP_ADAM_OPT * {"SVI": int(Ms[-1]), "BPSVI": int((Ms > 0).sum())}.get(
+    want = opt_itrs * {"SVI": int(Ms[-1]), "BPSVI": int((Ms > 0).sum())}.get(
         alg.split("-")[0], 0)
     if steps != want:
         raise AssertionError(f"{name}: {steps} Adam steps, expected {want}")
-    if steps and not kv.get("direct"):
-        if reads["reads"]:
-            raise AssertionError(f"{name}: {reads['reads']} host reads in the Adam steps "
-                                 f"({dict(reads['sites'])})")
-        if not r["caps"]:
-            raise AssertionError(f"{name}: no graph was captured: the Adam steps did not "
-                                 "replay")
-    if steps and kv.get("direct") and reads["direct_steps"] != steps:
-        raise AssertionError(f"{name}: {reads['direct_steps']} of {steps} Adam steps direct")
+    if steps and reads["reads"]:
+        raise AssertionError(f"{name}: {reads['reads']} host reads in the Adam steps "
+                             f"({dict(reads['sites'])})")
+    if steps and not r["caps"]:
+        raise AssertionError(f"{name}: no graph was captured: the Adam steps did not replay")
     rkl = table["rklw"]
     if alg != "BPSVI" and not rkl[-1] < EXP_RKL_FALL_CLOSED * rkl[0]:
         raise AssertionError(f"{name}: rKL at M_max {rkl[-1]} not below "
@@ -3276,9 +3286,87 @@ def _exp_gaussian(torch, gs):
     return total, err
 
 
+def _eigh_refit(torch, basis, z, w, floor):
+    """The JAX package's low-rank refit, an eigh of the Gram, in f64 with
+    the Gram's eigenvalues up to ``floor`` of the largest masked: with
+    ``floor`` 1e-12 the port's refit before its square root, with 0 the
+    yardstick of ``[linreg_refit]`` (the mask drops eigenvalues whose
+    terms are not rounding: up to 1e-12 x 1e9 here).  Run directly (the
+    eigh reads the host).  Returns (mu, F, the Gram's eigenvalues)."""
+    x, y = z[:, :-1].double(), z[:, -1].double()
+    w = w.double()
+    L0inv, L0invT, r0, sigsq = (t.double() for t in basis)
+    sw = torch.sqrt(torch.clamp_min(w, 0.0))
+    W = (sw[:, None] * x) @ L0invT / torch.sqrt(sigsq)
+    G = W @ W.T
+    lam, U = torch.linalg.eigh(0.5 * (G + G.T))
+    lam = torch.clamp_min(lam, 0.0)
+    mask = lam > floor * torch.clamp_min(torch.max(lam), 1e-300)
+    lam_safe = torch.where(mask, lam, 1.0)
+    V = torch.where(mask[None, :], (W.T @ U) / torch.sqrt(lam_safe)[None, :], 0.0)
+    c_inv = torch.where(mask, lam / (1.0 + lam), 0.0)
+    c_half = torch.where(mask, 1.0 - 1.0 / torch.sqrt(1.0 + lam), 0.0)
+    t = L0inv @ (r0 + x.T @ (w * y) / sigsq)
+    t = t - V @ (c_inv * (V.T @ t))
+    return L0invT @ t, L0invT - ((L0invT @ V) * c_half[None, :]) @ V.T, lam
+
+
+def _linreg_refit(torch, coresets):
+    """``[linreg_refit]``: the exact family's low-rank refit on the first m
+    slots of SVI-EXACT's coresets, for each ``(coreset, m)`` (weights and
+    points at the end of the driver's runs; the prior and noise from the
+    driver's data), held to the f64 eigh form (``_eigh_refit``, mask at 0)
+    and the QR posterior within LR_REFIT_TOL, with its square root's
+    residual (a device value, read after the call), and the errors of the
+    refit it replaced (mask at 1e-12) beside them; then its µs per call,
+    20 calls in a CUDA graph, beside the replaced refit's direct µs."""
+    from bayesian_coresets_tpu_torch.coresets import sparsevi
+    from bayesian_coresets_tpu_torch.models import linreg
+
+    for c, m in coresets:
+        z = sparsevi._gather_pts(c.data, c._idcs[:m]).double()
+        w = c._wts[:m].double()
+        y = c.data[:, -1].double()
+        mn, var = y.mean(), y.var(unbiased=False)
+        d = z.shape[1] - 1
+        mu0 = mn * torch.ones(d, dtype=torch.float64, device=z.device)
+        Sig0inv = torch.eye(d, dtype=torch.float64, device=z.device) / (var + mn * mn)
+        basis = linreg.lowrank_basis(mu0, Sig0inv, var)
+        mu, F, res = linreg.weighted_post_lowrank(basis, z, w, residual=True)
+        mu_e, F_e, lam = _eigh_refit(torch, basis, z, w, 0.0)
+        mu_o, F_o, _ = _eigh_refit(torch, basis, z, w, 1e-12)
+        post = linreg.weighted_post(mu0, Sig0inv, var, z, w)
+        Sig_q = post.USig @ post.USig.T
+
+        def errs(mu, F):
+            return {"F_eigh": torch.linalg.norm(F - F_e) / torch.linalg.norm(F_e),
+                    "Sig_qr": (F @ F.T - Sig_q).abs().max() / Sig_q.abs().max(),
+                    "mu_qr": (mu - post.mu).abs().max() / post.mu.abs().max()}
+
+        err = {k: float(v) for k, v in dict(errs(mu, F), residual=res).items()}
+        old = {k: float(v) for k, v in errs(mu_o, F_o).items()}
+        us = 1e3 * _graph_ms(torch, lambda stream: lambda: linreg.weighted_post_lowrank(
+            basis, z, w))
+        eigh_us = 1e3 * _median_ms(torch, lambda: _eigh_refit(torch, basis, z, w, 1e-12))
+        # the Adam steps refit all of the coreset's slots (a power of two),
+        # through this refit where they are at most d, else through the QR
+        say("linreg_refit", m=z.shape[0], d=d, slots_filled=int((w > 0).sum()),
+            adam_step_slots=c._cap, adam_step_refit="lowrank" if c._cap <= d else "qr",
+            gram_lam_max=f"{float(lam.max()):.4g}",
+            **{f"{k}_err": f"{v:.3g}" for k, v in err.items()},
+            **{f"{k}_bound": f"{v:g}" for k, v in LR_REFIT_TOL.items()},
+            **{f"replaced_{k}_err": f"{v:.3g}" for k, v in old.items()},
+            sqrt_steps=linreg.SQRT_STEPS, us_per_call_graph=f"{us:.2f}",
+            replaced_us_per_call_direct=f"{eigh_us:.2f}")
+        if not all(v <= LR_REFIT_TOL[k] for k, v in err.items()):
+            raise AssertionError(f"linreg_refit at m={z.shape[0]}: {err} past {LR_REFIT_TOL}")
+
+
 def _exp_linear_regression(torch, gs):
     """linear_regression's seven algorithms at its defaults, SparseVI's
-    sizes cut (EXP_LR_SVI_*); the exact-family GIGA runs on the card and
+    sizes cut (EXP_LR_SVI_*), SVI-EXACT also at the driver's M=300 with
+    its Adam steps cut (EXP_LR_FULL_OPT) and ``[linreg_refit]`` on both
+    SVI-EXACT coresets; the exact-family GIGA runs on the card and
     with ``--device cpu``, held together, and kernel 1 timed on
     GIGA-OPT-EXACT's select copy (``[experiments_select]``).  Returns
     (select launches, the holds' largest score error)."""
@@ -3289,9 +3377,13 @@ def _exp_linear_regression(torch, gs):
     svi = ["--coreset_size_max", str(EXP_LR_SVI_M), "--coreset_num_sizes",
            str(EXP_LR_SVI_SIZES)]
     svi_cut = f"coreset_size_max:300->{EXP_LR_SVI_M},coreset_num_sizes:6->{EXP_LR_SVI_SIZES}"
+    full = ["--coreset_size_max", "300", "--opt_itrs", str(EXP_LR_FULL_OPT)]
+    exact = []
     for alg, extra, cut, kv in (("GIGA-OPT-EXACT", [], "none", {"cpu_hold": EXP_LR_TAIL}),
                                 ("SVI", svi, svi_cut, {}),
-                                ("SVI-EXACT", svi, svi_cut, {"direct": True}),
+                                ("SVI-EXACT", svi, svi_cut, {}),
+                                ("SVI-EXACT", full, f"opt_itrs:100->{EXP_LR_FULL_OPT}",
+                                 {"opt_itrs": EXP_LR_FULL_OPT}),
                                 ("GIGA-OPT", [], "none", {}),
                                 ("GIGA-REAL", [], "none", {}),
                                 ("GIGA-REAL-EXACT", [], "none",
@@ -3300,6 +3392,8 @@ def _exp_linear_regression(torch, gs):
         launches, e, coreset = _exp_closed_form(torch, gs, driver, alg, extra, cut, 100,
                                                 N=10000, d=301, proj_dim=100, **kv)
         total, err = total + launches, max(err, e)
+        if alg == "SVI-EXACT":
+            exact.append((coreset, int(extra[extra.index("--coreset_size_max") + 1])))
         if alg == "GIGA-OPT-EXACT":
             # the select's time per launch on the driver's own copy (412 MB,
             # far past L2: a batch is as cold as the driver's launches)
@@ -3311,6 +3405,7 @@ def _exp_linear_regression(torch, gs):
                 select=f"{Vsel.dtype}:{tuple(Vsel.shape)}", ms_per_launch=f"{ms:.4f}",
                 bound_ms=f"{bound:.4f}", share_of_bound=f"{bound / ms:.3f}",
                 ms_in_run=f"{ms * launches:.2f}")
+    _linreg_refit(torch, exact)
     return total, err
 
 

@@ -1947,8 +1947,17 @@ sys.path.insert(0, "tests")
 from test_torch_cuda import _linreg_exact
 from bayesian_coresets_tpu_torch.coresets import sparsevi
 dev = torch.device("cuda")
-x, fam = _linreg_exact(dev)
-try:                                    # 4 slots <= d = 6: the low-rank refit
+x, exact = _linreg_exact(dev)
+
+
+def make_ctx(gen, wts, pts):            # a refit through an eigh, which reads
+    mu, F = exact.make_ctx(gen, wts, pts)   # its error code back to the host
+    lam, U = torch.linalg.eigh(F.T @ F)
+    return mu, (U * torch.sqrt(lam)) @ U.T
+
+
+fam = exact._replace(make_ctx=make_ctx)
+try:
     sparsevi.svi_build(x, torch.zeros(4, device=dev),
                        torch.full((4,), -1, dtype=torch.int64, device=dev), 0,
                        torch.Generator(device=dev), 2, family=fam, n_sub_sel=None,
@@ -1963,11 +1972,12 @@ except RuntimeError as e:
 @pytest.mark.cuda
 def test_a_failed_adam_capture_raises(cuda_device):
     """No fallback: a gradient that reads the host runs its first segment
-    (the warm-up) and raises at its capture; the linear-regression exact
-    family's low-rank refit (an eigh) is such a family, which runs with
-    graphs=False.  Its capture runs in a process of its own: a cuSOLVER
-    call that failed inside a capture leaves the process's handle
-    unusable (CUSOLVER_STATUS_EXECUTION_FAILED at the next eigh)."""
+    (the warm-up) and raises at its capture; a family whose refit takes an
+    eigh is such a family (a stand-in: the linear-regression exact family
+    with an eigh of its factor's Gram), which would need graphs=False.  Its
+    capture runs in a process of its own: a cuSOLVER call that failed
+    inside a capture leaves the process's handle unusable
+    (CUSOLVER_STATUS_EXECUTION_FAILED at the next eigh)."""
     import subprocess
     import sys
     from pathlib import Path
@@ -2000,28 +2010,36 @@ def _linreg_exact(dev, n=400, d=6):
 
 
 @pytest.mark.cuda
-def test_linreg_exact_svi_reads_only_its_eigh(cuda_device):
-    """The linear-regression exact family's low-rank refit runs directly
-    (``linear_regression --alg SVI-EXACT`` passes graphs=False): its host
-    reads are the select's one flag per select and the refit's eigh, one
-    set per context refit (the select's and every Adam step's)."""
-    from bayesian_coresets_tpu_torch.models import linreg
+def test_linreg_exact_svi_replays_as_direct(cuda_device):
+    """The linear-regression exact family's low-rank refit reads nothing
+    (a matrix square root by Cholesky factors, no eigh), so its Adam steps
+    replay CUDA graphs as every other family's: replayed (twice, the second
+    on the cached graphs) against ``graphs=False``, bit for bit on the
+    weights, the slots' points and the generator's state; the only host
+    reads, direct or on cached graphs, are the select's one flag per
+    select, and the refit makes none while the graphs are captured."""
     x, fam = _linreg_exact(cuda_device)
-    selects, steps = 3, 7
-    (w, i, size), syncs = _syncs(lambda: sparsevi.svi_build(      # 4 slots <= d = 6
-        x, torch.zeros(4, device=cuda_device),
-        torch.full((4,), -1, dtype=torch.int64, device=cuda_device), 0,
-        torch.Generator(device=cuda_device), selects, family=fam, n_sub_sel=None,
-        n_sub_opt=None, opt_itrs=steps, step_sched=lambda i: 1.0 / (1.0 + i), graphs=False))
-    assert 0 < size <= selects and bool(torch.isfinite(w).all())
-    import inspect
-    src, first = inspect.getsourcelines(linreg.weighted_post_lowrank)
-    eigh = first + next(k for k, line in enumerate(src) if "torch.linalg.eigh" in line)
-    flag = [s for s in syncs if "coresets/sparsevi.py" in s]
-    refit = [s for s in syncs if s.endswith(f"models/linreg.py:{eigh}")]
-    assert len(flag) == selects and len(flag) + len(refit) == len(syncs), syncs
-    refits = selects * (1 + steps)      # a cold family: each select's and each step's
-    assert refit and len(refit) % refits == 0, (len(refit), refits)
+    selects, steps = 3, 17
+    out, gen = [], torch.Generator(device=cuda_device)
+    for mode in (False, None, None):
+        gen.manual_seed(5)              # one generator: the graphs are cached per generator
+        caps = graphs.captures
+        (w, i, size), syncs = _syncs(lambda: sparsevi.svi_build(      # 4 slots <= d = 6
+            x, torch.zeros(4, device=cuda_device),
+            torch.full((4,), -1, dtype=torch.int64, device=cuda_device), 0, gen, selects,
+            family=fam, n_sub_sel=None, n_sub_opt=None, opt_itrs=steps,
+            step_sched=lambda i: 1.0 / (1.0 + i), graphs=mode, segment=5))
+        out.append((w, x[i.clamp_min(0)], gen.get_state(), graphs.captures - caps))
+        assert 0 < size <= selects and bool(torch.isfinite(w).all())
+        flags = [s for s in syncs if "coresets/sparsevi.py" in s]
+        assert len(flags) == selects and not any("models/linreg.py" in s for s in syncs)
+        if len(out) != 2:               # not the run that captures the graphs
+            assert flags == syncs, syncs
+    for run in out[1:]:
+        _same_tensors_bits(run[0], out[0][0])
+        _same_tensors_bits(run[1], out[0][1])
+        assert torch.equal(run[2], out[0][2])
+    assert out[0][3] == 0 and out[1][3] > 0 and out[2][3] == 0, [r[3] for r in out]
 
 
 @pytest.mark.cuda
@@ -2048,6 +2066,8 @@ def test_refits_read_nothing_on_the_card(cuda_device):
                                                     1.0, z, w),
         "linreg_sample": lambda: linreg.sample_weighted_post(
             g, torch.zeros(3, device=dev), eye[:3, :3], 1.0, z, w, 16),
+        "linreg_lowrank": lambda: linreg.weighted_post_lowrank(
+            linreg.lowrank_basis(torch.zeros(3, device=dev), eye[:3, :3], 1.0), z[:3], w[:3]),
     }
     for name, fn in calls.items():
         fn()

@@ -1,9 +1,12 @@
 """The port's linear-regression model and its exact tangent family against
 the JAX package's, on numpy inputs made from a seed: f32 within rtol 1e-5,
 atol 1e-6; the posterior refits (``weighted_post`` by QR,
-``weighted_post_lowrank`` by an eigh of the Gram) within rtol 1e-4 on the
-mean and on the covariance F F^T, since the factorizations come from other
-LAPACK routines on each side.
+``weighted_post_lowrank`` by a matrix square root of the (m, m) Gram, the
+JAX package's by an eigh of it) within rtol 1e-4 on the mean, on the
+covariance F F^T and on the symmetric factor F, since the factorizations
+come from other routines on each side.  At the linear_regression driver's
+width the low-rank refit is held in f64 to a numpy transcription of the
+JAX package's eigh formula and to the QR posterior.
 """
 
 import jax
@@ -90,12 +93,12 @@ def test_weighted_post_matches_jax(zero_weights):
         np.testing.assert_allclose(tpost.mu.numpy(), th0, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("m", [3, 12])
+@pytest.mark.parametrize("m", [1, 3, 4, 12])
 def test_weighted_post_lowrank_matches_jax(m):
-    """m rows below and above the parameter dimension (a rank-deficient and
-    a full-rank Gram); a zero weight among them."""
+    """m rows below, at and above the parameter dimension (full-rank and
+    rank-deficient Grams); a zero weight among them (m = 1: the only one)."""
     z, _, w, th0, Sig0inv = _inputs(2, n=m)
-    w[1] = 0.0
+    w[min(1, m - 1)] = 0.0
     tb = tl.lowrank_basis(*_t(th0, Sig0inv), SIGSQ)
     jb = jl.lowrank_basis(*_j(th0, Sig0inv), SIGSQ)
     for f in ("L0inv", "L0invT", "r0", "sigsq"):
@@ -104,11 +107,135 @@ def test_weighted_post_lowrank_matches_jax(m):
     jmu, jF = jl.weighted_post_lowrank(jb, *_j(z, w))
     np.testing.assert_allclose(tmu.numpy(), np.asarray(jmu), **POST_TOL)
     np.testing.assert_allclose((tF @ tF.T).numpy(), np.asarray(jF @ jF.T), **POST_TOL)
+    # the same symmetric factor L0^{-T} (I + W^T W)^{-1/2}, not another one
+    np.testing.assert_allclose(tF.numpy(), np.asarray(jF), **POST_TOL)
     # and it is the QR posterior
     post = tl.weighted_post(*_t(th0, Sig0inv), SIGSQ, *_t(z, w))
     np.testing.assert_allclose(tmu.numpy(), post.mu.numpy(), rtol=1e-3, atol=1e-5)
     np.testing.assert_allclose((tF @ tF.T).numpy(), (post.USig @ post.USig.T).numpy(),
                                rtol=1e-3, atol=1e-6)
+
+
+# The linear_regression driver's design (experiments/linear_regression.py:
+# 66-87 at its defaults: 10000 synthetic housing rows, 6 x 50 RBF bases and a
+# constant one, d = 301) and the refit's tolerances there, in f64:
+# - F against the eigh formula, relative in the Frobenius norm: the formula
+#   is itself off by up to ~1.4e-8 in F F^T from the QR posterior (its
+#   V = W^T U / lam^{1/2} loses the small eigenvalues' directions), the
+#   refit by 2.6e-10 (on a CPU);
+# - F F^T against the QR posterior, largest entry's error over the largest
+#   entry; the mean against the QR posterior's likewise (the eigh formula's
+#   mean, t - V c V^T t, cancels: 1e-4 off, the refit's 1e-8);
+# - the square root's residual |S^2 - A|_F / |A|_F.
+WIDE_TOL = {"F_eigh": 2e-8, "Sig_qr": 2e-9, "mu_qr": 2e-7, "residual": 1e-9}
+
+
+@pytest.fixture(scope="module")
+def driver_design():
+    from bayesian_coresets_tpu_torch.experiments import datasets
+    rng = np.random.default_rng(0)
+    x = datasets.gen_synthetic_housing(rng, 10000)
+    sigsq, mn = x[:, 2].var(), x[:, 2].mean()
+    counts = [50] * 6 + [1]
+    scales = np.repeat([0.2, 0.4, 0.8, 1.2, 1.6, 2.0, 100.0], counts)
+    locs = np.vstack([x[rng.choice(np.arange(x.shape[0]), replace=False, size=c), :2]
+                      for c in counts])
+    X = np.exp(-((x[:, None, :2] - locs[None]) ** 2).sum(-1) / (2.0 * scales[None] ** 2))
+    Z = np.hstack((X, x[:, 2:])).astype(np.float32)
+    d = X.shape[1]
+    return Z, np.full(d, mn), np.eye(d) / (sigsq + mn**2), sigsq
+
+
+def _eigh_refit_np(L0inv, L0invT, r0, sigsq, z, w):
+    """The JAX package's weighted_post_lowrank (bayesian_coresets_tpu/models/
+    linreg.py:142-162) in numpy f64, with its mask of the Gram's
+    eigenvalues at 0: its threshold, 1e-7 of the largest, is f32's
+    rounding, and in f64 it drops eigenvalues up to hundreds here."""
+    x, y = z[:, :-1], z[:, -1]
+    sw = np.sqrt(np.maximum(w, 0.0))
+    W = (sw[:, None] * x) @ L0invT / np.sqrt(sigsq)
+    G = W @ W.T
+    lam, U = np.linalg.eigh(0.5 * (G + G.T))
+    lam = np.maximum(lam, 0.0)
+    mask = lam > 0.0
+    lam_safe = np.where(mask, lam, 1.0)
+    V = np.where(mask[None, :], (W.T @ U) / np.sqrt(lam_safe)[None, :], 0.0)
+    c_inv = np.where(mask, lam / (1.0 + lam), 0.0)
+    c_half = np.where(mask, 1.0 - 1.0 / np.sqrt(1.0 + lam), 0.0)
+    t = L0inv @ (r0 + x.T @ (w * y) / sigsq)
+    t = t - V @ (c_inv * (V.T @ t))
+    return L0invT @ t, L0invT - ((L0invT @ V) * c_half[None, :]) @ V.T
+
+
+def _qr_post_np(th0, Sig0inv, sigsq, z, w):
+    """The weighted posterior's (mean, covariance) by QR of the stacked
+    design, which never squares its conditioning."""
+    x, y = z[:, :-1], z[:, -1]
+    sw = np.sqrt(w)
+    L0 = np.linalg.cholesky(Sig0inv)
+    B = np.vstack([sw[:, None] * x / np.sqrt(sigsq), L0.T])
+    Q, R = np.linalg.qr(B)
+    Rinv = np.linalg.solve(R, np.eye(R.shape[0]))
+    return Rinv @ (Q.T @ np.hstack([sw * y / np.sqrt(sigsq), L0.T @ th0])), Rinv @ Rinv.T
+
+
+@pytest.mark.parametrize("m,weights", [(30, "uniform"), (300, "uniform"), (300, "decades"),
+                                       (300, "decades_repeated_rows")])
+def test_weighted_post_lowrank_at_the_drivers_width(driver_design, m, weights):
+    """m = 300 slots against d = 301 bases, the driver's SparseVI capacity
+    (and chip_smoke's 30): weights summing to about N, or spread over six
+    decades with a tenth of the slots empty, or that with 20 slots
+    repeating others' rows (an exactly rank-deficient Gram; the RBF design's
+    own Gram is numerically so, its eigenvalues falling past 1e-16 of the
+    largest, which is ~1e9 here)."""
+    Z, th0, Sig0inv, sigsq = driver_design
+    rng = np.random.default_rng(m + len(weights))
+    z = Z[rng.choice(Z.shape[0], m, replace=False)].astype(np.float64)
+    if weights == "uniform":
+        w = rng.uniform(0.0, 2.0 * Z.shape[0] / m, m)
+    else:
+        w = 10.0 ** rng.uniform(-3.0, 3.0, m) * Z.shape[0] / (20.0 * m)
+        w[rng.choice(m, m // 10, replace=False)] = 0.0
+    if weights == "decades_repeated_rows":
+        z[m // 2: m // 2 + 20] = z[:20]
+    basis = tl.lowrank_basis(*_t(th0, Sig0inv), sigsq)
+    mu, F, res = tl.weighted_post_lowrank(basis, *_t(z, w), residual=True)
+    assert mu.dtype == F.dtype == res.dtype == torch.float64
+    mu, F = mu.numpy(), F.numpy()
+    mu_e, F_e = _eigh_refit_np(*(b.numpy() for b in basis[:3]), sigsq, z, w)
+    mu_q, Sig_q = _qr_post_np(th0, Sig0inv, sigsq, z, w)
+    err = {"F_eigh": np.linalg.norm(F - F_e) / np.linalg.norm(F_e),
+           "Sig_qr": np.abs(F @ F.T - Sig_q).max() / np.abs(Sig_q).max(),
+           "mu_qr": np.abs(mu - mu_q).max() / np.abs(mu_q).max(),
+           "residual": float(res)}
+    assert all(err[k] <= WIDE_TOL[k] for k in WIDE_TOL), err
+    # the factor is the symmetric one: L0^T F is symmetric
+    L0TF = np.linalg.cholesky(Sig0inv).T @ F
+    assert np.abs(L0TF - L0TF.T).max() <= 1e-9 * np.abs(L0TF).max()
+
+
+@pytest.mark.parametrize("spectrum", ["log_spread", "one_large", "half_empty"])
+def test_sqrt_spd_converges_within_its_steps(spectrum):
+    """The square root's SQRT_STEPS steps act on A's eigenvalues alone (its
+    scale reads only their norms), so a diagonal A stands for every A with
+    that spectrum: eigenvalues 1 + lam, lam up to 1e16, at m = 512 (the
+    largest power-of-two capacity past d = 301 is 512), reach their square
+    roots within f64 rounding; A's Cholesky factor comes back with S."""
+    m = 512
+    rng = np.random.default_rng(11)
+    if spectrum == "log_spread":
+        lam = 10.0 ** rng.uniform(-20.0, 16.0, m)
+    elif spectrum == "one_large":
+        lam = np.zeros(m)
+    else:
+        lam = np.where(np.arange(m) < m // 2, 10.0 ** rng.uniform(14.0, 16.0, m), 0.0)
+    lam[0] = 1e16
+    A = torch.diag(torch.as_tensor(1.0 + lam))
+    S, L = tl._sqrt_spd(A)
+    root = np.sqrt(1.0 + lam)
+    assert np.abs(np.diag(S.numpy()) / root - 1.0).max() <= 1e-14
+    assert float(torch.count_nonzero(S - torch.diag(torch.diagonal(S)))) == 0
+    np.testing.assert_array_equal(np.diag(L.numpy()), root)
 
 
 def test_sample_weighted_post_moments():
