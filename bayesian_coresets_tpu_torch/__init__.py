@@ -21,7 +21,8 @@ in both its stages, and the variational coreset constructions:
 - the streamed int8-resident construction on one device
   (``HilbertCoreset(stream_chunk_size=...)``, ``parallel/streamed.py``,
   ``ops.snnls.make_consts_quantized``), for datasets whose f32 projection
-  does not fit on the card, and phase timers (``utils/profiling.py``).
+  does not fit on the card, and the span recorder and phase timers
+  (``utils/profiling.py``).
 
 ``ops/packed_select.py`` (``csrc/packed_select.cu``) carries the JAX
 package's packed-int4 select probe.  The experiment drivers

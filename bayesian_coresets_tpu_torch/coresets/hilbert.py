@@ -43,6 +43,8 @@ no such fallback and no re-route.
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
@@ -53,8 +55,19 @@ from ..parallel.mesh import DATA_AXIS
 from ..parallel.streamed import (make_streamed_quantized_consts, stream_quantized,
                                  streamed_row_layout)
 from ..utils import config
+from ..utils.profiling import span
 from .coreset import Coreset
 from .projector import Projector
+
+_serials = itertools.count(1)       # HilbertCoreset.serial, the id of its spans
+
+
+def _device_of(data, device) -> torch.device:
+    """The device a construction from ``data`` runs on: ``device``, else a
+    tensor's own, else the default device."""
+    if device is not None:
+        return config.resolve_device(device)
+    return data.device if isinstance(data, torch.Tensor) else config.default_device()
 
 
 class HilbertCoreset(Coreset):
@@ -63,6 +76,13 @@ class HilbertCoreset(Coreset):
                  max_active: int | None = None, select_dtype=None,
                  stream_chunk_size: int | None = None, device=None, mesh=None):
         super().__init__()
+        self.serial = next(_serials)
+        with span("hilbert.init", device=_device_of(data, device), coreset=self.serial):
+            self._init(data, ll_projector, n_subsample, snnls, seed, max_active, select_dtype,
+                       stream_chunk_size, device, mesh)
+
+    def _init(self, data, ll_projector: Projector, n_subsample, snnls, seed: int, max_active,
+              select_dtype, stream_chunk_size, device, mesh):
         if stream_chunk_size is not None:
             if n_subsample is not None:
                 raise ValueError("stream_chunk_size and n_subsample are mutually exclusive "
@@ -87,27 +107,30 @@ class HilbertCoreset(Coreset):
             pts = data[mine] if mesh is not None else data
         else:
             pts = data[torch.as_tensor(sub_idcs[mine], device=data.device)]
-        vecs = ll_projector.project(pts)
-        valid = (torch.ones(vecs.shape[0], dtype=torch.bool, device=vecs.device) if uniq is None
-                 else torch.as_tensor(uniq[mine], device=vecs.device))
-        # mask zero vectors instead of pruning (hilbert.py:20-22)
-        valid = valid & (torch.sqrt(torch.sum(vecs**2, dim=1)) > 0.0)
-        b = vecs[valid].sum(dim=0)
-        if mesh is None:
-            if not bool(valid.any()):
-                raise ValueError("all projected vectors are zero or masked")
-            self.snnls = snnls(vecs.T, b, valid=valid, seed=seed,
-                               max_active=max_active, select_dtype=select_dtype)
-        else:
-            comm = Comm(mesh, DATA_AXIS, per)
-            b = comm.sum(b, "setup")
-            if not bool(comm.sum(torch.sum(valid).double(), "setup") > 0):
-                raise ValueError("all projected vectors are zero or masked")
-            sampling = snnls.method if snnls.method in ("importance", "uniform") else None
-            consts = make_consts(local_rows(vecs, 0, per).T, b,
-                                 valid=local_rows(valid, 0, per, False),
-                                 select_dtype=select_dtype, sampling=sampling, comm=comm)
-            self.snnls = snnls.from_consts(consts, seed=seed, max_active=max_active, mesh=mesh)
+        with span("hilbert.project"):
+            vecs = ll_projector.project(pts)
+            valid = (torch.ones(vecs.shape[0], dtype=torch.bool, device=vecs.device)
+                     if uniq is None else torch.as_tensor(uniq[mine], device=vecs.device))
+            # mask zero vectors instead of pruning (hilbert.py:20-22)
+            valid = valid & (torch.sqrt(torch.sum(vecs**2, dim=1)) > 0.0)
+            b = vecs[valid].sum(dim=0)
+        with span("hilbert.consts"):
+            if mesh is None:
+                if not bool(valid.any()):
+                    raise ValueError("all projected vectors are zero or masked")
+                self.snnls = snnls(vecs.T, b, valid=valid, seed=seed,
+                                   max_active=max_active, select_dtype=select_dtype)
+            else:
+                comm = Comm(mesh, DATA_AXIS, per)
+                b = comm.sum(b, "setup")
+                if not bool(comm.sum(torch.sum(valid).double(), "setup") > 0):
+                    raise ValueError("all projected vectors are zero or masked")
+                sampling = snnls.method if snnls.method in ("importance", "uniform") else None
+                consts = make_consts(local_rows(vecs, 0, per).T, b,
+                                     valid=local_rows(valid, 0, per, False),
+                                     select_dtype=select_dtype, sampling=sampling, comm=comm)
+                self.snnls = snnls.from_consts(consts, seed=seed, max_active=max_active,
+                                               mesh=mesh)
         self.sub_idcs = sub_idcs
         self.data = data
 
@@ -123,44 +146,45 @@ class HilbertCoreset(Coreset):
         if mesh is not None and tuple(mesh.axis_names) != (DATA_AXIS,):
             raise ValueError(f"a streamed-sharded construction takes a 1-D '{DATA_AXIS}' mesh "
                              "(int8-resident builds are data-parallel only)")
-        if isinstance(data, torch.Tensor):
-            dev = config.resolve_device(device) if device is not None else data.device
-        else:
+        if not isinstance(data, torch.Tensor):
             data = np.asarray(data)
-            dev = config.resolve_device(device) if device is not None else config.default_device()
+        dev = _device_of(data, device)
 
         def rows(lo: int, hi: int) -> torch.Tensor:
             return torch.as_tensor(data[lo:hi]).to(dev)
 
-        # chunks are consistent only if the projector keeps one context
-        # across project() calls (a projector that resamples inside
-        # project() would put each chunk in another basis): the same row
-        # projected twice must give the same vector
-        sentinel = rows(0, 1)
-        probe = ll_projector.project(sentinel)
-        if not torch.equal(probe, ll_projector.project(sentinel)):
-            raise ValueError(
-                "stream_chunk_size requires a projector with a fixed context across "
-                "project() calls; this one returned different vectors for the same input "
-                "(does it resample inside project()?)")
-
         n = data.shape[0]
         sampling = snnls_cls.method if snnls_cls.method in ("importance", "uniform") else None
-        if mesh is not None:
-            sl = streamed_row_layout(n, mesh)[3]
-            consts = make_streamed_quantized_consts(
-                data[sl], ll_projector.project, chunk, mesh, n, sampling=sampling,
-                S=int(probe.shape[1]), device=dev)
-            self.snnls = snnls_cls.from_consts(consts, seed=seed, max_active=max_active,
-                                               mesh=mesh)
-        else:
-            buf, norms, b = stream_quantized(rows, n, n, ll_projector.project, chunk, dev)
-            valid = norms > 0
-            if not bool(valid.any()):
-                raise ValueError("all projected vectors are zero or masked")
-            consts = make_consts_quantized(buf, norms, b.float(), valid=valid,
-                                           sampling=sampling)
-            self.snnls = snnls_cls.from_consts(consts, seed=seed, max_active=max_active)
+        with span("hilbert.project"):
+            # chunks are consistent only if the projector keeps one context
+            # across project() calls (a projector that resamples inside
+            # project() would put each chunk in another basis): the same
+            # row projected twice must give the same vector
+            sentinel = rows(0, 1)
+            probe = ll_projector.project(sentinel)
+            if not torch.equal(probe, ll_projector.project(sentinel)):
+                raise ValueError(
+                    "stream_chunk_size requires a projector with a fixed context across "
+                    "project() calls; this one returned different vectors for the same input "
+                    "(does it resample inside project()?)")
+            if mesh is not None:
+                sl = streamed_row_layout(n, mesh)[3]
+                consts = make_streamed_quantized_consts(
+                    data[sl], ll_projector.project, chunk, mesh, n, sampling=sampling,
+                    S=int(probe.shape[1]), device=dev)
+            else:
+                buf, norms, b = stream_quantized(rows, n, n, ll_projector.project, chunk, dev)
+        with span("hilbert.consts"):
+            if mesh is not None:
+                self.snnls = snnls_cls.from_consts(consts, seed=seed, max_active=max_active,
+                                                   mesh=mesh)
+            else:
+                valid = norms > 0
+                if not bool(valid.any()):
+                    raise ValueError("all projected vectors are zero or masked")
+                consts = make_consts_quantized(buf, norms, b.float(), valid=valid,
+                                               sampling=sampling)
+                self.snnls = snnls_cls.from_consts(consts, seed=seed, max_active=max_active)
         self.sub_idcs = np.arange(n)
         self.data = data
 
@@ -169,23 +193,26 @@ class HilbertCoreset(Coreset):
         super().reset()
 
     def _sync(self):
-        # active-set extraction on the device: O(max_active) values cross
-        # to the host instead of the (n,) weight vector
-        idx, vals = self.snnls.active()
-        keep = (idx >= 0) & (idx < len(self.sub_idcs))
-        idx, vals = idx[keep], vals[keep]
-        order = np.argsort(idx)            # stable order by solver column
-        self.wts = vals[order]
-        self.idcs = self.sub_idcs[idx[order]]
-        if isinstance(self.data, torch.Tensor):
-            self.pts = self.data[torch.as_tensor(self.idcs, device=self.data.device)].cpu().numpy()
-        else:                                 # a streamed build's data, kept where it was given
-            self.pts = self.data[self.idcs]
-        self.reached_numeric_limit = self.snnls.reached_numeric_limit
+        with span("hilbert.active", device=self.snnls.consts.V.device, coreset=self.serial):
+            # active-set extraction on the device: O(max_active) values
+            # cross to the host instead of the (n,) weight vector
+            idx, vals = self.snnls.active()
+            keep = (idx >= 0) & (idx < len(self.sub_idcs))
+            idx, vals = idx[keep], vals[keep]
+            order = np.argsort(idx)            # stable order by solver column
+            self.wts = vals[order]
+            self.idcs = self.sub_idcs[idx[order]]
+            if isinstance(self.data, torch.Tensor):
+                rows = torch.as_tensor(self.idcs, device=self.data.device)
+                self.pts = self.data[rows].cpu().numpy()
+            else:                             # a streamed build's data, kept where it was given
+                self.pts = self.data[self.idcs]
+            self.reached_numeric_limit = self.snnls.reached_numeric_limit
 
     def _build(self, itrs: int):
-        self.snnls.build(itrs)
-        self._sync()
+        with span("hilbert.solve", device=self.snnls.consts.V.device, coreset=self.serial):
+            self.snnls.build(itrs)
+            self._sync()
 
     def _optimize(self):
         self.snnls.optimize()

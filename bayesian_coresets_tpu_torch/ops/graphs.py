@@ -96,6 +96,7 @@ from collections import OrderedDict
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from ..utils.profiling import span
 from . import fold_scale as fs
 from . import giga_select as gs
 
@@ -215,7 +216,8 @@ class Graphs:
         self.derived = derived
         self.derived_at = None      # the Statics.loads that ``derived`` was made at
         self.consts = consts
-        self.stream = side_stream(next(_tensors(static)).device)
+        self.device = next(_tensors(static)).device
+        self.stream = side_stream(self.device)
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: dict = {}
         self.warm = warm
@@ -227,7 +229,9 @@ class Graphs:
 
     def run(self, key, fn) -> None:
         """Replay the graph of ``key``, capturing ``fn()`` first if there
-        is none yet (with ``warm``, running it directly the first time)."""
+        is none yet (with ``warm``, running it directly the first time),
+        in the spans ``graphs.capture`` (attr ``kind``) and
+        ``graphs.replay`` (attrs ``kind`` and ``key``)."""
         g = self.graphs.get(key)
         if g is None:
             if self.warm and key not in self.warmed:
@@ -239,12 +243,14 @@ class Graphs:
                 caller.wait_stream(self.stream)
                 return
             t0 = capture_s + instantiate_s
-            g = Graph(fn, self.stream, self.pool, () if self.gen is None else (self.gen,))
+            with span("graphs.capture", device=self.device, kind=self.kind):
+                g = Graph(fn, self.stream, self.pool, () if self.gen is None else (self.gen,))
             self.graphs[key] = g
             captures_by_kind[self.kind] = captures_by_kind.get(self.kind, 0) + 1
             capture_s_by_kind[self.kind] = (capture_s_by_kind.get(self.kind, 0.0)
                                             + capture_s + instantiate_s - t0)
-        g.replay()
+        with span("graphs.replay", device=self.device, kind=self.kind, key=key):
+            g.replay()
 
 
 def layout(tensors) -> tuple:

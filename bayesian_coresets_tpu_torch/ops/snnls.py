@@ -69,6 +69,7 @@ import torch.nn.functional as F
 from .. import native
 from ..utils import checkpoint, config
 from ..utils.errors import NumericalPrecisionError
+from ..utils.profiling import span
 from . import graphs
 from .fold_scale import fold_scale
 from .giga_select import (col_multiple, giga_dots, giga_score_select, giga_select,
@@ -995,7 +996,8 @@ def _read(c: _Carry, itr: int, latches: bool) -> tuple[int, bool]:
     can latch (a sampling build without slots), whose ``itr`` is known."""
     if not latches:
         return itr, False
-    itr, done = torch.stack([c.itr, c.done.to(c.itr.dtype)]).tolist()
+    with span("snnls.read", device=c.itr.device):
+        itr, done = torch.stack([c.itr, c.done.to(c.itr.dtype)]).tolist()
     return itr, bool(done)
 
 

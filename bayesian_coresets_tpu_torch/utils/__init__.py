@@ -1,5 +1,5 @@
 """Utilities: tolerances, the default device, logging, errors, checkpoints,
-phase timing, seeded generators, and interop with the JAX package."""
+spans and phase timing, seeded generators, and interop with the JAX package."""
 
 from . import checkpoint, profiling, prng
 from .config import (

@@ -36,6 +36,7 @@ JAX, so it also runs where JAX is absent; there, skip the JAX conftest:
 """
 
 import gc
+import time
 import warnings
 
 import numpy as np
@@ -2130,3 +2131,108 @@ def test_driver_adam_steps_replay_without_host_reads(driver, alg, cuda_device, t
     want = 25 * (6 if alg == "SVI" else 2)     # 6 selects; BatchPSVI's sizes 1 and 6
     assert opt.steps_run == want and reads == [], (opt.steps_run, reads)
     assert graphs.captures > caps and 0 < direct[0] < want
+
+
+def _span_coreset(dev, chunk=None, seed=5, n=20_000, S=256):
+    """A Hilbert coreset on the card of logistic rows held on the host, each
+    seed its own projection; ``chunk``: streamed into int8-resident
+    constants, whose graphs each build captures anew."""
+    from bayesian_coresets_tpu_torch.models import logistic
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(n, 10)).astype(np.float32)
+    th = torch.as_tensor(0.1 * rng.normal(size=(S, 10)), dtype=torch.float32, device=dev)
+    proj = bc.BlackBoxProjector(lambda gen, k, w, p: th, S, logistic.log_likelihood,
+                                generator=torch.Generator(device=dev))
+    if chunk is not None:
+        return bc.HilbertCoreset(z, proj, stream_chunk_size=chunk, max_active=1024, device=dev)
+    return bc.HilbertCoreset(z, proj, select_dtype=torch.int8, max_active=1024, device=dev)
+
+
+@pytest.mark.cuda
+def test_traced_capturing_build_records_no_event_in_a_capture(cuda_device, monkeypatch):
+    """A replayed build on int8-resident constants (it captures its graphs)
+    with the program's tracing on: none of the recorder's events is
+    recorded inside a stream capture, a span opened inside one gets no
+    device interval, and the answer is the untraced build's bit for bit."""
+    from bayesian_coresets_tpu_torch.utils import profiling
+    off = _span_coreset(cuda_device, chunk=6000)
+    off.build(300)
+    mine, capturing = set(), []
+    take, record = profiling._event, torch.cuda.Event.record
+
+    def event(idx):
+        ev = take(idx)
+        mine.add(id(ev))
+        return ev
+
+    def recorded(ev, stream=None):
+        if id(ev) in mine:
+            capturing.append(torch.cuda.is_current_stream_capturing())
+        return record(ev, stream)
+
+    monkeypatch.setattr(profiling, "_event", event)
+    monkeypatch.setattr(torch.cuda.Event, "record", recorded)
+    x = torch.ones(4, device=cuda_device)
+
+    def work():
+        with profiling.span("inside.capture", device=cuda_device):
+            x.mul_(2.0)
+
+    caps = graphs.captures
+    profiling.reset()
+    profiling.enable()
+    try:
+        on = _span_coreset(cuda_device, chunk=6000)
+        on.build(300)
+        graphs.Graph(work, graphs.side_stream(cuda_device),
+                     torch.cuda.graph_pool_handle()).replay()
+        recs = profiling.spans()
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert graphs.captures - caps >= 2
+    names = [r["name"] for r in recs]
+    assert names.count("graphs.capture") >= 1 and names.count("graphs.replay") >= 5
+    assert capturing and not any(capturing)
+    inside = [r for r in recs if r["name"] == "inside.capture"]
+    assert len(inside) == 1 and inside[0]["dev_start"] is None
+    assert all(r["dev_start"] is not None for r in recs if r["name"] != "inside.capture")
+    (w0, p0, i0), (w1, p1, i1) = off.get(), on.get()
+    assert np.array_equal(i0, i1) and np.array_equal(p0, p1)
+    assert np.array_equal(w0.view(np.uint8), w1.view(np.uint8))
+    assert off.error() == on.error()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [None, 6000], ids=["shared", "int8_resident"])
+def test_span_device_intervals_lie_inside_their_host_spans(chunk, cuda_device):
+    """Two traced builds: each build's replayed pieces take no more device
+    time than its ``hilbert.solve``, and every device interval starts after
+    its host span started and ends before the next synchronize (a read's
+    interval before the read returned)."""
+    from bayesian_coresets_tpu_torch.utils import profiling
+    tol = 2e-4          # the reference event's pairing with the host clock
+    profiling.reset()
+    profiling.enable()
+    try:
+        for seed in (5, 6):
+            _span_coreset(cuda_device, chunk, seed=seed).build(300)
+        torch.cuda.synchronize()
+        t_sync = time.perf_counter()
+        recs = profiling.spans()
+    finally:
+        profiling.disable()
+        profiling.reset()
+    for r in recs:
+        assert r["dev_start"] is not None, r["name"]
+        assert r["host_start"] - tol <= r["dev_start"] <= r["dev_end"] <= t_sync + tol, r
+        if r["name"] in ("snnls.read", "hilbert.active"):
+            assert r["dev_end"] <= r["host_end"] + tol, r
+    solves = [i for i, r in enumerate(recs) if r["name"] == "hilbert.solve"]
+    assert len(solves) == 2
+    for i in solves:
+        s = recs[i]
+        replays = [r for r in recs if r["name"] == "graphs.replay" and r["parent"] == i]
+        assert len(replays) >= 5
+        inside = sum(r["dev_end"] - r["dev_start"] for r in replays)
+        assert 0 < inside <= s["dev_end"] - s["dev_start"]
