@@ -96,7 +96,7 @@ def load_library() -> ctypes.CDLL:
             if not path.exists():
                 _compile(path)
             lib = ctypes.CDLL(str(path))
-            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
             for fn, args in [
                 (lib.giga_select_launch, [ptr, i32, i64, i64, ptr, i32] + [ptr] * 6),
                 (lib.packed_select_launch, [ptr, i64, i64, ptr, i32] + [ptr] * 6),
@@ -104,6 +104,10 @@ def load_library() -> ctypes.CDLL:
                 (lib.giga_score_launch, [ptr, i32, i64] + [ptr] * 6),
                 (lib.giga_empty_launch, [ptr, i32, i64] + [ptr] * 6),
                 (lib.fold_scale_launch, [ptr, i64, ptr, ptr, ptr]),
+                (lib.giga_step_dirs_launch, [ptr, i64, ptr, ptr, ptr, ptr, i32] + [ptr] * 6),
+                (lib.giga_step_update_launch,
+                 [ptr, i32, i64, ptr, ptr, i64, ptr, i32, i32] + [ptr] * 13 + [f32] * 3
+                 + [ptr] * 5),
             ]:
                 fn.restype = ctypes.c_int
                 fn.argtypes = args

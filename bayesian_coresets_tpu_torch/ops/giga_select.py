@@ -200,20 +200,38 @@ def giga_select(Vsel: torch.Tensor, dirs: torch.Tensor, norms: torch.Tensor,
     kernel in tiles of whole rows, wider rows, up to the entry point's
     1 MiB, through the wide-row kernel of the same source, in groups of 8
     rows walked in 4 KB pieces.  On a CPU tensor it runs
-    :func:`giga_select_ref`.
+    :func:`giga_select_ref`.  It selects through :func:`giga_select_into`,
+    as the fused GIGA step does (:mod:`.giga_step`): every GIGA select of
+    the program goes through that one function.
     """
+    idx = torch.empty(1, dtype=torch.int32, device=Vsel.device)
+    score = torch.empty(1, dtype=torch.float32, device=Vsel.device)
+    giga_select_into(Vsel, dirs, norms, valid, idx, score)
+    return idx[0], score[0]
+
+
+def giga_select_into(Vsel: torch.Tensor, dirs: torch.Tensor, norms: torch.Tensor,
+                     valid: torch.Tensor, idx: torch.Tensor, score: torch.Tensor) -> None:
+    """:func:`giga_select` writing its (index, score) into ``idx`` and
+    ``score``, (1,) int32 and float32 tensors on Vsel's device, so that a
+    caller that selects again and again allocates nothing per select."""
     global launches
     _check(Vsel, dirs, norms, valid)
+    for t, dtype in ((idx, torch.int32), (score, torch.float32)):
+        if t.dtype != dtype or tuple(t.shape) != (1,) or t.device != Vsel.device:
+            raise ValueError(f"idx and score must be (1,) int32 and float32 tensors on "
+                             f"{Vsel.device}; got {t.dtype} {tuple(t.shape)} on {t.device}")
     if Vsel.device.type == "cpu":
-        return giga_select_ref(Vsel, dirs, norms, valid)
+        f, s = giga_select_ref(Vsel, dirs, norms, valid)
+        idx.copy_(f.view(1))
+        score.copy_(s.view(1))
+        return
     if Vsel.device.type != "cuda":
         raise ValueError(f"giga_select runs on CPU or CUDA tensors, not {Vsel.device}")
     n, Sp = Vsel.shape
     row_bytes = Sp * Vsel.element_size()
     dirs = dirs.contiguous()
     dev = Vsel.device
-    idx = torch.empty(1, dtype=torch.int32, device=dev)
-    score = torch.empty(1, dtype=torch.float32, device=dev)
     lib = _cuda_build.load_library()
     with torch.cuda.device(dev):
         ws, stream = workspace(dev)
@@ -226,7 +244,6 @@ def giga_select(Vsel: torch.Tensor, dirs: torch.Tensor, norms: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"giga_select kernel launch failed: CUDA error {err}")
     launches += 1
-    return idx[0], score[0]
 
 
 def giga_dots(Vsel: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:

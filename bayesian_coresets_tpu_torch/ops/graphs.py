@@ -77,11 +77,11 @@ segment; :mod:`.opt` replays segments of Adam steps (the JAX package's
   next time): lazy state that autograd or a library makes at first use is
   made outside any capture.  The direct run is the same work on the same
   buffers, so it gives what a replay gives.
-- **Launch counts.**  The kernels' counters (:mod:`.giga_select`'s and
-  :mod:`.fold_scale`'s) count wrapper calls, and a replay makes none: each
-  graph keeps the launches that its capture recorded (and takes them back
-  off the counters: a capture launches nothing) and adds them at every
-  replay.
+- **Launch counts.**  The kernels' counters (:mod:`.giga_select`'s,
+  :mod:`.fold_scale`'s and :mod:`.giga_step`'s) count wrapper calls, and a
+  replay makes none: each graph keeps the launches that its capture
+  recorded (and takes them back off the counters: a capture launches
+  nothing) and adds them at every replay.
 - **No fallback.**  A capture or replay that fails raises.
 """
 
@@ -99,6 +99,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from ..utils.profiling import span
 from . import fold_scale as fs
 from . import giga_select as gs
+from . import giga_step as gst
 
 captures = 0        # graphs captured (since last set to 0)
 capture_s = 0.0     # seconds spent capturing them (recording the work)
@@ -116,7 +117,7 @@ RETAINED_SHARE = 1 / 8
 
 # the hand-written kernels' launch counters: (module, name)
 _COUNTERS = ((gs, "launches"), (gs, "dots_launches"), (gs, "score_launches"),
-             (fs, "launches"))
+             (fs, "launches"), (gst, "launches"), (gst, "dirs_launches"))
 
 _sides: dict[tuple[int, int], torch.cuda.Stream] = {}
 _own = WeakIdKeyDictionary()        # constants' V -> {key: Graphs}, sets of their own

@@ -41,9 +41,12 @@ changes nothing more.  :func:`build` walks the segments of
 ``REFRESH_EVERY``) and reads back one pair (``done``, ``itr``) per segment.
 On a CUDA device without ``comm`` each segment replays the CUDA graphs of
 its :func:`pieces` (:mod:`.graphs`); on CPU tensors and in sharded builds
-the segments are one iteration long and run directly.  The weight vector
-(the sampling solvers' counts) is updated in place: ``build`` copies it
-once on entry.
+the segments are one iteration long and run directly.  On a CUDA device
+without ``comm``, a GIGA build with support slots on float32 or
+int8-resident V runs each iteration as four kernels, the select and the
+fold between two of :mod:`.giga_step` (:func:`_fused`).  The weight vector
+(the sampling solvers' counts) is updated in place, and on that fused route
+the rest of the state too: ``build`` copies the state once on entry.
 
 The O(S) and O(K*S) reductions of the step (the scalar cache, the reweight
 dots, the support refresh) accumulate in float64 and round to float32, and
@@ -70,14 +73,14 @@ from .. import native
 from ..utils import checkpoint, config
 from ..utils.errors import NumericalPrecisionError
 from ..utils.profiling import span
-from . import graphs
+from . import giga_step, graphs
 from .fold_scale import fold_scale
 from .giga_select import (col_multiple, giga_dots, giga_score_select, giga_select,
                           quantize_dirs, sqrt_rn)
 from .nnls import nnls_rows
 
 REFRESH_EVERY = 64      # exact xw = A@w recompute cadence (f32 drift control)
-_WSCALE_FLOOR = 1e-10   # fold the carried scale into w before it underflows
+_WSCALE_FLOOR = giga_step.WSCALE_FLOOR
 # iterations per replayed segment: REFRESH_EVERY, but OMP's iteration is
 # ~6700 kernels (its 256 FISTA steps), so its graphs hold 4 (~27k nodes; a
 # graph of 8 took 0.95 s to capture and instantiate on an H100, and chunked
@@ -417,18 +420,10 @@ def _track_support(state: SNNLSState, f: torch.Tensor):
     the step and latches ``done`` — the tracked support, and therefore the
     refreshes, must never silently drop a live atom.
     """
-    K = state.idcs.shape[0]
-    if K == 0:
+    if state.idcs.shape[0] == 0:
         return state.idcs, state.size, torch.zeros((), dtype=torch.bool,
                                                    device=state.idcs.device)
-    slots = torch.arange(K, device=state.idcs.device)
-    already = torch.any((state.idcs == f) & (slots < state.size))
-    overflow = ~already & (state.size >= K)
-    keep = already | overflow
-    slot = torch.clamp(state.size, max=K - 1)
-    idcs = torch.where((slots == slot) & ~keep, f, state.idcs)
-    size = torch.where(keep, state.size, state.size + 1)
-    return idcs, size, overflow
+    return giga_step.track(state.idcs, state.size, f)
 
 
 def _active_mask(idcs: torch.Tensor, size) -> tuple[torch.Tensor, torch.Tensor]:
@@ -509,22 +504,28 @@ def _giga_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux,
                tol: float, comm=None, live=None) -> GigaStep:
     """One GIGA step's candidate; ``live`` (a device flag, or None for
     true) gates its commit."""
-    bnorm = torch.where(consts.bnorm == 0, 1.0, consts.bnorm)
-    bn = consts.b / bnorm
-    nw = sqrt_rn(torch.clamp_min(aux.nw2, 0.0))
-    nw_safe = torch.where(nw == 0, 1.0, nw)
-    xwn = state.xw / nw_safe
-    bxwn = aux.bxw / (bnorm * nw_safe)                 # <bn, xwn>
-
-    # cdir = bn - <bn,xwn> xwn has ||cdir||^2 = 1 - <bn,xwn>^2 exactly
-    cdir = bn - bxwn * xwn
-    cdirnrm = sqrt_rn(torch.clamp_min(1.0 - bxwn * bxwn, 0.0))
-    ok_sel = cdirnrm >= tol                            # giga.py:27-29
-    cdirn = cdir / torch.where(cdirnrm == 0, 1.0, cdirnrm)
-
+    fr = _giga_frame(consts, state, aux)
+    xwn, cdirn = fr[5:]
     # scores for every candidate and their argmax: one pass over Vsel
     dirs = torch.stack([cdirn, xwn], dim=1)            # (S, 2), unit columns
     f, _ = _select(consts, dirs, comm)
+    return _giga_reweight(consts, state, aux, tol, fr, f, comm, live)
+
+
+def _giga_frame(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux):
+    """(bnorm, nw, bxwn, cdirnrm, bn, xwn, cdirn) of the state, as
+    :func:`.giga_step.frame` and :func:`.giga_step.unit_directions` give
+    them: the select's directions are ``[cdirn, xwn]``."""
+    fr = giga_step.frame(consts.bnorm, aux.bxw, aux.nw2)
+    return fr + giga_step.unit_directions(consts.b, state.xw, *fr)
+
+
+def _giga_reweight(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux, tol: float, fr,
+                   f: torch.Tensor, comm=None, live=None) -> GigaStep:
+    """The GIGA step after its select of row ``f`` (0-dim), from the
+    state's frame ``fr`` (:func:`_giga_frame`)."""
+    bnorm, nw_safe, bxwn, cdirnrm, bn, xwn, _ = fr
+    ok_sel = cdirnrm >= tol                            # giga.py:27-29
     fl = f.long().view(1)
 
     # reweight (giga.py:40-64): one row gather (with the row's norm and raw
@@ -533,27 +534,9 @@ def _giga_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux,
     xf, nf, old_raw = rows[0], nfv[0], oldv[0]
     xfn = xf / nf
     two = _sdot(torch.stack([bn, xwn]), xfn, comm)
-    bxf, xwxf = two[0], two[1]                         # <bn,xfn>, <xwn,xfn>
-    gA = bxf - bxwn * xwxf
-    gB = bxwn - bxf * xwxf
-    ok_rw = (gA > 0.0) & (gB >= 0.0)                   # giga.py:50-51
-
-    gsum = torch.where(gA + gB == 0, 1.0, gA + gB)
-    a = gB / gsum / nw_safe
-    c = gA / gsum / nf
-    # x = a*xw + c*xf never materializes; the optimal scaling
-    # (giga.py:56-60) is (x.b) / ||x||^2, all scalars
-    xw_xf = nw_safe * nf * xwxf
-    b_xf = bnorm * nf * bxf
-    nx2 = a * a * aux.nw2 + 2.0 * a * c * xw_xf + c * c * nf * nf
-    x_b = a * aux.bxw + c * b_xf
-    scale = x_b / torch.where(nx2 == 0, 1.0, nx2)
-    alpha, beta = a * scale, c * scale
-
     ws = aux.wscale
-    old_wf = ws * old_raw
-    new_wf = torch.clamp_min(alpha * old_wf + beta, 0.0)
-    delta = new_wf - alpha * old_wf
+    ok_rw, alpha, new_wf, delta = giga_step.reweight(bnorm, nw_safe, bxwn, aux.bxw, aux.nw2, nf,
+                                                     two[0], two[1], ws, old_raw)
     xw2 = alpha * state.xw + delta * xf                # xw stays TRUE-scale
     aux2 = _aux_from_xw(consts, xw2, wscale=aux.wscale, comm=comm)
 
@@ -592,14 +575,31 @@ def _carried_commit(state: SNNLSState, st: GigaStep, comm=None):
     flag is clear; the written weight is then ``new_wf / 1.0``, itself."""
     w = state.w
     fold_scale(w, st.fold & st.commit, st.ws2)
-    raw = torch.where(st.commit, st.new_wf / torch.where(st.fold, 1.0, st.ws2), st.old_raw)
-    _set1(w, st.fl, raw, comm)
+    _set1(w, st.fl, torch.where(st.commit, _raw(st), st.old_raw), comm)
+    return (w, *_gated_commit(state, st))
+
+
+def _raw(st: GigaStep) -> torch.Tensor:
+    """The raw weight that a committed step writes to ``w[f]``: ``new_wf``
+    over the new scale, or itself where the scale folds."""
+    return st.new_wf / torch.where(st.fold, 1.0, st.ws2)
+
+
+def _gated_commit(state: SNNLSState, st: GigaStep):
+    """(xw, idcs, size, aux) of :func:`_carried_commit`: the step's where
+    it commits, the state's elsewhere."""
     ws_out = torch.where(st.commit, torch.where(st.fold, 1.0, st.ws2), st.aux.wscale)
-    return (w,
-            torch.where(st.commit, st.xw2, state.xw),
+    return (torch.where(st.commit, st.xw2, state.xw),
             torch.where(st.commit, st.idcs2, state.idcs),
             torch.where(st.commit, st.size2, state.size),
             st.aux._replace(wscale=ws_out))
+
+
+def _advance(s: SNNLSState, fail: torch.Tensor, latch: torch.Tensor, live) -> SNNLSState:
+    """The loop's bookkeeping of an iteration: ``fail``, ``done`` (where
+    ``latch``) and ``itr`` moved where ``live``."""
+    return s._replace(fail=torch.where(live, fail, s.fail), done=s.done | (live & latch),
+                      itr=s.itr + live.to(s.itr.dtype))
 
 
 def _normalize(x: torch.Tensor, comm=None) -> torch.Tensor:
@@ -918,20 +918,35 @@ def _segment(p: _Problem, c: _Carry, n: int, refresh: bool) -> _Carry:
     (ops/snnls.py:909-981 there).  The first begins with the exact refresh
     where ``refresh`` says the segment starts at a multiple of
     REFRESH_EVERY."""
+    step = None
     for i in range(n):
-        c = _iteration(p, c, refresh and i == 0)
+        c, step = _iteration(p, c, refresh and i == 0, step)
     return c
 
 
-def _iteration(p: _Problem, c: _Carry, refresh: bool) -> _Carry:
+def _fused(p: _Problem, K: int) -> bool:
+    """Whether GIGA's iterations take the fused route (:mod:`.giga_step`:
+    four launches an iteration): on a CUDA device, unsharded, with support
+    slots, on float32 or int8-resident V.  Every other build keeps
+    :func:`_giga_step`'s ops, which the fused kernels compute bit for bit
+    but for the order of their float64 sums."""
+    V = p.consts.V
+    return (p.method == "giga" and V.device.type == "cuda" and p.comm is None and K > 0
+            and V.dtype in (torch.float32, torch.int8))
+
+
+def _iteration(p: _Problem, c: _Carry, refresh: bool, step=None):
     """One iteration, gated by ``live = (itr < itr_end) & ~done`` (``cond``
     there, :905-907): every write is where-gated by it, ``itr`` included,
     so that an iteration past the build's end or after ``done`` latched
-    changes nothing (a sampling solver's generator still draws)."""
+    changes nothing (a sampling solver's generator still draws).  Returns
+    ``(carry, step)``: on the fused route (:func:`_fused`) ``step`` is the
+    :class:`.giga_step.Step` that holds the next iteration's directions, for
+    the next call of the segment (the first makes it from ``step=None``);
+    elsewhere None."""
     consts, comm, method = p.consts, p.comm, p.method
     s, aux = c.state(), c.aux()
     K = s.idcs.shape[0]
-    live = (c.itr < c.itr_end) & ~c.done
     if method in _SAMPLING:
         T = c.T0 + (c.itr - c.itr0).to(c.T0.dtype)        # the draws counted so far
     if refresh:
@@ -946,6 +961,15 @@ def _iteration(p: _Problem, c: _Carry, refresh: bool) -> _Carry:
         #                               for OMP and the sampling solvers)
         aux = _aux_from_xw(consts, xw, wscale=aux.wscale, comm=comm)
         s = s._replace(xw=xw)
+    if _fused(p, K):
+        # the step, the commit and the gating in place, in two kernels
+        # around the select and the fold: see :mod:`.giga_step`
+        c = c.update(s, aux)
+        if step is None or refresh:         # a refresh made new xw and cache tensors
+            step = giga_step.Step(consts, c, p.tol)
+        step.iterate()
+        return c, step
+    live = (c.itr < c.itr_end) & ~c.done
     extra = {}
     if method in ("giga", "frankwolfe"):
         st = (_giga_step(consts, s, aux, p.tol, comm, live) if method == "giga"
@@ -977,9 +1001,7 @@ def _iteration(p: _Problem, c: _Carry, refresh: bool) -> _Carry:
         s = s._replace(w=torch.where(commit, w2, s.w), xw=torch.where(commit, xw2, s.xw),
                        idcs=torch.where(commit, idcs2, s.idcs),
                        size=torch.where(commit, size2, s.size))
-    s = s._replace(fail=torch.where(live, fail, s.fail), done=s.done | (live & latch),
-                   itr=s.itr + live.to(s.itr.dtype))
-    return c.update(s, aux, **extra)
+    return c.update(_advance(s, fail, latch, live), aux, **extra), None
 
 
 def _carry(consts: SNNLSConsts, state: SNNLSState, itr_end: int, comm=None) -> _Carry:
@@ -1162,7 +1184,9 @@ def build(consts: SNNLSConsts, state: SNNLSState, itrs: int, tol: float,
                 shard_cdf = torch.cumsum(comm.slots(cdf[-1], "setup"), dim=0)
         p = _Problem(consts, method, tol, matvec_k, comm, draws, cdf, shard_cdf, nsum)
         step = functools.partial(_segment, p)
-        c = carry._replace(w=state.w.clone(), cts=state.cts.clone())
+        # the state's own tensors: the weights (the sampling solvers'
+        # counts) and, on the fused route, the rest are updated in place
+        c = carry._replace(**{k: t.clone() for k, t in carry.state()._asdict().items()})
     itr = first
     with drawing:
         for start, n, refresh in plan:

@@ -65,7 +65,16 @@ script exits non-zero without printing the final result line):
    the JAX package's ``lax.cond`` at ops/snnls.py:698), once per iteration
    run; it is held to its plain version at N=100k with the flag set and
    clear, bit for bit, and timed (direct, in a graph, plain) beside its
-   bound (``[fold_kernel]``); then the build again on a fresh projection of
+   bound (``[fold_kernel]``); a GIGA iteration's step, commit and gating run
+   in the two single-block kernels of ``csrc/giga_step.cu`` around the select
+   and the fold, 4 graph nodes an iteration in all: the update kernel's
+   launches (replays counted) must equal the iterations run and the
+   directions kernel's lie between them and twice them (once an iteration
+   and once a segment piece), and from the build's state at 50 the two
+   kernels run GIGA_STEP_HOLD_ITRS iterations in lockstep with their plain
+   versions on the same inputs, every output bit for bit, then are timed
+   (direct, in a graph, plain) beside their bounds
+   (``[giga_step_kernels]``); then the build again on a fresh projection of
    the same shape (the projector's generator seeded 2, as bench.py's fresh
    keys) while the first coreset lives (``[main_rebuild]``): it must
    capture no graph (one graph set per shape, its graphs reading static
@@ -157,7 +166,9 @@ script exits non-zero without printing the final result line):
    for bit and a profiled window of each path, the peak allocation, which
    must stay below the 16 GB of an f32 (N, S) matrix, and the fold kernel
    held and timed at N=8M as in phase 6, its plain version's O(N) multiply
-   and the kernel each as a share of the iteration (``[streamed_fold]``); the select on that 4.1 GB int8 matrix held against its plain
+   and the kernel each as a share of the iteration (``[streamed_fold]``),
+   and the fused GIGA step's kernels held and timed on int8-resident rows as
+   in phase 6 (``[streamed_giga_step_kernels]``); the select on that 4.1 GB int8 matrix held against its plain
    version (in 2^20-row blocks) and timed beside its bound (share >= 0.5)
    and ``torch._int_mm``; the N=1M quality arm (the in-memory int8 select
    against the streamed path from the same data and projector: int8 rows
@@ -174,7 +185,9 @@ script exits non-zero without printing the final result line):
    error()/|b| at M (finite, no larger than after the first iteration;
    GIGA 182 atoms), the peak allocation, and as in phase 6 the
    one-iteration build bit for bit and a profiled window of each path with
-   the select's device µs per iteration beside its bound;
+   the select's device µs per iteration beside its bound; the fused GIGA
+   step's kernels held and timed at S=16384 as in phase 6
+   (``[wide_giga_step_kernels]``);
 18. the experiment drivers through their ``main([...])`` entry points, each
    in a temporary working directory: ``logistic_poisson`` GIGA-OPT at the
    reference's logistic settings (S=500, M up to 1000, 8 NUTS chains, max
@@ -278,7 +291,9 @@ phases 19-20 (never captured) run one-iteration segments.  Every path is driven 
 before it and read just after; the kernels' ``launches`` are the sums over
 the paths that select through them (phases 6, 12, 13, 15-19, and phase
 20's proj-sharded builds for ``giga_dots`` and ``giga_score_select``;
-phases 19 and 20's ranks count their own).  The line before
+phases 19 and 20's ranks count their own); the fused GIGA step's are the
+sums over phases 6, 12-14, 16 and 17, which hold them to the GIGA iterations
+run (none in Frank-Wolfe, OMP and the sampling solvers).  The line before
 the last is the kernels' JSON; the
 last line is ``{"ok": true, "device": {...}}``.  The port imports no JAX,
 no pandas and no matplotlib.
@@ -304,6 +319,10 @@ OPS_PER_S = {"int8": 1979e12, "bfloat16": 989e12, "float32": 67e12}
 COLD_REPS = 50
 FLUSH_BYTES = 128 << 20     # written before each cold-L2 launch (L2 is 50 MB)
 PROFILE_ITRS = 64           # GIGA iterations in phase 6's profiled window
+# the fused GIGA step's kernels held to their plain versions in lockstep
+GIGA_STEP_HOLD_ITRS = 8
+# their launches over the paths that count them (_fused_count)
+FUSED_LAUNCHES = {"update": 0, "dirs": 0}
 N_MAIN, D_MAIN, S_MAIN, M_MAIN = 100_000, 10, 500, 500
 # phases 6, 12 and 17's atoms (weights > 0) at M and phase 6's error/|b|
 # at M: the values these builds have given on the H100 since they were added
@@ -1123,14 +1142,15 @@ def _wide_parity(torch):
     if c_gpu.Vsel.dtype != torch.float32 or row_bytes <= 48 * 1024:
         raise AssertionError(f"wide parity: a {c_gpu.Vsel.dtype} row of {row_bytes} bytes")
     calls = {"cpu": [], "cuda": []}         # (dirs, selected row) per select
-    select = snnls.giga_select
+    # every GIGA select, the CPU's plain route and the card's fused one,
+    # goes through giga_select_into
+    select_into = gs.giga_select_into
 
-    def recorded(Vsel, dirs, norms, valid):
-        f, sc = select(Vsel, dirs, norms, valid)
-        calls["cuda" if Vsel is c_gpu.Vsel else "cpu"].append((dirs.cpu(), int(f)))
-        return f, sc
+    def recorded(Vsel, dirs, norms, valid, idx, score):
+        select_into(Vsel, dirs, norms, valid, idx, score)
+        calls["cuda" if Vsel is c_gpu.Vsel else "cpu"].append((dirs.cpu(), int(idx[0])))
 
-    snnls.giga_select = recorded
+    gs.giga_select_into = recorded
     try:
         s_cpu = snnls.build(c_cpu, snnls.init_state(c_cpu, 1024), M, 1e-6)
         before = gs.launches
@@ -1140,7 +1160,7 @@ def _wide_parity(torch):
         torch.cuda.synchronize()
         launches = gs.launches - before
     finally:
-        snnls.giga_select = select
+        gs.giga_select_into = select_into
     if launches != int(s_gpu.itr) or int(s_gpu.itr) != M:
         raise AssertionError(f"wide parity: {launches} launches for {int(s_gpu.itr)} iterations")
     picks = [f for _, f in calls["cuda"]], [f for _, f in calls["cpu"]]
@@ -1219,6 +1239,7 @@ def phase_main(torch, smi):
     t_setup = time.perf_counter() - t0
 
     gs.launches = fs.launches = snnls.itrs_run = 0
+    _fused_reset()
     t0 = time.perf_counter()
     coreset = bc.HilbertCoreset(Z, projector, select_dtype=torch.int8, max_active=1024)
     torch.cuda.synchronize()
@@ -1229,6 +1250,7 @@ def phase_main(torch, smi):
     coreset.build(50)
     torch.cuda.synchronize()
     t_b1 = time.perf_counter() - t0
+    s50 = coreset.snnls.state          # mid-build: the fused kernels' hold starts here
     err50 = coreset.error() / bnorm
     t0 = time.perf_counter()
     coreset.build(M_MAIN - 50)
@@ -1244,6 +1266,7 @@ def phase_main(torch, smi):
     _ran_check("main path", launches, ran, itr, coreset.reached_numeric_limit)
     if fold_launches != ran:
         raise AssertionError(f"main path: {fold_launches} fold launches for {ran} iterations")
+    fused_launches = _fused_count("main path", ran)
     if caps > MAIN_PIECES:
         raise AssertionError(f"main path: {caps} graphs captured, more than the {MAIN_PIECES} "
                              "pieces of a build of 50 and then 450")
@@ -1262,16 +1285,17 @@ def phase_main(torch, smi):
     t_build = t_b1 + t_b2
     say("main", N=N_MAIN, D=D_MAIN, S=S_MAIN, M=M_MAIN, itr=itr, size=wts.size,
         done=coreset.reached_numeric_limit, launches=launches, fold_launches=fold_launches,
-        iterations_run=ran,
+        fused_step_launches=fused_launches, iterations_run=ran,
         err50=f"{err50:.6e}", err=f"{err:.6e}", graphs_captured=caps,
         capture_s=f"{cap_s:.4f}", one_itr_ms_per_itr=f"{one_ms:.4f}",
         one_itr_bit_identical=True, build_peak_mem_GB=f"{build_peak / 1e9:.3f}")
     prof = _profile_build(torch, coreset.snnls.consts, "giga", "main_launches")
     _profile_build(torch, coreset.snnls.consts, "giga", "main_launches", segment=1)
     fold = _hold_fold(torch, N_MAIN, "fold_kernel", smi)
+    gstep = _hold_giga_step(torch, coreset.snnls.consts, s50, "giga_step_kernels", smi)
     ref6 = {"w": coreset.snnls.weights(), "itr": itr, "err": err, "idcs": idcs,
             "slots": _slots(coreset.snnls.state), "ms_per_itr": 1e3 * (t_b1 + t_b2) / itr,
-            "fold_launches": fold_launches, "fold": fold[False], **prof}
+            "fold_launches": fold_launches, "fold": fold[False], "giga_step": gstep, **prof}
     say("main_time", setup_s=f"{t_setup:.4f}", projection_s=f"{t_proj:.4f}",
         build_s=f"{t_build:.4f}", ms_per_itr=f"{1e3 * t_build / itr:.4f}",
         capture_s=f"{cap_s:.4f}", one_itr_ms_per_itr=f"{one_ms:.4f}",
@@ -1302,6 +1326,7 @@ def _main_rebuild(torch, smi, Z, coreset):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gs.launches = fs.launches = snnls.itrs_run = 0
+    _fused_reset()
     caps0, cap_s0 = _graph_counts()
     loads0 = graphs.loads
     t0 = time.perf_counter()
@@ -1326,6 +1351,7 @@ def _main_rebuild(torch, smi, Z, coreset):
     _ran_check("main rebuild", launches, ran, itr, rebuilt.reached_numeric_limit)
     if fold_launches != ran:
         raise AssertionError(f"main rebuild: {fold_launches} fold launches for {ran} iterations")
+    fused_launches = _fused_count("main rebuild", ran)
     if caps:
         raise AssertionError(f"main rebuild: {caps} graphs captured for constants of the first "
                              "build's shape")
@@ -1343,7 +1369,7 @@ def _main_rebuild(torch, smi, Z, coreset):
     if np.array_equal(w1, w2):
         raise AssertionError("main rebuild: the weights of the first build, on other data")
     say("main_rebuild", N=N_MAIN, S=S_MAIN, M=M_MAIN, itr=itr, launches=launches,
-        fold_launches=fold_launches, iterations_run=ran, err50=f"{err50:.6e}",
+        fold_launches=fold_launches, fused_step_launches=fused_launches, iterations_run=ran, err50=f"{err50:.6e}",
         err=f"{err:.6e}", graphs_captured=caps, capture_s=f"{cap_s:.4f}", constants_copied=loads,
         copy_in_ms=f"{copy['ms']:.4f}", copy_in_MB=f"{copy['bytes'] / 1e6:.1f}",
         copy_in_bound_ms=f"{copy['bound_ms']:.4f}", projection_s=f"{t_proj:.4f}",
@@ -1421,6 +1447,7 @@ def _main_regrid(torch, smi, Z):
             raise AssertionError("main regrid: no retired static copies of phase 6's layout")
         held = _build_keys(st)
         gs.launches = fs.launches = snnls.itrs_run = 0
+        _fused_reset()
         caps0, cap_s0 = _graph_counts()
         revivals = graphs.revivals
         torch.cuda.synchronize()
@@ -1432,6 +1459,7 @@ def _main_regrid(torch, smi, Z):
         walk_launches, ran, itr = gs.launches, snnls.itrs_run, int(coreset.snnls.state.itr)
         label = f"main regrid walk {walk + 1}"
         _ran_check(label, walk_launches, ran, itr, coreset.reached_numeric_limit)
+        _fused_count(label, ran)
         launches += walk_launches
         if graphs.revivals != revivals + 1:
             raise AssertionError(f"{label}: the retired set was not revived")
@@ -1601,6 +1629,107 @@ def _hold_fold(torch, n, tag, smi):
             share_of_bound=f"{b_ms / k_ms:.3f}", graph_share_of_bound=f"{b_ms / g_ms:.3f}",
             weights="bit_identical", card=repr(smi))
     return out
+
+
+def _hold_giga_step(torch, consts, state, tag, smi, itrs=GIGA_STEP_HOLD_ITRS):
+    """The fused GIGA step's two kernels (``csrc/giga_step.cu``) against
+    their plain versions on the card, from a build's ``state`` on its
+    constants: ``itrs`` iterations in lockstep from two copies of its
+    carry, each kernel's output held bit for bit to its plain version's on
+    the same inputs (the directions; after the kernel's select, copied to
+    the plain side, the whole carry and the step's work; after the fold,
+    the weights and the next directions).  Then each timed: direct launches
+    (batch), 20 launches in a CUDA graph, and the plain version, beside the
+    bound of the bytes it moves.  The kernels' counters are left as they
+    were.  Returns {"update": times, "dirs": times}, the directions kernel
+    timed as it runs once an iteration, with the weight write (``finish``)."""
+    from bayesian_coresets_tpu_torch.ops import fold_scale as fs
+    from bayesian_coresets_tpu_torch.ops import giga_select as gs
+    from bayesian_coresets_tpu_torch.ops import giga_step as gst
+    from bayesian_coresets_tpu_torch.ops import snnls
+    from bayesian_coresets_tpu_torch.utils import config
+
+    counts = gs.launches, fs.launches, gst.launches, gst.dirs_launches
+    tol = config.TOL
+    carry = snnls._carry(consts, state, int(state.itr) + 10**6)
+    ck, cp = (type(carry)(*(t.clone() for t in carry)) for _ in range(2))
+    step = gst.Step(consts, ck, tol)                     # the directions kernel
+    wk, wp = step.work, gst.work(cp.xw)
+    gst.directions_ref(consts, cp, wp)
+
+    def hold(what, names, a, b):
+        for name in names:
+            if not _same_bits(torch, getattr(a, name), getattr(b, name)):
+                raise AssertionError(f"{tag}: the {what} kernel's {name} is not its plain "
+                                     "version's bit for bit")
+
+    hold("directions", ("dirs",), wk, wp)
+    commits = 0
+    for _ in range(itrs):
+        gs.giga_select_into(consts.Vsel, wk.dirs, consts.norms, consts.valid, wk.f, wk.score)
+        wp.f.copy_(wk.f)
+        wp.score.copy_(wk.score)
+        step.update()
+        gst.update_ref(consts, cp, tol, wp)
+        hold("update", snnls._Carry._fields, ck, cp)
+        hold("update", ("commit", "fold", "ws2", "raw"), wk, wp)
+        commits += int(wk.commit)
+        fs.fold_scale(ck.w, wk.fold, wk.ws2)
+        fs.fold_scale(cp.w, wp.fold, wp.ws2)
+        step.finish()
+        gst.finish_ref(consts, cp, wp)
+        hold("finish", ("w",), ck, cp)
+        hold("finish", ("dirs",), wk, wp)
+    torch.cuda.synchronize()
+    lib = step.lib
+    S, K = ck.xw.shape[0], ck.idcs.shape[0]
+    row_bytes = consts.V.shape[1] * consts.V.element_size()
+    # update: b and xw read, xw written, the row (and its norm), the slots;
+    # two dots of the row, the axpy and three dots of the new xw. dirs:
+    # b and xw read, the (S, 2) directions written, one weight written
+    bounds = {"update": _bound(12 * S + row_bytes + 4 + 4 * K, 13 * S, "float32"),
+              "dirs": _bound(16 * S + 4, 5 * S, "float32")}
+    args = {"update": (lib.giga_step_update_launch, step._update),
+            "dirs": (lib.giga_step_dirs_launch, step._finish)}
+    plain = {"update": lambda: gst.update_ref(consts, cp, tol, wp),
+             "dirs": lambda: gst.finish_ref(consts, cp, wp)}
+    out = {}
+    for name, (fn, a) in args.items():
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        k_ms = _direct_ms(torch, fn, *a, stream)
+        g_ms = _graph_ms(torch, lambda st, fn=fn, a=a: _launcher(fn, *a, ctypes.c_void_p(st)))
+        p_ms = _median_ms(torch, plain[name])
+        b_ms, b_by = bounds[name]
+        out[name] = dict(ms=k_ms, graph_ms=g_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+        say(tag, kernel=name, n=consts.V.shape[0], S=S, K=K, V=str(consts.V.dtype),
+            itr=int(state.itr), itrs_held=itrs, commits=commits, kernel_ms=f"{k_ms:.4f}",
+            graph_ms=f"{g_ms:.4f}", plain_ms=f"{p_ms:.4f}", bound_ms=f"{b_ms:.3e}",
+            bound_by=b_by, graph_share_of_bound=f"{b_ms / g_ms:.3e}",
+            outputs="bit_identical", card=repr(smi))
+    gs.launches, fs.launches, gst.launches, gst.dirs_launches = counts
+    return out
+
+
+def _fused_reset():
+    from bayesian_coresets_tpu_torch.ops import giga_step as gst
+    gst.launches = gst.dirs_launches = 0
+
+
+def _fused_count(label, expect):
+    """The fused GIGA step's launches since :func:`_fused_reset`: the update
+    kernel once per GIGA iteration run (``expect``), the directions kernel
+    once per iteration and once per segment piece, and neither on any other
+    route (``expect`` 0).  Adds them to FUSED_LAUNCHES, sets the counters
+    to 0 and returns the update kernel's."""
+    from bayesian_coresets_tpu_torch.ops import giga_step as gst
+    up, dirs = gst.launches, gst.dirs_launches
+    if up != expect or (dirs - up <= 0 if up else dirs != 0) or dirs > 2 * up:
+        raise AssertionError(f"{label}: {up} fused step and {dirs} directions launches for "
+                             f"{expect} GIGA iterations run")
+    FUSED_LAUNCHES["update"] += up
+    FUSED_LAUNCHES["dirs"] += dirs
+    _fused_reset()
+    return up
 
 
 def _one_itr(torch, consts, method, steps, ref_state, max_active, label):
@@ -2186,6 +2315,7 @@ def phase_frankwolfe(torch, smi, Z, projector):
     from bayesian_coresets_tpu_torch.ops import giga_select as gs
 
     gs.launches = 0
+    _fused_reset()
     coreset = bc.HilbertCoreset(Z, projector, snnls=bc.snnls.FrankWolfe,
                                 select_dtype=torch.int8, max_active=1024)
     bnorm = float(coreset.snnls.consts.bnorm)
@@ -2204,6 +2334,7 @@ def phase_frankwolfe(torch, smi, Z, projector):
     wts, pts, _ = coreset.get()
     if launches != itr or itr != M_MAIN:
         raise AssertionError(f"frankwolfe: {launches} select launches for {itr} iterations")
+    _fused_count("frankwolfe", 0)
     one_ms = _one_itr(torch, coreset.snnls.consts, "frankwolfe", (50, M_MAIN - 50),
                       coreset.snnls.state, 1024, "frankwolfe")
     if wts.size != FW_ATOMS:
@@ -2232,6 +2363,7 @@ def phase_omp(torch, smi, Z, projector):
     from bayesian_coresets_tpu_torch.ops import nnls, snnls
 
     gs.launches = 0
+    _fused_reset()
     coreset = bc.HilbertCoreset(Z, projector, snnls=bc.snnls.OrthoPursuit,
                                 select_dtype=torch.int8, max_active=OMP_ACTIVE)
     bnorm = float(coreset.snnls.consts.bnorm)
@@ -2251,6 +2383,7 @@ def phase_omp(torch, smi, Z, projector):
     if launches != itr or itr != OMP_ITRS or coreset.reached_numeric_limit:
         raise AssertionError(f"omp: {launches} select launches for {itr} iterations, "
                              f"latched={coreset.reached_numeric_limit}")
+    _fused_count("omp", 0)
     if any(b > a * (1.0 + 1e-6) for a, b in zip(errs, errs[1:])):
         raise AssertionError(f"omp: the error rose: {errs}")
     # the re-solve alone, on the final active set, warm-started as the step does
@@ -2290,6 +2423,7 @@ def phase_sampling(torch, smi, Z, projector):
     from bayesian_coresets_tpu_torch.ops import packed_select as ps
 
     gs.launches = ps.launches = 0
+    _fused_reset()
     for cls in (bc.snnls.ImportanceSampling, bc.snnls.UniformSampling):
         coreset = bc.HilbertCoreset(Z, projector, snnls=cls, max_active=1024, seed=3)
         sn = coreset.snnls
@@ -2333,6 +2467,7 @@ def phase_sampling(torch, smi, Z, projector):
                                  f"{SAMPLING_DRAWS} draws ({sites})")
     if gs.launches or ps.launches:
         raise AssertionError("sampling: a select kernel was launched")
+    _fused_count("sampling", 0)
 
 
 def phase_poisson(torch, smi):
@@ -2501,6 +2636,7 @@ def phase_streamed(torch, smi):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gs.launches = 0
+    _fused_reset()
     with profiling.phase("construct", sync=dev):
         coreset = bc.HilbertCoreset(Z, projector(), stream_chunk_size=STREAM_CHUNK,
                                     max_active=1024)
@@ -2511,11 +2647,13 @@ def phase_streamed(torch, smi):
     bnorm = float(c8.bnorm)
     with profiling.phase("build", sync=dev):
         coreset.build(50)
+    s50 = coreset.snnls.state          # mid-build: the fused kernels' hold starts here
     err50 = coreset.error() / bnorm
     with profiling.phase("build", sync=dev):
         coreset.build(M_MAIN - 50)
     peak = torch.cuda.max_memory_allocated()
     launches, itr = gs.launches, int(coreset.snnls.state.itr)
+    _fused_count("streamed", launches)
     err = coreset.error() / bnorm
     wts, pts, idcs = coreset.get()
     one_ms = _one_itr(torch, c8, "giga", (50, M_MAIN - 50), coreset.snnls.state, 1024,
@@ -2545,6 +2683,7 @@ def phase_streamed(torch, smi):
     # the wscale fold gated on the device, a GIGA iteration's one O(N) pass
     # where its plain version runs: the kernel and the plain version at N
     fold = _hold_fold(torch, STREAM_N, "streamed_fold_kernel", smi)
+    _hold_giga_step(torch, c8, s50, "streamed_giga_step_kernels", smi)
     itr_ms = prof["unprofiled_wall_ms_per_itr"]
     say("streamed_fold", N=STREAM_N, itr_wall_ms=f"{itr_ms:.4f}",
         plain_share_of_itr=f"{fold[False]['plain_ms'] / itr_ms:.4f}",
@@ -2561,6 +2700,7 @@ def phase_streamed(torch, smi):
     mem = bc.HilbertCoreset(torch.as_tensor(Z1, device=dev), proj, select_dtype=torch.int8,
                             max_active=1024)
     gs.launches = 0
+    _fused_reset()
     st = bc.HilbertCoreset(Z1, proj, stream_chunk_size=QUALITY_CHUNK, max_active=1024)
     cm, cs = mem.snnls.consts, st.snnls.consts
     diff = (cm.Vsel.short() - cs.V.short()).abs()
@@ -2586,6 +2726,7 @@ def phase_streamed(torch, smi):
     _ran_check("streamed quality", q_launches, q_ran,
                int(st.snnls.state.itr) + int(mem.snnls.state.itr),
                st.reached_numeric_limit or mem.reached_numeric_limit, length=128)
+    _fused_count("streamed quality", q_ran)
     quality = {"V": cs.V.cpu().numpy(), "norms": cs.norms.cpu().numpy(),
                "w": st.snnls.weights(), "err_in_memory": e_mem, "err0": e0, "err": e_st,
                "itr": int(st.snnls.state.itr)}
@@ -2594,6 +2735,7 @@ def phase_streamed(torch, smi):
 
     # OMP and importance sampling from the N=1M int8-resident constants
     gs.launches = 0
+    _fused_reset()
     omp = bc.snnls.OrthoPursuit.from_consts(cs, max_active=STREAM_OMP_ACTIVE)
     errs = [omp.error() / float(cs.bnorm)]
     torch.cuda.synchronize()
@@ -2634,6 +2776,7 @@ def phase_streamed(torch, smi):
                              f"{int(imp.state.cts.sum())} counts")
     if not (np.isfinite(w_imp).all() and (w_imp >= 0).all() and e_imp < e_imp0):
         raise AssertionError(f"streamed sampling: error {e_imp} from {e_imp0}, or bad weights")
+    _fused_count("streamed omp and sampling", 0)
     return launches, q_launches, omp_launches, select, quality
 
 
@@ -2658,6 +2801,7 @@ def phase_wide_build(torch, smi):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         gs.launches = 0
+        _fused_reset()
         t0 = time.perf_counter()
         coreset = bc.HilbertCoreset(Z, projector, snnls=cls, max_active=1024)
         torch.cuda.synchronize()
@@ -2679,6 +2823,7 @@ def phase_wide_build(torch, smi):
         t_build = time.perf_counter() - t0
         caps, cap_s = (a - b for a, b in zip(_graph_counts(), (caps0, cap_s0)))
         launches, itr = gs.launches, int(coreset.snnls.state.itr)
+        _fused_count(f"wide build {method}", launches if method == "giga" else 0)
         err = coreset.error() / bnorm
         peak = torch.cuda.max_memory_allocated()
         wts, pts, _ = coreset.get()
@@ -2697,6 +2842,8 @@ def phase_wide_build(torch, smi):
         if launches != itr or itr != WIDE_BUILD_M:
             raise AssertionError(f"wide build {method}: {launches} select launches for {itr} "
                                  "iterations")
+        if method == "giga":
+            _hold_giga_step(torch, c, coreset.snnls.state, "wide_giga_step_kernels", smi)
         if not (np.isfinite(err) and err <= err1):
             raise AssertionError(f"wide build {method}: error/|b| {err} at M against {err1} "
                                  "after the first iteration")
@@ -4343,7 +4490,15 @@ def main() -> int:
          "launches": ref6["fold_launches"], "max_abs_err": 0.0,
          "ms": ref6["fold"]["ms"], "plain_ms": ref6["fold"]["plain_ms"],
          "bound_ms": ref6["fold"]["bound_ms"], "bound_by": ref6["fold"]["bound_by"],
-         "library_ms": None}]}), flush=True)
+         "library_ms": None}] + [
+        {"name": f"giga_step_{name}", "route": "cuda",
+         "source": "bayesian_coresets_tpu_torch/csrc/giga_step.cu",
+         "replaces": "bayesian_coresets_tpu/ops/snnls.py:580",
+         "launches": FUSED_LAUNCHES[name], "max_abs_err": 0.0,
+         "ms": ref6["giga_step"][name]["ms"], "plain_ms": ref6["giga_step"][name]["plain_ms"],
+         "bound_ms": ref6["giga_step"][name]["bound_ms"],
+         "bound_by": ref6["giga_step"][name]["bound_by"], "library_ms": None}
+        for name in ("update", "dirs")]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

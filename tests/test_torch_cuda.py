@@ -27,7 +27,10 @@ none, a layout whose constants all died revived without a capture,
 generators alternating through one sampling set, retired sets evicted
 past their budget and released, and the
 ``logistic_poisson --model poiss`` and ``linear_regression`` drivers'
-Adam steps replayed with no host read.
+Adam steps replayed with no host read; and the fused GIGA step's two
+kernels (``ops/giga_step.py``) against their plain versions on the states
+that decide each branch, replayed builds on them against the CPU's, the
+graph nodes of a replayed iteration (at most 4) and their launch counts.
 
 Every test here needs a card and skips without one.  This file imports no
 JAX, so it also runs where JAX is absent; there, skip the JAX conftest:
@@ -48,7 +51,9 @@ from bayesian_coresets_tpu_torch import mcmc
 from bayesian_coresets_tpu_torch.coresets import bpsvi, sparsevi
 from bayesian_coresets_tpu_torch.mcmc import integrators, nuts
 from bayesian_coresets_tpu_torch.models import gaussian
+import giga_step_cases as gsc
 from bayesian_coresets_tpu_torch.ops import giga_select as gs
+from bayesian_coresets_tpu_torch.ops import giga_step as gst
 from bayesian_coresets_tpu_torch.ops import graphs
 from bayesian_coresets_tpu_torch.ops import packed_select as ps
 from bayesian_coresets_tpu_torch.ops import snnls
@@ -869,8 +874,9 @@ def test_one_rank_nccl_build_sharded_equals_one_process(cuda_device, tmp_path):
     try:
         mesh = P.make_mesh()
         gs.launches = 0
+        fused = gst.launches
         st = P.build_sharded(A, b, 200, mesh, select_dtype=torch.int8, max_active=1024)
-        assert gs.launches == int(st.itr) == 200
+        assert gs.launches == int(st.itr) == 200 and gst.launches == fused
         assert mesh.ledger.calls["argmax"] == mesh.ledger.calls["row"] == 200
     finally:
         dist.destroy_process_group()
@@ -2236,3 +2242,111 @@ def test_span_device_intervals_lie_inside_their_host_spans(chunk, cuda_device):
         assert len(replays) >= 5
         inside = sum(r["dev_end"] - r["dev_start"] for r in replays)
         assert 0 < inside <= s["dev_end"] - s["dev_start"]
+
+
+# ------------------------------ the fused GIGA step (ops/giga_step.py)
+
+
+def _same_work(a, b):
+    for name in a._fields:
+        assert torch.equal(gsc.bits(getattr(a, name)), gsc.bits(getattr(b, name))), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", gsc.CASES)
+def test_giga_step_kernels_match_plain(name, cuda_device):
+    """One fused iteration from the states that decide each branch: the two
+    kernels against their plain versions on the card, bit for bit (state,
+    directions and the step's work), one update and two directions
+    launches."""
+    p, c = gsc.on(*gsc.case(name), cuda_device)
+    before = gst.launches, gst.dirs_launches
+    out, work = gsc.fused(p, c, plain=False)
+    torch.cuda.synchronize()
+    assert (gst.launches - before[0], gst.dirs_launches - before[1]) == (1, 2)
+    ref, ref_work = gsc.fused(p, c, plain=True)
+    gsc.assert_same(out, ref)
+    _same_work(work, ref_work)
+    gsc.assert_case(name, c, out, work)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["float32", "int8_resident"])
+def test_replayed_fused_build_at_20k_matches_cpu(kind, cuda_device):
+    """A replayed 500-iteration build at N=20k, S=500 (f32 V with an int8
+    select, or int8-resident V): the atoms and weights of the CPU build, at
+    test_build_on_card_matches_cpu's tolerances, one fused step per
+    iteration run."""
+    from bayesian_coresets_tpu_torch.parallel import quantize_chunk
+    rng = np.random.default_rng(6)
+    A = torch.as_tensor(rng.normal(size=(500, 20_000)).astype(np.float32))
+    A *= torch.as_tensor(rng.uniform(0.2, 3.0, size=20_000).astype(np.float32))
+    if kind == "float32":
+        c_cpu = snnls.make_consts(A, A.sum(dim=1), select_dtype=torch.int8)
+    else:
+        q, nrm, bsum = quantize_chunk(A.T.contiguous(), A.shape[1])
+        c_cpu = snnls.make_consts_quantized(q, nrm, bsum.float())
+    # the CPU's constants on the card: the norms and the int8 copy made on
+    # the card sum in another order
+    c_gpu = snnls.SNNLSConsts(*(t.to(cuda_device) for t in c_cpu))
+    s_cpu = snnls.build(c_cpu, snnls.init_state(c_cpu, 1024), 500, 1e-6)
+    before, ran, sel = gst.launches, snnls.itrs_run, gs.launches
+    s_gpu = snnls.build(c_gpu, snnls.init_state(c_gpu, 1024), 500, 1e-6)
+    assert gst.launches - before == snnls.itrs_run - ran == gs.launches - sel >= int(s_gpu.itr)
+    k = int(s_cpu.size)
+    assert int(s_gpu.itr) == int(s_cpu.itr) > 400 and int(s_gpu.size) == k
+    np.testing.assert_array_equal(s_gpu.idcs[:k].cpu().numpy(), s_cpu.idcs[:k].numpy())
+    np.testing.assert_allclose(s_gpu.w.cpu().numpy(), s_cpu.w.numpy(), rtol=1e-4, atol=1e-6)
+
+
+def _graph_nodes(fn, dev):
+    """The nodes of the CUDA graph captured from ``fn()`` (run once on the
+    capture stream first), counted by libcuda's ``cuGraphGetNodes``."""
+    import ctypes
+    s = torch.cuda.Stream(dev)
+    s.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(s)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, stream=s):
+        fn()
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(ctypes.c_void_p(g.raw_cuda_graph()),
+                                                       None, ctypes.byref(n))
+    assert err == 0
+    return n.value
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "int8_resident"])
+def test_fused_iteration_is_at_most_four_graph_nodes(kind, cuda_device):
+    """Captured segments of 1, 2 and 8 non-refresh GIGA iterations: each
+    iteration adds 4 nodes (the select, the update, the fold, the finish),
+    and a segment one more (its first directions)."""
+    c = _graph_consts(kind, "giga", cuda_device)
+    s = snnls.build(c, snnls.init_state(c, 256), 10, 1e-6)
+    p = snnls._Problem(c, "giga", 1e-6, 256, None, None, None, None, None)
+    carry = snnls._carry(c, s, 1000)
+    carry = carry._replace(**{k: t.clone() for k, t in carry.state()._asdict().items()})
+    nodes = [_graph_nodes(lambda m=m: snnls._segment(p, carry, m, False), cuda_device)
+             for m in (1, 2, 8)]
+    assert nodes[1] - nodes[0] == (nodes[2] - nodes[1]) // 6 <= 4 and nodes[0] <= 5, nodes
+
+
+@pytest.mark.cuda
+def test_giga_step_launches_count_the_giga_iterations(cuda_device):
+    """Replayed builds: the update kernel launches once per GIGA iteration
+    run (replays counted), as the select does; Frank-Wolfe, OMP and the
+    sampling solvers, and GIGA without slots, never launch it."""
+    for method, K in (("giga", 256), ("giga", 0), ("frankwolfe", 256), ("orthopursuit", 256),
+                      ("uniform", 256)):
+        c = _graph_consts("int8", method, cuda_device)
+        before, ran, dirs = gst.launches, snnls.itrs_run, gst.dirs_launches
+        snnls.build(c, snnls.init_state(c, K), 70 if method != "orthopursuit" else 12, 1e-6,
+                    method=method, draws=_gen(cuda_device, method))
+        fused = method == "giga" and K > 0
+        assert gst.launches - before == (snnls.itrs_run - ran if fused else 0), method
+        # and the directions once per iteration and once per piece
+        assert (gst.dirs_launches - dirs > gst.launches - before if fused
+                else gst.dirs_launches == dirs), method
