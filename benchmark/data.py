@@ -4,12 +4,8 @@ handed what this module makes.
 
 Every draw comes from a ``torch.Generator`` on the run's device, seeded by
 :func:`subseed` from the run's seed and the purpose of the draw, so the same
-seed gives the same inputs and two purposes never share a stream.
-
-The synthetic logistic data is the reference's (``examples/common/
-model_lr.py:15-23`` of trevorcampbell/bayesian-coresets): x ~ N(0, I),
-theta = 3 * 1, y = +1 with probability sigmoid(x . theta), else -1, and the
-rows are folded, z = y * x.
+seed gives the same inputs and two purposes never share a stream.  What a
+data set's rows are is its model's (``models/<model>.py``'s ``rows``).
 """
 
 from __future__ import annotations
@@ -17,7 +13,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-THETA_TRUE = 3.0          # model_lr.py:17, the generating coefficient of every dimension
 GEN_BLOCK_ROWS = 1 << 20  # rows drawn per block of a large data set
 
 
@@ -37,27 +32,21 @@ def generator(dev: torch.device, seed: int, *purpose) -> torch.Generator:
     return torch.Generator(device=dev).manual_seed(subseed(seed, *purpose))
 
 
-def logistic_rows(gen: torch.Generator, n: int, d: int) -> torch.Tensor:
-    """(n, d) f32 folded logistic rows on the generator's device."""
-    dev = gen.device
-    x = torch.randn((n, d), generator=gen, dtype=torch.float32, device=dev)
-    ps = torch.sigmoid(x @ torch.full((d,), THETA_TRUE, dtype=torch.float32, device=dev))
-    u = torch.rand((n,), generator=gen, dtype=torch.float32, device=dev)
-    y = torch.where(u <= ps, 1.0, -1.0)
-    return y[:, None] * x
-
-
-def logistic_data(seed: int, n: int, d: int, dev: torch.device, on_host: bool):
-    """The run's data set: a (n, d) f32 tensor on ``dev``, or with
-    ``on_host`` a numpy array drawn on ``dev`` in blocks and kept in host
-    memory (the streamed configuration's data, which stays off the card)."""
+def dataset(rows, seed: int, n: int, dev: torch.device, on_host: bool):
+    """The run's data set of ``n`` rows drawn by ``rows(gen, k)`` (k rows,
+    f32 on the generator's device): a tensor on ``dev``, or with ``on_host``
+    a numpy array drawn on ``dev`` in blocks and kept in host memory (the
+    streamed configuration's data, which stays off the card)."""
     gen = generator(dev, seed, DATA)
     if not on_host:
-        return logistic_rows(gen, n, d)
-    out = np.empty((n, d), dtype=np.float32)
+        return rows(gen, n)
+    out = None
     for lo in range(0, n, GEN_BLOCK_ROWS):
         hi = min(n, lo + GEN_BLOCK_ROWS)
-        out[lo:hi] = logistic_rows(gen, hi - lo, d).cpu().numpy()
+        block = rows(gen, hi - lo).cpu().numpy()
+        if out is None:
+            out = np.empty((n, block.shape[1]), dtype=block.dtype)
+        out[lo:hi] = block
     return out
 
 

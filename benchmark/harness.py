@@ -7,12 +7,17 @@ lives in a file of its own, found by the name ``BENCHMARK.json`` gives it:
 
 - ``configs/<config>.json``: the configuration's sizes (its ``file``);
 - ``workloads/<traffic>.json``: the traffic mix, whose ``job`` names the
-  kind of job (``jobs/<job>.py``) that runs it;
+  kind of job (``jobs/<job>.py``) that runs it; a configuration's ``model``
+  names its model (``models/<model>.py``) for the jobs that run one;
 - ``cells/<cell>.json``: what the check of that cell samples, and the limit
   of each number it compares;
 - ``metrics/<metric>.py``: a reader, ``read(ctx)``, that returns the
   metric's value from the run's window, spans, counters or trace, or None
-  where it finds nothing to read (the metric is then left out).
+  where it finds nothing to read (the metric is then left out); a reader
+  that can read only on a card says so by ``CARD_ONLY = True``.
+
+A job or a model named by a dotted module path in place of a plain name is
+imported by that path.
 """
 
 from __future__ import annotations
@@ -54,9 +59,10 @@ def _reports(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
-def resolve(spec: dict, name: str) -> Cell:
+def resolve(spec: dict, name: str, here: Path = HERE) -> Cell:
     """The cell ``name`` with its configuration, traffic mix, check and
-    metrics; raises KeyError for a name the spec does not hold."""
+    metrics; raises KeyError for a name the spec does not hold.  ``here``
+    holds the ``workloads/`` and ``cells/`` files."""
     entry = next((w for w in spec["workloads"] if w["name"] == name), None)
     if entry is None:
         raise KeyError(f"no workload {name!r} in {SPEC.name}")
@@ -64,24 +70,40 @@ def resolve(spec: dict, name: str) -> Cell:
     return Cell(
         name=name, entry=entry,
         config=json.loads((ROOT / conf["file"]).read_text()),
-        traffic=json.loads((HERE / "workloads" / f"{entry['traffic']}.json").read_text()),
-        check=json.loads((HERE / "cells" / f"{name}.json").read_text()),
+        traffic=json.loads((here / "workloads" / f"{entry['traffic']}.json").read_text()),
+        check=json.loads((here / "cells" / f"{name}.json").read_text()),
         end_to_end=[m for m in spec["end_to_end"] if _reports(m, name)],
         per_layer=[m for m in spec["per_layer"] if _reports(m, name)])
 
 
+def module(kind: str, name: str):
+    """``<kind>/<name>.py`` of the benchmark (a job, a model), or the module
+    at ``name`` where it is a dotted path."""
+    return importlib.import_module(name if "." in name else f"benchmark.{kind}.{name}")
+
+
 def job_module(traffic: dict):
-    return importlib.import_module(f"benchmark.jobs.{traffic['job']}")
+    return module("jobs", traffic["job"])
 
 
-def reader(metric: str):
-    """The ``read`` function of ``metrics/<metric>.py``."""
+def metric_module(metric: str):
+    """``metrics/<metric>.py``, loaded anew."""
     path = HERE / "metrics" / f"{metric}.py"
     spec = importlib.util.spec_from_file_location(
         "benchmark.metrics." + metric.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric: str):
+    """The ``read`` function of ``metrics/<metric>.py``."""
+    return metric_module(metric).read
+
+
+def card_only(metric: str) -> bool:
+    """Whether the metric's reader can read only on a card."""
+    return getattr(metric_module(metric), "CARD_ONLY", False)
 
 
 def forbidden_modules() -> list[str]:

@@ -3,35 +3,64 @@
 configuration the chunks, their projection and quantization), ``build(M)``
 (the solver loop and its select kernel) and ``get()``.
 
-Job i projects the run's data on its own samples (theta ~ scale * N(0, I),
-drawn from the seed and i: a fresh projection per build, as users' trials
-draw).  The check draws builds of the window from the seed and holds each
-to the plain reference (:mod:`benchmark.reference`) on the same data and
-samples: the reference projects again, runs its own GIGA to M, and measures
-the error of both answers against the same target, and which of its first
-atoms, each the row best aligned with the residual over all the rows, the
-answer holds.
+The configuration's ``model`` names the model (``models/<model>.py``): its
+rows, the program's log-likelihood (``PROGRAM_LOGLIK``) and the reference's
+in float64 (``loglik``).  Job i projects the run's data on its own samples
+(theta ~ scale * N(0, I), drawn from the seed and i: a fresh projection per
+build, as users' trials draw).  The check draws builds of the window from
+the seed and holds each to the plain reference (:mod:`benchmark.reference`)
+on the same data and samples: the reference projects again, runs its own
+GIGA to M in the configuration's select precision, and measures the error of
+both answers against the same target, and which of its first atoms, each
+the row best aligned with the residual over all the rows, the answer holds.
+
+What the benchmark's own tests need of this kind of job: :func:`toy`, the
+configuration cut to a toy size for the CPU; :func:`control_size`, the size
+at which the control is shown to fail there; :data:`PLANTS`, the faults its
+check must fail.  A job whose program side differs (an exact projector, say)
+subclasses :class:`Job` and overrides :meth:`Job.inputs`, :meth:`Job.coreset`
+and :meth:`Job.reference_rows`; the check's methods stay.
 """
 
 from __future__ import annotations
 
+import importlib
 import time
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .. import data, reference
+from .. import data, harness, plants, reference
 from ..harness import sync
 
 KIND = "hilbert"
-LEVELS = {"int8": 127}        # levels of the reference's select, by the configuration's
-# the reference's first atoms that an answer must hold: sound builds follow the
-# reference's path past them, and part from it, if at all, after ten atoms or more
+# the configuration's select precision -> the reference's select in the
+# control, one precision below, and the tie: a score within this share of
+# the best is a tie that rounding breaks either way (int8: one level of the
+# direction moves a score by about this much)
+PRECISIONS = {"float32": {"control": "bfloat16", "tie": 1e-4},
+              "bfloat16": {"control": "int8", "tie": 1e-3},
+              "int8": {"control": "int4", "tie": 1e-3}}
+# the reference's first atoms that an answer must hold, where the cell's file
+# sets no "early_atoms": sound int8 builds follow the reference's path past
+# them, and part from it, if at all, after ten atoms or more
 EARLY_ATOMS = 8
-# a score within this share of the best is a tie that rounding breaks either
-# way: one level of the int8 direction moves a score by about this much
-TIE = 1e-3
+PLANTS = plants.PLANTS      # every fault of benchmark/plants.py
+
+
+def toy(cfg: dict) -> dict:
+    """What a configuration's toy cut for the CPU changes: N and M, and the
+    chunk of a streamed one (S and D stay)."""
+    if cfg.get("stream_chunk_size"):
+        return {"N": 6000, "coreset_size": 40, "stream_chunk_size": 2500}
+    return {"N": 3000, "coreset_size": 40}
+
+
+def control_size(cfg: dict) -> dict:
+    """What the toy cut's control test changes: a size at which the
+    reference's path is long enough for the control to part from it."""
+    return {"N": 20_000, "coreset_size": 200}
 
 
 class Job:
@@ -42,28 +71,35 @@ class Job:
 
     def __init__(self, cfg: dict, traffic: dict, cell: dict, seed: int, dev: torch.device):
         import bayesian_coresets_tpu_torch as bc
-        from bayesian_coresets_tpu_torch.models import logistic
 
-        if cfg["model"] != "logistic":
-            raise ValueError(f"the hilbert job runs the logistic model, not {cfg['model']!r}")
-        self.bc, self.loglik = bc, logistic.log_likelihood
+        self.bc, self.model = bc, harness.module("models", cfg["model"])
+        path, name = self.model.PROGRAM_LOGLIK.split(":")
+        self.loglik = getattr(importlib.import_module(path), name)
         self.cfg, self.traffic, self.cell, self.seed, self.dev = cfg, traffic, cell, seed, dev
         self.N, self.D, self.S = cfg["N"], cfg["D"], cfg["S"]
         self.M = cfg["coreset_size"]
         self.chunk = cfg.get("stream_chunk_size")
         self.select_dtype = cfg["select_dtype"]
-        self.Z = data.logistic_data(seed, self.N, self.D, dev, on_host=self.chunk is not None)
+        if self.select_dtype not in PRECISIONS:
+            raise ValueError(f"no reference select for {self.select_dtype!r}")
+        self.Z = self.inputs()
         self.answers = {}           # job index -> (weights, indices, points), numpy
         self.reference_errors = {}  # job index -> the error of the reference's GIGA
         self.spans = []             # with spans on: one dict of seconds per job
 
     # -- the program's side ---------------------------------------------------
 
+    def inputs(self):
+        """The run's data, made once from the seed."""
+        return data.dataset(lambda gen, n: self.model.rows(gen, n, self.D), self.seed, self.N,
+                            self.dev, on_host=self.chunk is not None)
+
     def theta(self, index: int, stream: int = data.THETA) -> torch.Tensor:
         return data.projection_samples(self.seed, index, self.S, self.D,
                                        self.traffic["projection_scale"], self.dev, stream)
 
-    def _coreset(self, theta: torch.Tensor):
+    def coreset(self, theta: torch.Tensor):
+        """The program's coreset of the run's data, projected on ``theta``."""
         bc = self.bc
 
         def sampler(gen, n, wts, pts):
@@ -88,7 +124,7 @@ class Job:
         theta = self.theta(index, stream)
         t0 = time.perf_counter()
         with record_function("hilbert.construct"):
-            coreset = self._coreset(theta)
+            coreset = self.coreset(theta)
         if spans:
             sync(self.dev)
             t1 = time.perf_counter()
@@ -135,15 +171,25 @@ class Job:
     def reference_answer(self, sys_: reference.System, control: bool = False, M=None, **kw):
         """(indices, weights) of the reference's GIGA to ``M`` (the
         configuration's by default) on ``sys_`` in the configuration's
-        precision: an int8 select (rows and directions rounded to 127
-        levels), and for int8-resident constants the weights worked out on
-        those rows.  ``control``: one precision below, int4 (7 levels)."""
-        levels = 7 if control else LEVELS[self.select_dtype]
-        return reference.giga(sys_, M or self.M, select_levels=levels,
+        select precision (int8: rows and directions rounded to 127 levels),
+        and for int8-resident constants the weights worked out on those
+        rows.  ``control``: one precision below (:data:`PRECISIONS`)."""
+        select = PRECISIONS[self.select_dtype]["control"] if control else self.select_dtype
+        return reference.giga(sys_, M or self.M, select=select,
                               resident=self.chunk is not None, **kw)
 
+    def reference_rows(self, index: int) -> torch.Tensor:
+        """(N, S) float64: the reference's projection of build ``index``."""
+        return reference.project(self.Z, self.theta(index), self.dev, self.model.loglik)
+
     def system(self, index: int) -> reference.System:
-        return reference.System(reference.project(self.Z, self.theta(index), self.dev))
+        return reference.System(self.reference_rows(index))
+
+    def rows_at(self, idcs: np.ndarray) -> np.ndarray:
+        """The data's rows at ``idcs``, numpy."""
+        if torch.is_tensor(self.Z):
+            return self.Z[torch.as_tensor(idcs).to(self.Z.device)].cpu().numpy()
+        return np.asarray(self.Z[idcs])
 
     def reference_error(self, index: int, sys_: reference.System) -> float:
         """The error of the reference's GIGA for build ``index``, run once
@@ -153,12 +199,18 @@ class Job:
                 sys_, *self.reference_answer(sys_))
         return self.reference_errors[index]
 
+    def early_atoms(self) -> int:
+        """How many of the reference's first atoms an answer must hold: the
+        cell's ``early_atoms``, else :data:`EARLY_ATOMS`, and at most M."""
+        return min(self.cell.get("early_atoms", EARLY_ATOMS), self.M)
+
     def early_atoms_missed(self, sys_: reference.System, idcs: np.ndarray) -> int:
-        """How many of the first :data:`EARLY_ATOMS` atoms of the reference's
+        """How many of the first :meth:`early_atoms` atoms of the reference's
         GIGA, following the answer ``idcs`` through ties, the answer lacks."""
         held = torch.zeros(sys_.V.shape[0], dtype=torch.bool, device=sys_.V.device)
         held[torch.as_tensor(idcs, device=held.device)] = True
-        path, _ = self.reference_answer(sys_, M=EARLY_ATOMS, prefer=held, tie=TIE)
+        path, _ = self.reference_answer(sys_, M=self.early_atoms(), prefer=held,
+                                        tie=PRECISIONS[self.select_dtype]["tie"])
         return int((~np.isin(path.cpu().numpy(), idcs)).sum())
 
     def readings(self, index: int, answer=None, sys_=None) -> dict:
@@ -171,7 +223,7 @@ class Job:
         reference runs the configuration's algorithm in its precision, so an
         answer that is better by more than rounding moves the paths apart is
         as far from it as one that is worse.  ``early_atoms_missed``: how
-        many of the reference's first :data:`EARLY_ATOMS` atoms the answer
+        many of the reference's first :meth:`early_atoms` atoms the answer
         lacks, the reference taking the answer's atom where the best score
         is tied.  Each is the row best aligned with the residual over all
         the rows, so an answer built on part of the data misses about half
@@ -186,8 +238,7 @@ class Job:
         err = reference.relative_error(sys_, idcs, wts) if len(idcs) else 1.0
         ok = (idcs >= 0) & (idcs < self.N)
         early_missed = self.early_atoms_missed(sys_, idcs[ok])
-        rows = np.asarray(self.Z[torch.as_tensor(idcs[ok]).to(self.Z.device)].cpu()
-                          if torch.is_tensor(self.Z) else self.Z[idcs[ok]])
+        rows = self.rows_at(idcs[ok])
         wrong_rows = int(np.any(rows != np.asarray(pts)[ok], axis=1).sum()) if len(rows) else 0
         malformed = int((~np.isfinite(wts)).sum() + (wts <= 0).sum()
                         + max(0, len(wts) - self.M) + (len(idcs) - len(np.unique(idcs)))
@@ -200,9 +251,7 @@ class Job:
         the program's place: (weights, indices, points)."""
         idcs, w = self.reference_answer(sys_, control=True)
         idcs = idcs.cpu().numpy()
-        pts = (self.Z[torch.as_tensor(idcs).to(self.Z.device)].cpu().numpy()
-               if torch.is_tensor(self.Z) else self.Z[idcs])
-        return w.cpu().numpy(), idcs, np.asarray(pts)
+        return w.cpu().numpy(), idcs, self.rows_at(idcs)
 
     def check(self, indices, control: bool = False) -> tuple[dict, dict]:
         """(the numbers compared, each the worst over the sampled builds;

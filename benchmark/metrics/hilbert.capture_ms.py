@@ -6,6 +6,8 @@ was replayed (on the CPU)."""
 
 from benchmark import program_spans as ps
 
+CARD_ONLY = True            # only the card captures graphs
+
 
 def read(ctx):
     got = ps.collect(ctx)

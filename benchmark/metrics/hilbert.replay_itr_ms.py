@@ -7,6 +7,8 @@ replayed (on the CPU)."""
 
 from benchmark import program_spans as ps
 
+CARD_ONLY = True            # only the card replays graphs
+
 
 def read(ctx):
     got = ps.collect(ctx)

@@ -5,6 +5,7 @@ device time per launch in the traced stretch, by kernel name, in percent."""
 from benchmark import roofline
 
 KERNEL = "giga_select"      # giga_select_kernel and giga_select_wide_kernel
+CARD_ONLY = True            # the select kernel's launches are read from the card's trace
 
 
 def read(ctx):

@@ -8,8 +8,10 @@ fault are dropped on both sides of the block.
   is taken over the rest: the build runs on the first half, and its
   weights are doubled so that they stand for the whole.
 - ``half_rows_strided``: the same with every other row left out.
-- ``select_off_by_one``: the select kernel's answer is altered where it is
-  produced: the row after the one it chose.
+- ``select_off_by_one``: the select's answer is altered where it is
+  produced: the row after the one it chose, written into the index buffer of
+  ``giga_select.giga_select_into``, which every GIGA select of the program
+  calls, the card's fused step and the plain route alike.
 - ``point_altered``: the coreset's answer is altered where it is produced:
   the first atom's point is not the data's row.
 """
@@ -89,15 +91,15 @@ def half_rows_strided():
 
 @contextlib.contextmanager
 def select_off_by_one():
-    from bayesian_coresets_tpu_torch.ops import snnls
+    from bayesian_coresets_tpu_torch.ops import giga_select
 
-    select = snnls.giga_select
+    select_into = giga_select.giga_select_into
 
-    def off_by_one(Vsel, dirs, norms, valid):
-        f, score = select(Vsel, dirs, norms, valid)
-        return (f + 1) % Vsel.shape[0], score
+    def off_by_one(Vsel, dirs, norms, valid, idx, score):
+        select_into(Vsel, dirs, norms, valid, idx, score)
+        idx.add_(1).remainder_(Vsel.shape[0])
 
-    with _patched(snnls, "giga_select", off_by_one):
+    with _patched(giga_select, "giga_select_into", off_by_one):
         yield
 
 

@@ -1,16 +1,16 @@
 """The readings that a cell's limits are set from, at the cell's own sizes.
 
     python3 benchmark/readings.py --workload <cell> --seeds 1,2,3 [--control]
-        [--plants name,...] [--out FILE]
+        [--plants name,...|all] [--out FILE]
 
 For each seed: the data of a run with that seed, one warm-up job, and as many
 jobs as a run's check holds (``check_builds`` of the cell's file); then the
 numbers that the check compares, for the program's answers (``sound``), for
 the reference in the program's place computed in the precision below the
 configuration's (``control``), and for the program with each planted fault
-(``plant:<name>``, :mod:`benchmark.plants`).  One JSON line per reading on
-standard output, and all of them in ``--out``.  The benchmark's runs do not
-run this.
+(``plant:<name>``, one of the ``PLANTS`` that the cell's job declares;
+``all`` for every one).  One JSON line per reading on standard output, and
+all of them in ``--out``.  The benchmark's runs do not run this.
 """
 
 import argparse
@@ -28,9 +28,9 @@ sys.path.insert(0, str(ROOT))
 
 def readings(cell, seed: int, dev, control: bool, plants) -> list[dict]:
     from benchmark import harness
-    from benchmark import plants as P
 
-    job = harness.job_module(cell.traffic).Job(cell.config, cell.traffic, cell.check, seed, dev)
+    kind = harness.job_module(cell.traffic)
+    job = kind.Job(cell.config, cell.traffic, cell.check, seed, dev)
     job.warm()
     k = cell.check["check_builds"]
     t0 = time.perf_counter()
@@ -46,7 +46,7 @@ def readings(cell, seed: int, dev, control: bool, plants) -> list[dict]:
         numbers, seen = job.check(range(k), control=True)
         out.append({"seed": seed, "kind": "control", **numbers, "seen": seen})
     for name in plants:
-        with P.PLANTS[name]():
+        with kind.PLANTS[name]():
             for i in range(k):
                 job.run(i)
         numbers, seen = job.check(range(k))
@@ -69,6 +69,8 @@ def main(argv=None) -> int:
     cell = harness.resolve(harness.load_spec(), args.workload)
     dev = torch.device("cuda", 0)
     plants = [x for x in args.plants.split(",") if x]
+    if plants == ["all"]:
+        plants = sorted(harness.job_module(cell.traffic).PLANTS)
     lines = []
     for seed in (int(s) for s in args.seeds.split(",")):
         for r in readings(cell, seed, dev, args.control, plants):

@@ -1,18 +1,24 @@
 """The plain reference of a Hilbert coreset build, in float64 PyTorch.
 
 It imports nothing of the program under test and takes nothing the program
-made: it projects the data itself, forms the system itself, and runs its own
-GIGA (reference ``bayesiancoresets/snnls/giga.py`` and ``snnls.py`` of
-trevorcampbell/bayesian-coresets, with the optimal scaling of the reweight
-taken as (x . b) / |x|^2).  It reads the program's answer (weights and
-indices) only to judge it, by :func:`relative_error`.
+made: it projects the data itself, through the log-likelihood of its own
+that it is given (``models/<model>.py``'s ``loglik``), forms the system
+itself, and runs its own GIGA (reference ``bayesiancoresets/snnls/giga.py``
+and ``snnls.py`` of trevorcampbell/bayesian-coresets, with the optimal
+scaling of the reweight taken as (x . b) / |x|^2).  It reads the program's
+answer (weights and indices) only to judge it, by :func:`relative_error`.
 
 Everything runs on the device of the inputs, in blocks of rows, so that the
-(n, S) float64 projection is the largest thing it holds.  ``select_levels``
-is the precision of the select: None is exact (float64), 7 selects on rows
-normalized and rounded to integers in [-7, 7], an int4 selection copy, the
-precision below the configuration's int8 (the control of a check), 127 the int8 select that the configurations
-state: rows and directions rounded alike, their dots exact.
+(n, S) float64 projection is the largest thing it holds.  ``select`` is the
+precision of the select, one of :data:`PRECISIONS` or None, exact
+(float64).  Every precision selects on the rows rounded as a selection copy
+of that type holds them, with the directions rounded alike, and scores the
+normalized rows: ``"float32"`` and ``"bfloat16"`` round the rows to the
+float type as they are, sum their dots in float64 and divide them by the
+rows' norms; ``"int8"`` rounds the normalized rows to integers in [-127,
+127], the int8 select that the int8 configurations state, and ``"int4"`` to
+integers in [-7, 7], the precision below int8 (the control of a check),
+their dots exact.
 """
 
 from __future__ import annotations
@@ -21,29 +27,29 @@ import numpy as np
 import torch
 
 BLOCK_ROWS = 1 << 18      # rows per block of the projection and the select
+BLOCK_BYTES = 1 << 31     # at most this many bytes of float64 rows a block of a float select
 TOL = 1e-6                # the solver tolerance both packages default to
+# integer levels of a normalized entry, or the float type entries are rounded to
+LEVELS = {"int8": 127, "int4": 7}
+FLOATS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+PRECISIONS = (*FLOATS, *LEVELS)
 
 
 def _rows(data, lo: int, hi: int, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(data[lo:hi]).to(device=dev, dtype=torch.float64)
 
 
-def logistic_loglik(z: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
-    """(n, S) log p(y | x, theta) = -log(1 + exp(-z . theta)), stably."""
-    m = -(z @ theta.T)
-    return -(torch.clamp_min(m, 0.0) + torch.log1p(torch.exp(-m.abs())))
-
-
-def project(data, theta: torch.Tensor, dev: torch.device) -> torch.Tensor:
-    """(n, S) float64 feature vectors: each row's log-likelihood at the S
-    samples, centered over the samples.  ``data`` is a tensor or a numpy
-    array, read in blocks of rows."""
+def project(data, theta: torch.Tensor, dev: torch.device, loglik) -> torch.Tensor:
+    """(n, S) float64 feature vectors: each row's log-likelihood
+    ``loglik(rows, theta)`` at the S samples, both float64, centered over
+    the samples.  ``data`` is a tensor or a numpy array, read in blocks of
+    rows."""
     n = data.shape[0]
     th = theta.to(device=dev, dtype=torch.float64)
     V = torch.empty((n, th.shape[0]), dtype=torch.float64, device=dev)
     for lo in range(0, n, BLOCK_ROWS):
         hi = min(n, lo + BLOCK_ROWS)
-        ll = logistic_loglik(_rows(data, lo, hi, dev), th)
+        ll = loglik(_rows(data, lo, hi, dev), th)
         V[lo:hi] = ll - ll.mean(dim=1, keepdim=True)
     return V
 
@@ -75,54 +81,83 @@ class System:
         self.b = sum(torch.sum(V[lo:lo + BLOCK_ROWS][self.valid[lo:lo + BLOCK_ROWS]], dim=0)
                      for lo in range(0, V.shape[0], BLOCK_ROWS))
         self.bnorm = float(torch.linalg.vector_norm(self.b))
-        self._select_copies = {}     # levels -> the rounded selection copy
+        self._select_copies = {}     # precision -> the rounded selection copy
 
     def matvec(self, idcs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """A w over the rows ``idcs`` with weights ``w``."""
         return self.V.index_select(0, idcs).T @ w
 
-    def scores(self, dirs: torch.Tensor, levels: int | None) -> torch.Tensor:
-        """(n, 2) dots of the normalized rows with the unit directions."""
+    def scores(self, dirs: torch.Tensor, select: str | None) -> torch.Tensor:
+        """(n, 2) dots of the normalized rows with the unit directions, in
+        the precision ``select``."""
+        if select is None:
+            return self._exact_scores(dirs)
+        if select in FLOATS:
+            return self._float_scores(dirs, select)
+        return self._integer_scores(dirs, select)
+
+    def _exact_scores(self, dirs: torch.Tensor) -> torch.Tensor:
         out = torch.empty((self.V.shape[0], 2), dtype=torch.float64, device=self.V.device)
         safe = torch.where(self.valid, self.norms, 1.0)
-        if levels is not None and levels not in self._select_copies:
+        for lo in range(0, self.V.shape[0], BLOCK_ROWS):
+            out[lo:lo + BLOCK_ROWS] = (self.V[lo:lo + BLOCK_ROWS] @ dirs) \
+                / safe[lo:lo + BLOCK_ROWS, None]
+        return out
+
+    def select_copy(self, select: str) -> torch.Tensor:
+        """The rows rounded as a selection copy of the precision ``select``
+        holds them: the float type's values of the rows, or int8 integers of
+        the normalized rows for the integer precisions."""
+        if select in self._select_copies:
+            return self._select_copies[select]
+        if select in FLOATS:
+            q = self.V.to(FLOATS[select])
+        else:
+            levels, safe = LEVELS[select], torch.where(self.valid, self.norms, 1.0)
             q = torch.empty(self.V.shape, dtype=torch.int8, device=self.V.device)
             for lo in range(0, self.V.shape[0], BLOCK_ROWS):
                 blk = self.V[lo:lo + BLOCK_ROWS] / safe[lo:lo + BLOCK_ROWS, None]
                 q[lo:lo + BLOCK_ROWS] = torch.clamp(torch.round(blk * levels),
                                                     -levels, levels).to(torch.int8)
-            self._select_copies[levels] = q
-        if levels is not None:       # the directions rounded alike
-            dirs = torch.clamp(torch.round(dirs * levels), -levels, levels)
+        self._select_copies[select] = q
+        return q
+
+    def _float_scores(self, dirs: torch.Tensor, select: str) -> torch.Tensor:
+        q = self.select_copy(select)
+        d = dirs.to(FLOATS[select]).double()     # the directions rounded alike
+        safe = torch.where(self.valid, self.norms, 1.0)
+        rows = max(1, min(BLOCK_ROWS, BLOCK_BYTES // (8 * q.shape[1])))
+        return torch.cat([(q[lo:lo + rows].double() @ d) / safe[lo:lo + rows, None]
+                          for lo in range(0, q.shape[0], rows)])
+
+    def _integer_scores(self, dirs: torch.Tensor, select: str) -> torch.Tensor:
+        q, levels = self.select_copy(select), LEVELS[select]
+        out = torch.empty((self.V.shape[0], 2), dtype=torch.float64, device=self.V.device)
+        dirs = torch.clamp(torch.round(dirs * levels), -levels, levels)  # rounded alike
         for lo in range(0, self.V.shape[0], BLOCK_ROWS):
-            if levels is None:
-                out[lo:lo + BLOCK_ROWS] = (self.V[lo:lo + BLOCK_ROWS] @ dirs) \
-                    / safe[lo:lo + BLOCK_ROWS, None]
-            else:
-                out[lo:lo + BLOCK_ROWS] = _integer_dots(
-                    self._select_copies[levels][lo:lo + BLOCK_ROWS], dirs) / (levels * levels)
+            out[lo:lo + BLOCK_ROWS] = _integer_dots(q[lo:lo + BLOCK_ROWS], dirs) \
+                / (levels * levels)
         return out
 
 
-def giga(sys_: System, M: int, select_levels: int | None = None, resident: bool = False,
+def giga(sys_: System, M: int, select: str | None = None, resident: bool = False,
          prefer: torch.Tensor | None = None, tie: float = 0.0):
     """M iterations of GIGA on ``sys_``: (indices, weights) of the atoms of
     positive weight, in the order they were chosen, on the system's device.
     A step that fails (a direction too short, a reweight out of range, or an
     error that grows) ends the build, as the reference's second consecutive
     failure does.  ``resident``: the weights are worked out on the rows as
-    the selection copy holds them (``select_levels``), each times its norm
-    over the levels, as int8-resident constants hold them; the error is then
-    measured on the exact rows all the same.  ``prefer``: a boolean mask of
+    the integer selection copy of the precision ``select`` holds them, each
+    times its norm over the levels, as int8-resident constants hold them;
+    the error is then measured on the exact rows all the same.  ``prefer``: a boolean mask of
     rows; where the best score is tied, within a share ``tie`` of its size,
     by a preferred row, the best preferred row is chosen (a path that
     follows an answer through the ties that rounding breaks either way)."""
     V, dev = sys_.V, sys_.V.device
     if resident:
-        if select_levels is None:
-            raise ValueError("resident rows need a rounded selection copy (select_levels)")
-        sys_.scores(torch.zeros((V.shape[1], 2), dtype=V.dtype, device=dev), select_levels)
-        q, row_scale = sys_._select_copies[select_levels], sys_.norms / select_levels
+        if select not in LEVELS:
+            raise ValueError(f"resident rows need an integer selection copy, not {select!r}")
+        q, row_scale = sys_.select_copy(select), sys_.norms / LEVELS[select]
 
         def rows(idcs):
             return q.index_select(0, idcs).double() * row_scale.index_select(0, idcs)[:, None]
@@ -147,7 +182,7 @@ def giga(sys_: System, M: int, select_levels: int | None = None, resident: bool 
         cnrm = float(torch.linalg.vector_norm(cdir))
         if cnrm < TOL:
             break
-        dots = sys_.scores(torch.stack([cdir / cnrm, xwn], dim=1), select_levels)
+        dots = sys_.scores(torch.stack([cdir / cnrm, xwn], dim=1), select)
         d1 = dots[:, 1]
         stable = (d1 > -1.0 + 1e-14) & (1.0 - d1 * d1 > 0.0)
         den = torch.where(stable, torch.sqrt(torch.clamp_min(1.0 - d1 * d1, 0.0)), np.inf)

@@ -1,6 +1,8 @@
 """A tiny end-to-end run of each cell on the CPU, with the program's plain
 versions of its kernels, past the harness's look for a card; and run.py's
-refusal where there is none."""
+refusal where there is none.  :func:`untraced` and :func:`traced` take any
+cell cut to a toy size (``test_bench_room.py`` runs them on a cell of
+another model)."""
 
 import json
 import subprocess
@@ -17,9 +19,9 @@ CELLS = [w["name"] for w in harness.load_spec()["workloads"]]
 SEED = 2**31 + 12345          # larger than 32 signed bits hold
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_untraced_run_reports_the_end_to_end_metrics(cell, cpu):
-    c = toy_cell(cell)
+def untraced(c, cpu):
+    """An untraced toy run of the cell ``c``: correct, and reporting its
+    end-to-end metrics and its checks."""
     res, seen = harness.run(c, SEED, 2.0, False, cpu, time.perf_counter())
     assert res["correct"] is True, res["checks"]
     n = res["attempted"]
@@ -32,22 +34,38 @@ def test_untraced_run_reports_the_end_to_end_metrics(cell, cpu):
     json.dumps(res)
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_traced_run_reports_the_per_layer_metrics(cell, cpu):
-    c = toy_cell(cell)
+def traced(c, cpu):
+    """A traced toy run of the cell ``c``: correct, and reporting every
+    per-layer metric of the cell that can read without a card, and none
+    that cannot (their readers say ``CARD_ONLY``)."""
     res, _ = harness.run(c, SEED, 0.5, True, cpu, time.perf_counter())
     assert res["correct"] is True, res["checks"]
-    # no card here: the device's metrics find nothing to read, or read idle
-    assert {"hilbert.construct_ms", "hilbert.itr_ms", "hilbert.step_mfu"} <= set(res["metrics"])
-    assert "select_roofline" not in res["metrics"]
+    assert c.per_layer
+    cpu_read = {m["name"] for m in c.per_layer if not harness.card_only(m["name"])}
+    assert set(res["metrics"]) == cpu_read
     assert res["device"]["window_s"] > 0 and "breakdown" in res
     assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
 
 
+@pytest.mark.parametrize("cell", CELLS)
+def test_untraced_run_reports_the_end_to_end_metrics(cell, cpu):
+    untraced(toy_cell(cell), cpu)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_traced_run_reports_the_per_layer_metrics(cell, cpu):
+    traced(toy_cell(cell), cpu)
+
+
 def test_same_seed_same_inputs(cpu):
     from benchmark import data
-    a = data.logistic_data(SEED, 100, 10, cpu, on_host=False)
-    b = data.logistic_data(SEED, 100, 10, cpu, on_host=True)
+    from benchmark.models import logistic
+
+    def rows(gen, n):
+        return logistic.rows(gen, n, 10)
+
+    a = data.dataset(rows, SEED, 100, cpu, on_host=False)
+    b = data.dataset(rows, SEED, 100, cpu, on_host=True)
     assert (a.numpy() == b).all()
     t1 = data.projection_samples(SEED, 3, 500, 10, 0.1, cpu)
     assert (t1 == data.projection_samples(SEED, 3, 500, 10, 0.1, cpu)).all()

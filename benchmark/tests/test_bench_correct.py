@@ -1,7 +1,10 @@
 """The check fails what it must: the control (the reference in the
-program's place, its select in int4 where the configuration states int8) on
-three seeds, at a size a test run holds; and, through the rest of a run past
-the look for a card, each fault planted under the timed path."""
+program's place, its select one precision below the configuration's: int4
+where it states int8) on three seeds, at the size its job declares for it;
+and, through the rest of a run past the look for a card, each fault planted
+under the timed path that the cell's job names.  :func:`control_fails` and
+:func:`plant_fails` take any resolved cell (``test_bench_room.py`` runs them
+on a cell of another model)."""
 
 import time
 
@@ -10,33 +13,50 @@ import pytest
 
 from benchmark import harness, plants
 
-from .toy import toy_cell
+from .toy import cut, cut_for_control, toy_cell
 
-CELLS = [w["name"] for w in harness.load_spec()["workloads"]]
+SPEC = harness.load_spec()
+CELLS = [w["name"] for w in SPEC["workloads"]]
+SEEDS = [11, 12, 13]
 
 
 def _fails(numbers: dict, limits: dict) -> bool:
     return any(v > limits[k] for k, v in numbers.items())
 
 
-@pytest.mark.parametrize("seed", [11, 12, 13])
-@pytest.mark.parametrize("cell", CELLS)
-def test_the_control_is_not_correct(cell, seed, cpu):
-    c = toy_cell(cell)
-    c.config.update(N=20_000, coreset_size=200)
-    c.check.update(check_builds=1)
+def plants_of(cell) -> list[str]:
+    """The names of the faults the cell's job declares."""
+    return sorted(harness.job_module(cell.traffic).PLANTS)
+
+
+def control_fails(c, seed, cpu):
+    """The control of the cell ``c`` (resolved, not yet cut) at its job's
+    control size fails one of its limits."""
+    c = cut_for_control(c)
     job = harness.job_module(c.traffic).Job(c.config, c.traffic, c.check, seed, cpu)
     numbers, _ = job.check([0], control=True)
     assert _fails(numbers, c.check["limits"]), numbers
 
 
-@pytest.mark.parametrize("plant", sorted(plants.PLANTS))
-@pytest.mark.parametrize("cell", CELLS)
-def test_a_planted_fault_is_not_correct(cell, plant, cpu):
-    c = toy_cell(cell)
-    with plants.PLANTS[plant]():
+def plant_fails(c, plant, cpu):
+    """A toy run of the cell ``c`` (resolved, not yet cut) with the fault
+    ``plant`` of its job is not correct."""
+    c = cut(c)
+    with harness.job_module(c.traffic).PLANTS[plant]():
         res, _ = harness.run(c, 7, 0.5, False, cpu, time.perf_counter())
     assert res["correct"] is False, res["checks"]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("cell", CELLS)
+def test_the_control_is_not_correct(cell, seed, cpu):
+    control_fails(harness.resolve(SPEC, cell), seed, cpu)
+
+
+@pytest.mark.parametrize("cell, plant", [(c, p) for c in CELLS
+                                          for p in plants_of(harness.resolve(SPEC, c))])
+def test_a_planted_fault_is_not_correct(cell, plant, cpu):
+    plant_fails(harness.resolve(SPEC, cell), plant, cpu)
 
 
 def test_the_plants_are_undone(cpu):

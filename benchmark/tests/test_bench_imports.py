@@ -31,9 +31,14 @@ def test_no_source_imports_jax_or_the_jax_package(path):
     assert not _imported(path) & FORBIDDEN
 
 
+MODELS = sorted((HERE / "models").glob("*.py"))
+
+
 def test_the_reference_and_the_yardstick_import_nothing_of_the_program():
-    for name in ("reference.py", "data.py", "roofline.py", "stats.py"):
-        assert PROGRAM not in _imported(HERE / name), name
+    assert len(MODELS) > 1
+    for path in [HERE / name for name in ("reference.py", "data.py", "roofline.py",
+                                          "stats.py")] + MODELS:
+        assert PROGRAM not in _imported(path), path.name
 
 
 def _loaded_after(code: str) -> set[str]:
@@ -47,6 +52,7 @@ def test_a_run_loads_no_jax():
     # everything a run imports, the program included, in a fresh process
     loaded = _loaded_after(
         "import benchmark.harness as h, benchmark.jobs.hilbert, benchmark.plants\n"
+        "import benchmark.models.logistic\n"
         "import bayesian_coresets_tpu_torch\n"
         "[h.reader(m['name']) for g in ('end_to_end', 'per_layer') for m in h.load_spec()[g]]")
     assert not loaded & FORBIDDEN
@@ -54,7 +60,8 @@ def test_a_run_loads_no_jax():
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    loaded = _loaded_after("import benchmark.reference, benchmark.data, benchmark.roofline")
+    loaded = _loaded_after("import benchmark.reference, benchmark.data, benchmark.roofline, "
+                           "benchmark.models.logistic")
     assert PROGRAM not in loaded and not loaded & FORBIDDEN
 
 

@@ -1,7 +1,9 @@
 """The metrics that read the program's own spans: a toy traced run of each
-cell on the CPU reports the construction's two spans and leaves out those
-that need replayed graphs; a program without the span recorder gives none
-of them and raises nothing."""
+cell on the CPU reports those of the cell's span metrics that read without
+a card (the construction's two spans) and leaves out those that need
+replayed graphs; a program without the span recorder gives none of them and
+raises nothing.  :func:`spans_read` takes any cell cut to a toy size
+(``test_bench_room.py`` runs it on a cell of another model)."""
 
 import time
 
@@ -11,23 +13,31 @@ from benchmark import harness, program_spans
 
 from .toy import toy_cell
 
-CELLS = [w["name"] for w in harness.load_spec()["workloads"]]
+SPEC = harness.load_spec()
+CELLS = [w["name"] for w in SPEC["workloads"]]
 SEED = 2**31 + 54321
-READ = ("hilbert.project_ms", "hilbert.consts_ms")
-NEED_GRAPHS = ("hilbert.replay_itr_ms", "hilbert.off_graph_pct", "hilbert.capture_ms")
+SPAN_METRICS = [m["name"] for m in SPEC["per_layer"] if m["source"] == "program_span"]
+
+
+def spans_read(c, cpu):
+    """A traced toy run of the cell ``c``: each of its metrics that read the
+    program's spans reads a finite positive value, or, where its reader
+    needs a card, nothing; its other metrics that read without a card,
+    read before the spans' jobs run, still report."""
+    res, _ = harness.run(c, SEED, 0.5, True, cpu, time.perf_counter())
+    assert res["correct"] is True, res["checks"]
+    for name in (m["name"] for m in c.per_layer if m["source"] == "program_span"):
+        if harness.card_only(name):
+            assert name not in res["metrics"], name
+        else:
+            assert 0 < res["metrics"][name]["value"] < float("inf"), name
+    assert {m["name"] for m in c.per_layer if m["source"] != "program_span"
+            and not harness.card_only(m["name"])} <= set(res["metrics"])
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_traced_run_reports_the_construction_spans(cell, cpu):
-    c = toy_cell(cell)
-    res, _ = harness.run(c, SEED, 0.5, True, cpu, time.perf_counter())
-    assert res["correct"] is True, res["checks"]
-    for name in READ:
-        v = res["metrics"][name]["value"]
-        assert 0 < v < float("inf"), name
-    assert not set(NEED_GRAPHS) & set(res["metrics"])
-    # the four metrics read before the spans' jobs still report
-    assert {"hilbert.construct_ms", "hilbert.itr_ms", "hilbert.step_mfu"} <= set(res["metrics"])
+    spans_read(toy_cell(cell), cpu)
 
 
 def test_the_spans_jobs_lie_past_the_window_and_the_trace(cpu):
@@ -55,16 +65,27 @@ def test_a_program_without_the_span_recorder_reads_nothing(cpu, monkeypatch):
     c = toy_cell(CELLS[0])
     job = harness.job_module(c.traffic).Job(c.config, c.traffic, c.check, SEED, cpu)
     ctx = harness.Context(c, job, harness.stats.Window(), 0.0)
-    for name in READ + NEED_GRAPHS:
+    assert SPAN_METRICS
+    for name in SPAN_METRICS:
         assert harness.reader(name)(ctx) is None
     assert job.answers == {}
 
 
+def _cells(metric: dict) -> set:
+    return set(metric.get("workloads", CELLS))
+
+
 def test_capture_ms_is_read_only_where_each_build_captures():
-    spec = harness.load_spec()
-    m = {x["name"]: x for x in spec["per_layer"]}
+    m = {x["name"]: x for x in SPEC["per_layer"]}
     assert m["hilbert.capture_ms"]["workloads"] == ["lr8m.giga_int8"]
-    for name in READ + NEED_GRAPHS:
-        assert m[name]["source"] == "program_span"
+    assert set(SPAN_METRICS) >= {"hilbert.project_ms", "hilbert.consts_ms",
+                                 "hilbert.replay_itr_ms", "hilbert.off_graph_pct",
+                                 "hilbert.capture_ms"}
+    for name in SPAN_METRICS:
         assert m[name]["moves"] == "hilbert_points_per_s"
-    assert [x["name"] for x in spec["per_layer"]][-5:] == list(READ + NEED_GRAPHS)
+    # in each cell, the readers that run the spans' jobs come after the others
+    order = SPEC["per_layer"]
+    for i, a in enumerate(order):
+        for b in order[i + 1:]:
+            if a["source"] == "program_span" and b["source"] != "program_span":
+                assert not _cells(a) & _cells(b), (a["name"], b["name"])

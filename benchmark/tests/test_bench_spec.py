@@ -45,6 +45,8 @@ def test_cell_resolves_to_its_files(cell):
     assert c.entry["chips"] in (1, 4)
     job = harness.job_module(c.traffic)
     assert hasattr(job, "Job")
+    # what the benchmark's own tests need of the kind of job
+    assert callable(job.toy) and callable(job.control_size) and job.PLANTS
     assert set(c.check["limits"]) and all(v >= 0 for v in c.check["limits"].values())
     e2e = {m["name"] for m in c.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2

@@ -1,23 +1,35 @@
-"""The cells of BENCHMARK.json cut to toy sizes for the CPU."""
+"""Cells cut to toy sizes for the CPU, by what their kind of job declares
+(``toy``, ``control_size``): the cells of BENCHMARK.json by name, or any
+resolved cell."""
 
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 
-# toy sizes of each configuration: rows, coreset size, streamed chunk
-TOY = {"logistic_n100k_s500": (3000, 40, None),
-       "logistic_n8m_s500_int8": (6000, 40, 2500)}
+
+def cut(cell):
+    """``cell`` with its configuration cut to its job's toy size and its
+    check sampling three builds."""
+    from benchmark import harness
+
+    cell.config.update(harness.job_module(cell.traffic).toy(cell.config))
+    cell.check.update(check_builds=3)
+    return cell
+
+
+def cut_for_control(cell):
+    """``cell`` cut to its job's toy size, then to the size at which its
+    control is shown to fail, its check holding one build."""
+    from benchmark import harness
+
+    cut(cell)
+    cell.config.update(harness.job_module(cell.traffic).control_size(cell.config))
+    cell.check.update(check_builds=1)
+    return cell
 
 
 def toy_cell(name: str):
-    """The cell ``name`` with its configuration cut to a toy size (the
-    projection keeps S=500) and its check sampling three builds."""
+    """The cell ``name`` of BENCHMARK.json, cut by :func:`cut`."""
     from benchmark import harness
 
-    cell = harness.resolve(harness.load_spec(), name)
-    n, m, chunk = TOY[cell.entry["config"]]
-    cell.config.update(N=n, coreset_size=m)
-    if cell.config.get("stream_chunk_size"):
-        cell.config["stream_chunk_size"] = chunk
-    cell.check.update(check_builds=3)
-    return cell
+    return cut(harness.resolve(harness.load_spec(), name))
